@@ -1,5 +1,13 @@
 """Paper core of the port: graphs, random features, DDRF selection, the
-ragged reference solver and metrics."""
+ragged reference solver, metrics, and the asynchronous-gossip schedule
+with its ragged solver. Chebyshev acceleration is
+`repro_torch.core.acceleration` (it runs on the packed runtime)."""
+from repro_torch.core.async_gossip import (AsyncGossipConfig,
+                                           AsyncGossipResult,
+                                           activation_masks,
+                                           async_gossip_solve,
+                                           censor_schedule, edge_list,
+                                           edges_from_slot_table)
 from repro_torch.core.ddrf import (energy_scores, leverage_scores,
                                    select_features)
 from repro_torch.core.dekrr import (AuxMatrices, DeKRRConfig, DeKRRSolver,
@@ -12,6 +20,9 @@ from repro_torch.core.rff import (FeatureMap, featurize, gaussian_kernel,
                                   sample_rff)
 
 __all__ = [
+    "AsyncGossipConfig", "AsyncGossipResult", "activation_masks",
+    "async_gossip_solve", "censor_schedule", "edge_list",
+    "edges_from_slot_table",
     "AuxMatrices", "DeKRRConfig", "DeKRRSolver", "DeKRRState",
     "FeatureMap", "NodeData", "Topology", "circulant", "complete",
     "energy_scores", "erdos_renyi", "featurize", "gaussian_kernel",

@@ -548,12 +548,17 @@ def _check_backend(backend: str) -> None:
                          f"got {backend!r}")
 
 
-def _step_torch(packed: PackedProblem, theta: torch.Tensor) -> torch.Tensor:
+def _step_torch(packed: PackedProblem, theta: torch.Tensor,
+                nbr_theta: torch.Tensor | None = None) -> torch.Tensor:
     """The batched matmul round on [J, D, Dy] (scalar θ rides as Dy = 1,
-    so both layouts run the same arithmetic)."""
+    so both layouts run the same arithmetic). ``nbr_theta`` [J, K, D(, Dy)]
+    replaces the gather ``theta[nbr_idx]`` as the coupling source."""
     th = theta if theta.ndim == 3 else theta[..., None]
-    idx = packed.nbr_idx.long()
-    nbr = th[idx] * packed.nbr_mask[:, :, None, None].to(th.dtype)
+    if nbr_theta is None:
+        nbr = th[packed.nbr_idx.long()]
+    else:
+        nbr = nbr_theta if theta.ndim == 3 else nbr_theta[..., None]
+    nbr = nbr * packed.nbr_mask[:, :, None, None].to(th.dtype)
     coupled = (packed.p @ nbr).sum(dim=1)                 # [J, D, Dy]
     d = packed.d if packed.d.ndim == 3 else packed.d[..., None]
     new = packed.g @ (d + packed.s @ th + coupled)
@@ -566,7 +571,9 @@ def _self_idx(packed: PackedProblem) -> torch.Tensor:
 
 
 def step_batched(packed: PackedProblem, theta: torch.Tensor,
-                 backend: str = "cuda") -> torch.Tensor:
+                 backend: str = "cuda", *,
+                 active: torch.Tensor | None = None,
+                 nbr_theta: torch.Tensor | None = None) -> torch.Tensor:
     """One Jacobi round of Eq. 19 over all nodes, where the packed
     tensors live. theta [J, D_max] → [J, D_max] (or [J, D_max, Dy]).
     Padding stays exactly zero.
@@ -574,14 +581,39 @@ def step_batched(packed: PackedProblem, theta: torch.Tensor,
     ``backend="torch"`` is the batched matmul round; ``"cuda"`` and
     ``"cuda_fused"`` run the `dekrr_step` kernel (its plain version on
     CPU tensors) — the two differ only at the solve level.
+
+    Two extras serve the asynchronous gossip (`repro_torch.dist.
+    async_gossip`):
+
+    * ``active`` ([J], any dtype): nodes with active[j] == 0 pass their θ
+      rows through — `torch.where` on "torch", the masked kernel on the
+      ``cuda*`` backends. Omitted or all ones, the round is the
+      synchronous one bit for bit.
+    * ``nbr_theta`` ([J, K, D_max(, Dy)]): the staleness buffers to couple
+      against instead of ``theta[nbr_idx]``. On the ``cuda*`` backends
+      they are appended below θ as table rows J + j·K + k and the slot
+      table points there, so the kernel gathers as before.
     """
     _check_backend(backend)
     if backend == "torch":
-        return _step_torch(packed, theta)
+        new = _step_torch(packed, theta, nbr_theta)
+        if active is None:
+            return new
+        gate = (active != 0).reshape((-1,) + (1,) * (theta.ndim - 1))
+        return torch.where(gate, new, theta)
     from repro_torch.kernels.ops import dekrr_step
 
-    return dekrr_step(packed.g, packed.d, packed.s, packed.p, theta,
-                      packed.nbr_idx, _self_idx(packed), packed.nbr_mask)
+    j_nodes, k_slots = packed.num_nodes, packed.num_slots
+    if nbr_theta is None:
+        table, nbr_idx = theta, packed.nbr_idx
+    else:
+        table = torch.cat([theta, nbr_theta.reshape(
+            (j_nodes * k_slots,) + tuple(theta.shape[1:]))])
+        nbr_idx = j_nodes + torch.arange(
+            j_nodes * k_slots, dtype=torch.int32,
+            device=packed.device).reshape(j_nodes, k_slots)
+    return dekrr_step(packed.g, packed.d, packed.s, packed.p, table,
+                      nbr_idx, _self_idx(packed), packed.nbr_mask, active)
 
 
 def _run_rounds(packed: PackedProblem, theta: torch.Tensor, num_rounds: int,

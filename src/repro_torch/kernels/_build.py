@@ -29,7 +29,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("dekrr_step", "dekrr_solve", "rff_gram")
+SOURCES = ("dekrr_step", "dekrr_solve", "dekrr_async_solve",
+           "dekrr_cheb_solve", "rff_gram")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,14 +38,26 @@ _I = ctypes.c_int
 # stream are c_void_p so ctypes never truncates them to 32 bits.
 SIGNATURES = {
     "dekrr_step": {
-        "dekrr_step_f64": [_P] * 9 + [_I] * 4 + [_P],
-        "dekrr_step_f32": [_P] * 9 + [_I] * 4 + [_P],
+        "dekrr_step_f64": [_P] * 10 + [_I] * 4 + [_P],
+        "dekrr_step_f32": [_P] * 10 + [_I] * 4 + [_P],
     },
     "dekrr_solve": {
         "dekrr_solve_f64": [_P] * 11 + [_I] * 6 + [_P],
         "dekrr_solve_f32": [_P] * 11 + [_I] * 6 + [_P],
         "dekrr_solve_max_blocks_f64": [_I] * 3,
         "dekrr_solve_max_blocks_f32": [_I] * 3,
+    },
+    "dekrr_async_solve": {
+        "dekrr_async_solve_f64": [_P] * 18 + [_I] * 8 + [_P],
+        "dekrr_async_solve_f32": [_P] * 18 + [_I] * 8 + [_P],
+        "dekrr_async_solve_max_blocks_f64": [_I] * 3,
+        "dekrr_async_solve_max_blocks_f32": [_I] * 3,
+    },
+    "dekrr_cheb_solve": {
+        "dekrr_cheb_solve_f64": [_P] * 15 + [_I] * 6 + [_P],
+        "dekrr_cheb_solve_f32": [_P] * 15 + [_I] * 6 + [_P],
+        "dekrr_cheb_solve_max_blocks_f64": [_I] * 3,
+        "dekrr_cheb_solve_max_blocks_f32": [_I] * 3,
     },
     "rff_gram": {
         "rff_gram_f64": [_P] * 7 + [_I] * 4 + [ctypes.c_double, _P],

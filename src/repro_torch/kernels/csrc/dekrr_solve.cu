@@ -61,15 +61,8 @@ dekrr_solve_kernel(const T* __restrict__ g, const T* __restrict__ d,
                                     nbr_mask, wr + self_idx[j] * rows, smem,
                                     K, D, Dy);
       if (res != nullptr) {
-        local = dekrr::warp_max(local);
-        if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = local;
-        __syncthreads();
-        if (threadIdx.x == 0) {
-          T m = red[0];
-          for (int w = 1; w < dekrr::kWarps; ++w) m = fmax(m, red[w]);
-          res[static_cast<size_t>(r) * J + j] = m;
-        }
-        __syncthreads();
+        const T m = dekrr::block_max(local, red);
+        if (threadIdx.x == 0) res[static_cast<size_t>(r) * J + j] = m;
       }
     }
     grid.sync();
@@ -83,25 +76,9 @@ dekrr_solve_kernel(const T* __restrict__ g, const T* __restrict__ d,
   }
 }
 
-// Co-resident blocks of the solve kernel on this device, or a negative
-// CUDA error code.
 template <typename T>
-int max_blocks(size_t smem) {
-  cudaError_t err = dekrr::allow_smem(dekrr_solve_kernel<T>, smem);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return -static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) !=
-      cudaSuccess)
-    return -static_cast<int>(err);
-  if (!coop) return 0;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return -static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, dekrr_solve_kernel<T>, dekrr::kThreads, smem);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return per_sm * sms;
+size_t smem_bytes(int K, int D, int Dy) {
+  return dekrr::node_smem_elems(K, D, Dy) * sizeof(T);
 }
 
 template <typename T>
@@ -109,18 +86,10 @@ int launch(const void* g, const void* d, const void* s, const void* p,
            const void* theta0, const void* nbr_idx, const void* self_idx,
            const void* nbr_mask, void* out, void* res, void* work, int R, int J,
            int K, int D, int Dy, int T_rows, void* stream) {
-  const size_t smem = dekrr::node_smem_elems(K, D, Dy) * sizeof(T);
-  const int cap = max_blocks<T>(smem);
-  if (cap < 0) return -cap;
-  if (cap == 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  dim3 grid(J < cap ? J : cap);
   void* args[] = {&g,   &d,    &s,   &p, &theta0, &nbr_idx, &self_idx,
                   &nbr_mask, &out, &res, &work, &R, &J, &K, &D, &Dy, &T_rows};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(dekrr_solve_kernel<T>), grid,
-      dim3(dekrr::kThreads), args, smem, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return dekrr::coop_launch(dekrr_solve_kernel<T>, J, smem_bytes<T>(K, D, Dy),
+                            args, stream);
 }
 
 }  // namespace
@@ -130,11 +99,13 @@ extern "C" {
 // Co-resident block cap for a (K, D, Dy) problem; 0 when the device cannot
 // launch the kernel cooperatively, negative on a CUDA error.
 int dekrr_solve_max_blocks_f64(int K, int D, int Dy) {
-  return max_blocks<double>(dekrr::node_smem_elems(K, D, Dy) * sizeof(double));
+  return dekrr::coop_max_blocks(dekrr_solve_kernel<double>,
+                                smem_bytes<double>(K, D, Dy));
 }
 
 int dekrr_solve_max_blocks_f32(int K, int D, int Dy) {
-  return max_blocks<float>(dekrr::node_smem_elems(K, D, Dy) * sizeof(float));
+  return dekrr::coop_max_blocks(dekrr_solve_kernel<float>,
+                                smem_bytes<float>(K, D, Dy));
 }
 
 int dekrr_solve_f64(const void* g, const void* d, const void* s, const void* p,

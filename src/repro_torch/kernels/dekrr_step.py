@@ -1,7 +1,8 @@
-"""One Eq. 19 round over all nodes — CUDA kernel and its plain version.
+"""One Eq. 19 round over all nodes — CUDA kernel and its plain versions.
 
 Replaces `src/repro/kernels/dekrr_step.py::dekrr_step_pallas`
-(`_dekrr_step_kernel`). Per node j of the packed problem:
+(`_dekrr_step_kernel`, and with ``active`` its activation-masked variant
+`_dekrr_step_masked_kernel`). Per node j of the packed problem:
 
     out_j = G_j (d_j + S_j θ_self(j) + Σ_k m_jk P_jk θ_nbr(j,k))
 
@@ -9,7 +10,10 @@ Raw contract (the wrapper `repro_torch.kernels.ops.dekrr_step` builds it):
 g/s [J, D, D], p [J, K, D, D], d [J·Dy, D], θ table [T·Dy, D] with T ≠ J
 allowed (table row t owns flat rows [t·Dy, (t+1)·Dy)), nbr_idx/nbr_mask
 [J, K] int32, self_idx [J] int32 → [J·Dy, D]. Padded coordinates come out
-exactly 0 because G's padded rows are zero.
+exactly 0 because G's padded rows are zero. The masked variant adds
+active [J] int32: nodes with active[j] == 0 return their own θ-table rows
+unchanged; with all ones it is the unmasked round bit for bit (the kernel
+runs the same node body).
 
 The kernel (`csrc/dekrr_step.cu`, body in `csrc/dekrr_common.cuh`) is
 bound by the bytes of the (2 + K) D×D blocks it streams once per node;
@@ -44,10 +48,23 @@ def dekrr_step_reference(g, d, s, p, theta, nbr_idx, self_idx, nbr_mask,
     return (acc @ g.transpose(1, 2)).reshape(j_nodes * dy, d_feat)
 
 
+def dekrr_step_masked_reference(g, d, s, p, theta, nbr_idx, self_idx,
+                                nbr_mask, active, *, dy: int = 1
+                                ) -> torch.Tensor:
+    """Plain version of the activation-masked round: inactive nodes return
+    their own θ-table rows; active nodes run `dekrr_step_reference`."""
+    new = dekrr_step_reference(g, d, s, p, theta, nbr_idx, self_idx,
+                               nbr_mask, dy=dy)
+    own = _table_rows(theta, self_idx, dy).reshape(new.shape)
+    gate = torch.repeat_interleave(active != 0, dy)[:, None]
+    return torch.where(gate, new, own)
+
+
 def dekrr_step_cuda(g, d, s, p, theta, nbr_idx, self_idx, nbr_mask,
-                    out, *, dy: int) -> None:
+                    out, *, dy: int, active=None) -> None:
     """Launch the kernel on checked, contiguous CUDA tensors (int32 index
-    tables), writing out [J·Dy, D] on the current stream."""
+    tables, ``active`` [J] int32 or None for all ones), writing out
+    [J·Dy, D] on the current stream."""
     j_nodes, k_slots, d_feat = p.shape[0], p.shape[1], d.shape[1]
     lib = _build.library("dekrr_step")
     fn = lib.dekrr_step_f64 if g.dtype == torch.float64 \
@@ -55,6 +72,7 @@ def dekrr_step_cuda(g, d, s, p, theta, nbr_idx, self_idx, nbr_mask,
     stream = torch.cuda.current_stream(g.device).cuda_stream
     _build.check(fn(g.data_ptr(), d.data_ptr(), s.data_ptr(), p.data_ptr(),
                     theta.data_ptr(), nbr_idx.data_ptr(),
-                    self_idx.data_ptr(), nbr_mask.data_ptr(), out.data_ptr(),
-                    j_nodes, k_slots, d_feat, dy, stream),
+                    self_idx.data_ptr(), nbr_mask.data_ptr(),
+                    None if active is None else active.data_ptr(),
+                    out.data_ptr(), j_nodes, k_slots, d_feat, dy, stream),
                  "dekrr_step launch")

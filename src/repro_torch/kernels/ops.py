@@ -11,28 +11,37 @@ Layout owned here, mirroring `repro.kernels.ops`:
 * the Dy flatten ``[T, D, Dy] → [T·Dy, D]`` (`_flatten_dy` /
   `_unflatten_dy`);
 * the K ≥ 1 zero slot for edgeless graphs (`_pad_dekrr_operands`);
-* the bounds check of the slot tables (`_check_dekrr_indices`).
+* the bounds check of the slot tables (`_check_dekrr_indices`, and
+  `_check_async_nbr_indices` for the node-id tables of the async chain).
 
 The TPU wrappers' (8, 128) padding has no counterpart: the CUDA kernels
 mask their own ragged edges.
 
 `LAUNCHES` counts kernel launches per kernel; a wrapper adds one exactly
-where it launches its kernel, never on the CPU path.
+where it launches its kernel, never on the CPU path. The round kernel with
+an activation mask counts as ``dekrr_step_masked``, apart from the
+unmasked round.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.dekrr_solve import (dekrr_solve_cuda,
+from repro_torch.kernels.dekrr_solve import (dekrr_async_solve_cuda,
+                                             dekrr_async_solve_reference,
+                                             dekrr_cheb_solve_cuda,
+                                             dekrr_cheb_solve_reference,
+                                             dekrr_solve_cuda,
                                              dekrr_solve_reference)
 from repro_torch.kernels.dekrr_step import (dekrr_step_cuda,
+                                            dekrr_step_masked_reference,
                                             dekrr_step_reference)
 from repro_torch.kernels.ref import rff_gram_ref
 from repro_torch.kernels.rff_gram import (rff_gram_batched_reference,
                                           rff_gram_cuda)
 
-LAUNCHES = {"rff_gram": 0, "dekrr_step": 0, "dekrr_solve": 0}
+LAUNCHES = {"rff_gram": 0, "dekrr_step": 0, "dekrr_step_masked": 0,
+            "dekrr_solve": 0, "dekrr_async_solve": 0, "dekrr_cheb_solve": 0}
 _FLOATS = (torch.float32, torch.float64)
 
 
@@ -157,6 +166,25 @@ def _unflatten_dy(out: torch.Tensor, dy: int, ndim: int) -> torch.Tensor:
     return out.reshape(j_nodes, dy, -1).transpose(1, 2)
 
 
+def check_index_table(name: str, table, size: int, *, lo: int = 0) -> None:
+    """Every entry of the integer array-like ``table`` must lie in
+    ``[lo, size)``; raises ValueError naming the offending range. A kernel
+    gathering through an index table has no bounds check of its own (the
+    port's copy of `repro.analysis.vmem.check_index_table`)."""
+    arr = np.asarray(table)
+    if arr.size == 0:
+        return
+    if not np.issubdtype(arr.dtype, np.integer):
+        raise ValueError(
+            f"{name}: index table must be integer-typed, got {arr.dtype}")
+    amin, amax = int(arr.min()), int(arr.max())
+    if amin < lo or amax >= size:
+        raise ValueError(
+            f"{name}: indices must lie in [{lo}, {size}) but span "
+            f"[{amin}, {amax}] — an out-of-range slot would silently "
+            f"gather an arbitrary table row")
+
+
 def _check_dekrr_indices(t_rows: int, nbr_idx, self_idx, nbr_mask, *,
                          distinct_self: bool = False) -> None:
     """Bounds-check the slot tables against the θ-table row count on the
@@ -216,26 +244,37 @@ def _pad_dekrr_operands(name, g, d, s, p, theta, nbr_idx, self_idx,
 
 def dekrr_step(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
                p: torch.Tensor, theta: torch.Tensor, nbr_idx: torch.Tensor,
-               self_idx: torch.Tensor, nbr_mask: torch.Tensor
-               ) -> torch.Tensor:
+               self_idx: torch.Tensor, nbr_mask: torch.Tensor,
+               active: torch.Tensor | None = None) -> torch.Tensor:
     """One packed Eq. 19 round: θ_j ← G_j(d_j + S_j θ_sj + Σ m P_jk θ_rk).
 
     g/s [J, D, D], d [J, D], p [J, K, D, D], theta [T, D] (θ table, T ≠ J
     allowed), nbr_idx [J, K] / self_idx [J] rows into the table, nbr_mask
     [J, K] (nonzero = live slot) → [J, D]. Multi-output: d [J, D, Dy] /
     theta [T, D, Dy] → [J, D, Dy].
+
+    ``active`` ([J], any dtype) runs the activation-masked round of the
+    asynchronous gossip: nodes with active[j] == 0 return their θ-table
+    rows unchanged. With ``active`` omitted or all ones the arithmetic is
+    the unmasked round's, bit for bit.
     """
     name = "dekrr_step"
     on_cuda, dy, ops = _pad_dekrr_operands(name, g, d, s, p, theta, nbr_idx,
                                            self_idx, nbr_mask)
     _check_dekrr_indices(theta.shape[0], ops[5], ops[6], ops[7])
+    act = None
+    if active is not None:
+        _check_shape(name, "active", active, (d.shape[0],))
+        _on_cuda(name, d, active)             # raises on a device mix
+        act = (active != 0).to(torch.int32).contiguous()
     if not on_cuda:
-        out = dekrr_step_reference(*ops, dy=dy)
+        out = dekrr_step_reference(*ops, dy=dy) if act is None \
+            else dekrr_step_masked_reference(*ops, act, dy=dy)
     else:
         out = torch.empty((d.shape[0] * dy, d.shape[1]), dtype=d.dtype,
                           device=d.device)
-        dekrr_step_cuda(*ops, out, dy=dy)
-        LAUNCHES["dekrr_step"] += 1
+        dekrr_step_cuda(*ops, out, dy=dy, active=act)
+        LAUNCHES["dekrr_step" if act is None else "dekrr_step_masked"] += 1
     return _unflatten_dy(out, dy, d.ndim)
 
 
@@ -281,3 +320,173 @@ def dekrr_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
     LAUNCHES["dekrr_solve"] += 1
     out = _unflatten_dy(out, dy, d.ndim)
     return (out, res) if trace else out
+
+
+# ------------------------------------------------------------- async chain
+def _check_async_nbr_indices(j_nodes: int, nbr_idx: torch.Tensor,
+                             nbr_mask: torch.Tensor) -> None:
+    """The async chain's nbr_idx entries are NODE ids: they index the [J]
+    broadcast-flag vectors as well as θ rows, so live slots must lie in
+    [0, J), not merely inside the θ table."""
+    live = nbr_mask.detach().cpu().numpy() != 0
+    check_index_table("nbr_idx", nbr_idx.detach().cpu().numpy()[live],
+                      j_nodes)
+
+
+def _flatten_buffers(buf: torch.Tensor) -> torch.Tensor:
+    """[J, K, D] → [J·K, D]; [J, K, D, Dy] → [J·K·Dy, D] (slot (j, k) at
+    row block j·K + k)."""
+    j_nodes, k_slots, d_feat = buf.shape[:3]
+    if buf.ndim == 3:
+        return buf.reshape(j_nodes * k_slots, d_feat).contiguous()
+    return buf.transpose(2, 3).reshape(-1, d_feat).contiguous()
+
+
+def _unflatten_buffers(out: torch.Tensor, j_nodes: int, k_keep: int,
+                       dy: int, ndim: int) -> torch.Tensor:
+    """Invert `_flatten_buffers`, keeping the first ``k_keep`` slots (the
+    wrapper pads K = 0 to one slot)."""
+    blocks = out.reshape(j_nodes, -1, dy, out.shape[1])[:, :k_keep]
+    if ndim == 2:
+        return blocks[:, :, 0]
+    return blocks.transpose(2, 3)
+
+
+def dekrr_async_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
+                      p: torch.Tensor, theta: torch.Tensor, sent: torch.Tensor,
+                      buffers: torch.Tensor, nbr_idx: torch.Tensor,
+                      nbr_mask: torch.Tensor, active_tab: torch.Tensor,
+                      thresholds: torch.Tensor, *, gossip: str = "bernoulli",
+                      censored: bool = False, trace: bool = False):
+    """The whole R-round asynchronous-gossip schedule in one launch.
+
+    Block contract of `dekrr_step`, but θ is indexed by node id (row j =
+    node j, no self_idx): theta/sent [T, D] with T ≥ J, buffers [J, K, D]
+    (slot (j, k) holds the last θ node j received from nbr_idx[j, k]),
+    nbr_idx [J, K] node ids, nbr_mask [J, K]; the schedule is active_tab
+    [R, J] (nonzero = active) and thresholds [R] (read only when
+    ``censored``). ``gossip="edge"`` delivers only to receivers active in
+    that round. Multi-output: trailing Dy on theta/sent/d, buffers
+    [J, K, D, Dy]; the censor takes max|Δθ| over features and outputs.
+
+    Returns the state after the schedule (theta [J, D], sent [J, D],
+    buffers [J, K, D]), so chunked callers chain bit for bit; with
+    ``trace`` also res [R, J] (max|Δθ_j|) and bc [R, J] int32 (broadcast
+    flags), 0 for inactive nodes. R = 0 returns the state unchanged.
+    """
+    name = "dekrr_async_solve"
+    if gossip not in ("bernoulli", "edge"):
+        raise ValueError(f"gossip must be 'bernoulli' or 'edge', "
+                         f"got {gossip!r}")
+    j_nodes = d.shape[0]
+    num_rounds = active_tab.shape[0] if active_tab.ndim == 2 else -1
+    _check_shape(name, "active_tab", active_tab, (num_rounds, j_nodes))
+    _check_shape(name, "thresholds", thresholds, (num_rounds,))
+    _check_shape(name, "sent", sent, tuple(theta.shape))
+    _check_shape(name, "buffers", buffers,
+                 (j_nodes, nbr_idx.shape[1]) + tuple(d.shape[1:]))
+    if theta.shape[0] < j_nodes:
+        raise ValueError(f"{name}: theta has {theta.shape[0]} rows, fewer "
+                         f"than the {j_nodes} nodes")
+    self_idx = torch.arange(j_nodes, dtype=torch.int32, device=d.device)
+    on_cuda, dy, ops = _pad_dekrr_operands(name, g, d, s, p, theta, nbr_idx,
+                                           self_idx, nbr_mask)
+    _check_floats(name, d, sent, buffers, thresholds)
+    _on_cuda(name, d, sent, buffers, active_tab, thresholds)
+    _check_async_nbr_indices(j_nodes, ops[5], ops[7])
+    if num_rounds == 0:
+        out = (theta[:j_nodes], sent[:j_nodes], buffers)
+        if trace:
+            return out + (theta.new_zeros((0, j_nodes)),
+                          torch.zeros((0, j_nodes), dtype=torch.int32,
+                                      device=d.device))
+        return out
+    g_, d_, s_, p_, theta_f, nbr_idx_, _, nbr_mask_ = ops
+    k_pad = p_.shape[1]
+    if buffers.shape[1] == 0:
+        buffers = buffers.new_zeros((j_nodes, k_pad) + tuple(d.shape[1:]))
+    raw = (g_, d_, s_, p_, theta_f, _flatten_dy(sent),
+           _flatten_buffers(buffers), nbr_idx_, nbr_mask_,
+           (active_tab != 0).to(torch.int32).contiguous(),
+           thresholds.contiguous())
+    if not on_cuda:
+        outs = dekrr_async_solve_reference(
+            *raw, censored=censored, edge_gossip=gossip == "edge", dy=dy,
+            trace=trace)
+    else:
+        d_feat = d.shape[1]
+        kw = dict(dtype=d.dtype, device=d.device)
+        outs = (torch.empty((j_nodes * dy, d_feat), **kw),
+                torch.empty((j_nodes * dy, d_feat), **kw),
+                torch.empty((j_nodes * k_pad * dy, d_feat), **kw))
+        res = bc = None
+        if trace:
+            res = torch.empty((num_rounds + 1, j_nodes), **kw)
+            bc = torch.empty((num_rounds + 1, j_nodes), dtype=torch.int32,
+                             device=d.device)
+            outs = outs + (res, bc)
+        work = torch.empty((2,) + tuple(theta_f.shape), **kw)
+        flags = torch.empty((2 * j_nodes,), dtype=torch.int32,
+                            device=d.device)
+        dekrr_async_solve_cuda(*raw, *outs[:3], res, bc, work, flags,
+                               censored=censored,
+                               edge_gossip=gossip == "edge", dy=dy)
+        LAUNCHES[name] += 1
+    state = (_unflatten_dy(outs[0], dy, d.ndim),
+             _unflatten_dy(outs[1], dy, d.ndim),
+             _unflatten_buffers(outs[2], j_nodes, nbr_idx.shape[1], dy,
+                                d.ndim))
+    if trace:
+        return state + (outs[3][:num_rounds], outs[4][:num_rounds])
+    return state
+
+
+# --------------------------------------------------------- Chebyshev chain
+def dekrr_cheb_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
+                     p: torch.Tensor, theta: torch.Tensor,
+                     delta: torch.Tensor, nbr_idx: torch.Tensor,
+                     self_idx: torch.Tensor, nbr_mask: torch.Tensor,
+                     alphas: torch.Tensor, betas: torch.Tensor, *,
+                     trace: bool = False):
+    """R Chebyshev-accelerated rounds in one launch.
+
+    `dekrr_solve`'s operand contract plus delta [J, D] (each node's search
+    direction p) and the [R] (α, β) schedule of
+    `repro_torch.core.acceleration.chebyshev_coefficients`. Returns the
+    (θ rows [J, D], p rows [J, D]) after the schedule, so chunked callers
+    chain bit for bit; with ``trace`` also res [R, J] = max|Δθ_j| of the
+    accelerated step. R = 0 returns (theta[self_idx], delta). Multi-output:
+    trailing Dy on d/theta/delta. self_idx rows must be distinct.
+    """
+    name = "dekrr_cheb_solve"
+    j_nodes = d.shape[0]
+    num_rounds = alphas.shape[0] if alphas.ndim == 1 else -1
+    _check_shape(name, "alphas", alphas, (num_rounds,))
+    _check_shape(name, "betas", betas, (num_rounds,))
+    _check_shape(name, "delta", delta, tuple(d.shape))
+    on_cuda, dy, ops = _pad_dekrr_operands(name, g, d, s, p, theta, nbr_idx,
+                                           self_idx, nbr_mask)
+    _check_floats(name, d, delta, alphas, betas)
+    _on_cuda(name, d, delta, alphas, betas)
+    _check_dekrr_indices(theta.shape[0], ops[5], ops[6], ops[7],
+                         distinct_self=True)
+    if num_rounds == 0:
+        out = (theta[self_idx.long()], delta)
+        return out + (theta.new_zeros((0, j_nodes)),) if trace else out
+    raw = ops[:5] + (_flatten_dy(delta),) + ops[5:] + (
+        alphas.contiguous(), betas.contiguous())
+    if not on_cuda:
+        outs = dekrr_cheb_solve_reference(*raw, dy=dy, trace=trace)
+    else:
+        kw = dict(dtype=d.dtype, device=d.device)
+        outs = (torch.empty((j_nodes * dy, d.shape[1]), **kw),
+                torch.empty((j_nodes * dy, d.shape[1]), **kw))
+        res = torch.empty((num_rounds, j_nodes), **kw) if trace else None
+        work = torch.empty((2,) + tuple(ops[4].shape), **kw)
+        dekrr_cheb_solve_cuda(*raw, *outs, res, work, dy=dy)
+        LAUNCHES[name] += 1
+        if trace:
+            outs = outs + (res,)
+    out = (_unflatten_dy(outs[0], dy, d.ndim),
+           _unflatten_dy(outs[1], dy, d.ndim))
+    return out + (outs[2],) if trace else out

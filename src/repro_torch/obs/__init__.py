@@ -1,4 +1,4 @@
-"""Telemetry containers of the port (slice 1: `SolveTrace` only)."""
-from repro_torch.obs.trace import SolveTrace
+"""Telemetry containers of the port: the convergence traces."""
+from repro_torch.obs.trace import AsyncSolveTrace, SolveTrace
 
-__all__ = ["SolveTrace"]
+__all__ = ["AsyncSolveTrace", "SolveTrace"]

@@ -13,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import interop
+from repro_torch.dist import AsyncGossipState, async_step_batched
 from repro_torch.kernels import ops
 from repro_torch.kernels.dekrr_solve import dekrr_solve_reference
-from repro_torch.kernels.dekrr_step import dekrr_step_reference
+from repro_torch.kernels.dekrr_step import (dekrr_step_masked_reference,
+                                            dekrr_step_reference)
 from repro_torch.kernels.rff_gram import rff_gram_batched_reference
 
 CASES = [
@@ -57,6 +60,25 @@ def dekrr_case(j_nodes, k_slots, d_feat, dy, extra_rows, seed, *,
     nbr_mask = (rng.integers(0, 2, (j_nodes, k_slots)) if masked
                 else np.ones((j_nodes, k_slots))).astype(np.float64)
     return g, d, s, p, theta, nbr_idx, self_idx, nbr_mask
+
+
+def async_case(j_nodes, k_slots, d_feat, dy, extra_rows, *, rounds, seed):
+    """numpy operands of the async chain: g, d, s, p, theta [T], sent [T],
+    buffers [J, K, D], nbr_idx (node ids), nbr_mask, active [R, J] int32,
+    thresholds [R] (drawn around the censor deltas of these operands, so
+    the censor fires on some node-rounds)."""
+    g, d, s, p, _, _, _, nbr_mask = dekrr_case(j_nodes, k_slots, d_feat, dy,
+                                               0, seed)
+    rng = np.random.default_rng(seed + 100)
+    tail = () if dy == 1 else (dy,)
+    theta = rng.normal(size=(j_nodes + extra_rows, d_feat) + tail)
+    sent = theta + 0.5 * rng.normal(size=theta.shape)
+    buffers = rng.normal(size=(j_nodes, k_slots, d_feat) + tail)
+    nbr_idx = rng.integers(0, j_nodes, (j_nodes, k_slots)).astype(np.int32)
+    active = rng.integers(0, 2, (rounds, j_nodes)).astype(np.int32)
+    thresholds = rng.uniform(0.3, 1.5, rounds)
+    return (g, d, s, p, theta, sent, buffers, nbr_idx, nbr_mask, active,
+            thresholds)
 
 
 def to_t(arrays):
@@ -112,3 +134,106 @@ def test_gpu_rff_gram_matches_plain(cuda_device, dtype, rtol):
     for a, w in zip(got, want):
         assert_close(a, w.cpu(), rtol=rtol)
     assert ops.LAUNCHES["rff_gram"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-9),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("j,k,dfeat,dy,extra", CASES)
+def test_gpu_masked_round_matches_plain(cuda_device, dtype, rtol, j, k,
+                                        dfeat, dy, extra):
+    args = [a.to(cuda_device) for a in to_t(
+        dekrr_case(j, k, dfeat, dy, extra, seed=j * 10 + k + dy))]
+    args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+    active = (torch.arange(j, device=cuda_device) % 2).to(torch.int32)
+    lay = ops._pad_dekrr_operands("t", *args)[2]
+    want = ops._unflatten_dy(dekrr_step_masked_reference(*lay, active,
+                                                         dy=dy),
+                             dy, args[1].ndim)
+    got = ops.dekrr_step(*args, active)
+    torch.cuda.synchronize()
+    assert_close(got, want.cpu(), rtol=rtol)
+    ones = torch.ones(j, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(ops.dekrr_step(*args, ones), ops.dekrr_step(*args))
+    assert ops.LAUNCHES["dekrr_step_masked"] == 2
+    assert ops.LAUNCHES["dekrr_step"] == 1
+
+
+ASYNC_CASES = [c for c in CASES if c[4] == 0] + [(4, 2, 9, 3, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-9),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("j,k,dfeat,dy,extra", ASYNC_CASES)
+@pytest.mark.parametrize("gossip", ["bernoulli", "edge"])
+@pytest.mark.parametrize("censored", [False, True])
+def test_gpu_async_chain_matches_plain(cuda_device, dtype, rtol, j, k,
+                                       dfeat, dy, extra, gossip, censored):
+    """The async-chain kernel against its plain version, and (f64, T = J)
+    bit for bit against the masked round kernel run round by round with
+    the delivery rule."""
+    cpu = [a.to(dtype) if a.is_floating_point() else a for a in to_t(
+        async_case(j, k, dfeat, dy, extra, rounds=6, seed=j + k + dy))]
+    kw = dict(gossip=gossip, censored=censored, trace=True)
+    want = ops.dekrr_async_solve(*cpu, **kw)
+    got = ops.dekrr_async_solve(*[a.to(cuda_device) for a in cpu], **kw)
+    torch.cuda.synchronize()
+    for a, w in zip(got[:4], want[:4]):
+        assert_close(a, w, rtol=rtol)
+    assert torch.equal(got[4].cpu(), want[4])
+    assert ops.LAUNCHES["dekrr_async_solve"] == 1
+    if dtype != torch.float64 or extra:
+        return
+    g, d, s, p, theta, sent, bufs, nbr_idx, nbr_mask, active, thr = (
+        a.to(cuda_device) for a in cpu)
+    packed = interop.packed_from_arrays(
+        g=cpu[0].numpy(), d=cpu[1].numpy(), s=cpu[2].numpy(),
+        p=cpu[3].numpy(), theta_mask=np.ones((j, dfeat)),
+        nbr_idx=cpu[7].numpy(), nbr_mask=cpu[8].numpy(), device=cuda_device)
+    state = AsyncGossipState(theta, sent, bufs)
+    for r in range(active.shape[0]):
+        state, _ = async_step_batched(packed, state, active[r], thr[r],
+                                      gossip=gossip, censored=censored,
+                                      backend="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], state.theta)
+    assert torch.equal(got[1], state.sent)
+    assert torch.equal(got[2], state.buffers)
+    assert ops.LAUNCHES["dekrr_step_masked"] == active.shape[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-9),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("j,k,dfeat,dy,extra", CASES)
+def test_gpu_cheb_chain_matches_plain(cuda_device, dtype, rtol, j, k, dfeat,
+                                      dy, extra):
+    """The Chebyshev-chain kernel against its plain version; chunked
+    launches equal one launch bit for bit."""
+    cpu = [a.to(dtype) if a.is_floating_point() else a for a in to_t(
+        dekrr_case(j, k, dfeat, dy, extra, seed=j * 10 + k + dy))]
+    rng = np.random.default_rng(j + k)
+    delta = torch.as_tensor(rng.normal(size=tuple(cpu[1].shape)),
+                            dtype=dtype)
+    alphas = torch.as_tensor(rng.uniform(0.5, 1.5, 7), dtype=dtype)
+    betas = torch.as_tensor(rng.uniform(0.0, 0.3, 7), dtype=dtype)
+    cpu = cpu[:5] + [delta] + cpu[5:] + [alphas, betas]
+    want = ops.dekrr_cheb_solve(*cpu, trace=True)
+    dev = [a.to(cuda_device) for a in cpu]
+    got = ops.dekrr_cheb_solve(*dev, trace=True)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert_close(a, w, rtol=rtol)
+    assert ops.LAUNCHES["dekrr_cheb_solve"] == 1
+    if extra:                   # a chunk boundary carries only the J rows
+        return
+    dev[7] = torch.arange(j, dtype=torch.int32, device=cuda_device)
+    whole = ops.dekrr_cheb_solve(*dev, trace=True)
+    first = ops.dekrr_cheb_solve(*dev[:9], dev[9][:3], dev[10][:3],
+                                 trace=True)
+    rest = ops.dekrr_cheb_solve(*dev[:4], first[0], first[1], *dev[6:9],
+                                dev[9][3:], dev[10][3:], trace=True)
+    torch.cuda.synchronize()
+    assert torch.equal(rest[0], whole[0]) and torch.equal(rest[1], whole[1])
+    assert torch.equal(torch.cat([first[2], rest[2]]), whole[2])
