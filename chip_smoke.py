@@ -3,14 +3,14 @@
     python3 chip_smoke.py
 
 1. Card: name and power limit (nvidia-smi), TF32 switched off.
-2. Build: the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. Build: the six CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel), with each ``-Xptxas -v`` report.
-3. Kernel phases: each kernel against its plain PyTorch version on the
-   card, at the main path's shapes, in float64 and float32, with the
-   invariants that hold bit for bit (a solve launch == round launches;
-   the masked round at all ones == the unmasked one; an async-chain
-   launch == masked round launches plus the delivery rule; chunked
-   Chebyshev launches == one launch).
+3. Kernel phases: each solve-path kernel against its plain PyTorch
+   version on the card, at the main path's shapes, in float64 and
+   float32, with the invariants that hold bit for bit (a solve launch ==
+   round launches; the masked round at all ones == the unmasked one; an
+   async-chain launch == masked round launches plus the delivery rule;
+   chunked Chebyshev launches == one launch).
 4. Main path at the paper's full width (Table 2, ``wave``): N = 63,600,
    d = 148, noniid_y over J = 10 nodes of circulant(10, (1, 2)), D_j = 200
    energy-selected DDRF features from D0 = 4,000 candidates per node,
@@ -25,14 +25,33 @@
 6. Chebyshev acceleration on the same problem: the spectral interval on
    cuda, then chebyshev_solve_packed on cuda_fused, == cuda at rtol
    1e-9, and strictly fewer rounds than plain Jacobi to the same error.
-7. Launch counts of each path and run, zeroed just before it.
-8. Kernel times by CUDA events beside their plain versions, a PyTorch
-   yardstick and the least time the card could take.
+7. The featurize kernel (``rff_features``) against its plain versions:
+   f64 and f32 at D = 200, d = 148, N ∈ {8, 64, 512} and a ragged
+   D = 37, d = 5, N = 13 (f64 at rtol 1e-9); bf16 (``rff_features_lowp``)
+   bit-equal to the plain bf16 version at 99% of the entries or more,
+   and within the forward-error model bound of the f64 value at every
+   entry.
+8. Serving at full width: θ of the main path's cuda_fused solve and the
+   DDRF maps taken into a ServeSnapshot (staleness residual from one
+   more round), published to a SnapshotRegistry, and 512 test-split
+   queries (widths 1–8, half network-mean, half per-node) answered by a
+   2-replica DeKRRReplicaServer at each precision (None, bf16, int8):
+   full precision == solver.predict at rtol 1e-9, replicas == one
+   engine, every low-precision answer within the f32 GEMV's rounding of
+   the same answer computed by the plain versions on the card, and
+   within its attached bound, a second publish (θ after one more round) served as version 2, and J
+   featurize launches per wave (plus J calibration-stripe launches on
+   the low-precision paths); p50, p99 and qps per precision, and at full
+   precision on 1 replica.
+9. Launch counts of each path and run, zeroed just before it.
+10. Kernel times by CUDA events (timed on the device, behind a spin that
+   lets the host queue the launches first) beside their plain versions,
+   a PyTorch yardstick and the least time the card could take.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase
 exits non-zero before it. Without a CUDA device the script exits
-non-zero. ``--cpu-rehearsal`` runs steps 4–6 on the CPU at a small size
-(the kernels' plain versions), for the tests.
+non-zero. ``--cpu-rehearsal`` runs steps 4–6 and 8 on the CPU at a small
+size (the kernels' plain versions), for the tests.
 """
 from __future__ import annotations
 
@@ -44,17 +63,21 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
-# f64 tensor-core rate; f32 outside the tensor cores has the same rate.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the f64
+# tensor-core rate (f32 outside the tensor cores has the same rate) and
+# the dense bf16 tensor-core rate.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12,
+              torch.bfloat16: 989e12}
 
 TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
+SPIN_CYCLES = 20_000_000    # ~10 ms at the H100's ~1.98 GHz SM clock
 
 # The paper's Table 2 `wave` setting.
 J_NODES = 10
@@ -74,6 +97,19 @@ ASYNC_TOL = 1e-10
 ASYNC_CHUNK = 16    # async_solve_batched's default tol-check chunk
 PHASE_ROUNDS = 7    # rounds of the chain kernels' phases
 CHEB_TOL = 1e-8     # relative error of the rounds-to-tolerance comparison
+
+# Serving: the featurize kernel's phase shapes (D, d, N), and the replica
+# server's load.
+FEATURE_SHAPES = ((D_PER_NODE, 148, 8), (D_PER_NODE, 148, 64),
+                  (D_PER_NODE, 148, 512), (37, 5, 13))
+SERVE_N = 512       # the column bucket of the serving waves
+SERVE_QUERIES = 512
+SERVE_REPLICAS = 2
+SERVE_BATCH = 64
+PRECISIONS = (None, "bf16", "int8")
+U_BF16 = 2.0 ** -8
+U_F32 = 2.0 ** -24
+BIT_EQUAL_SHARE = 0.99   # bf16 kernel vs its plain version (sum order)
 
 
 class PhaseError(RuntimeError):
@@ -98,18 +134,22 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
     bad = err > rtol * want.abs() + rtol * scale
     max_err = err.max().item() if err.numel() else 0.0
     if not torch.isfinite(got).all() or bad.any():
-        raise PhaseError(f"{name}: kernel disagrees with its plain version "
-                         f"(max abs err {max_err:.3e}, max |ref| "
-                         f"{scale:.3e}, rtol {rtol:g})")
+        raise PhaseError(f"{name}: disagrees beyond rtol {rtol:g} (max abs "
+                         f"err {max_err:.3e}, max |ref| {scale:.3e})")
     return max_err
 
 
 def cuda_ms(fn, *, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn by CUDA events. The device spins ~10 ms
+    before the start event, so the host has queued the timed launches by
+    then: a launch shorter than its host-side call is timed on the
+    device, not at the pace the host enqueues it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -459,7 +499,7 @@ def main_path(device: str, *, subsample: int | None, d_per_node: int,
     return dict(solver=solver, packed=packed, theta=theta,
                 theta_step=theta_step, rounds=rounds, trace=trace,
                 rse=test_rse, t_pack=t_pack, t_solve=t_solve,
-                launches=launches, n_train=n_train, preds=preds)
+                launches=launches, n_train=n_train, preds=preds, test=test)
 
 
 def check_main_path(run: dict) -> dict:
@@ -685,6 +725,298 @@ def check_cheb_launches(c: dict, iters: int = 60) -> dict:
             raise PhaseError(f"Chebyshev {key} launch counts {got}, "
                              f"expected {expect}")
     return {"dekrr_cheb_solve": 1}
+
+
+# ------------------------------------------------------------ featurize
+def _lowp_bound(omega, bias, x, scale):
+    """s·((3u + γ_d)(|Ω||x| + |b|) + 3u), the bf16 featurize model bound
+    per entry, u = 2⁻⁸, in float64."""
+    dim = omega.shape[1]
+    nu = min(dim * U_BF16, 0.5)
+    mag = omega.abs() @ x.abs() + bias.abs()[:, None]
+    return scale * ((3 * U_BF16 + nu / (1 - nu)) * mag + 3 * U_BF16)
+
+
+def features_phase() -> dict[str, float]:
+    """The featurize kernel against its plain versions on the card:
+    f64/f32 at rtol TOL[dtype]; bf16 bit-equal to the plain bf16 version
+    at a share of at least BIT_EQUAL_SHARE of the entries (the f32 sums
+    may run in another order), and within the model bound of the f64
+    value. Returns the largest f64 error and the largest bf16 difference
+    from the plain bf16 version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rff_features import (rff_features_lowp_reference,
+                                                  rff_features_reference)
+
+    errs = {"rff_features": 0.0, "rff_features_lowp": 0.0}
+    shares = []
+    for d_feat, dim, n in FEATURE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(d_feat * n)
+        kw = dict(dtype=torch.float64, device="cuda", generator=gen)
+        omega = torch.randn((d_feat, dim), **kw) / SIGMA
+        bias = torch.rand((d_feat,), **kw) * (2 * math.pi)
+        x = torch.randn((dim, n), **kw)
+        scale = math.sqrt(2.0 / d_feat)
+        case = f"D={d_feat} d={dim} N={n}"
+        for dtype in (torch.float64, torch.float32):
+            args = [t.to(dtype) for t in (omega, bias, x)]
+            got = ops.rff_features(*args, scale=scale)
+            want = rff_features_reference(*args, scale=scale)
+            torch.cuda.synchronize()
+            e = compare(f"rff_features {case} {dtype}", got, want, dtype)
+            if dtype == torch.float64:
+                errs["rff_features"] = max(errs["rff_features"], e)
+        x32 = x.float()
+        got = ops.rff_features_lowp(omega, bias, x32, scale=scale)
+        plain = rff_features_lowp_reference(omega, bias, x32, scale=scale)
+        exact = torch.cos(omega @ x32.double() + bias[:, None]) * scale
+        bound = _lowp_bound(omega, bias, x32.double(), scale)
+        torch.cuda.synchronize()
+        err = (got.double() - exact).abs()
+        if not (torch.isfinite(got).all() and (err <= bound).all()):
+            worst = (err / bound).max().item()
+            raise PhaseError(f"rff_features_lowp {case}: an entry lies "
+                             f"outside the bf16 model bound (max "
+                             f"|err|/bound {worst:.3f})")
+        share = (got == plain).double().mean().item()
+        if share < BIT_EQUAL_SHARE:
+            raise PhaseError(f"rff_features_lowp {case}: only {share:.4f} "
+                             f"of the entries are bit-equal to the plain "
+                             f"bf16 version (needs {BIT_EQUAL_SHARE})")
+        errs["rff_features_lowp"] = max(errs["rff_features_lowp"],
+                                        (got - plain).abs().max().item())
+        shares.append((case, share, (err / bound).max().item()))
+    print("featurize phase: pass (f64/f32 vs plain; bf16 share bit-equal "
+          "to plain and max |err|/model bound: "
+          + ", ".join(f"{c}: {sh:.4f}, {r:.3g}" for c, sh, r in shares)
+          + ")", flush=True)
+    return errs
+
+
+# -------------------------------------------------------------- serving
+def serve_snapshot(run: dict, theta: torch.Tensor, version: int):
+    """A ServeSnapshot of the packed θ with the main path's DDRF maps and
+    StalenessBound(version, 0, 0, max|F(θ) − θ|); also returns F(θ), the
+    θ after one more round (its residual round, on the cuda backend)."""
+    from repro_torch.dist import step_batched, unpack_theta
+    from repro_torch.stream import ServeSnapshot, StalenessBound
+
+    packed = run["packed"]
+    nxt = step_batched(packed, theta, backend="cuda")
+    residual = (nxt - theta).abs().max().item()
+    snap = ServeSnapshot(
+        feature_maps=tuple(run["solver"].feature_maps),
+        theta=tuple(unpack_theta(packed, theta)),
+        staleness=StalenessBound(version, 0, 0, residual))
+    return snap, nxt
+
+
+def serve_queries(test, count: int, seed: int, uid0: int = 0) -> list:
+    """``count`` queries of 1–8 test-split columns: even uids ask for the
+    network mean (columns from any node), odd ones for node j's local
+    predictor (columns from node j's split). Width-1 queries are 1-D."""
+    from repro_torch.serve import KernelQuery
+
+    rng = np.random.default_rng(seed)
+    xs = [nd.x.cpu().numpy() for nd in test]
+    out = []
+    for i in range(count):
+        j = int(rng.integers(len(xs)))
+        width = int(rng.integers(1, 9))
+        cols = rng.integers(0, xs[j].shape[1], width)
+        x = xs[j][:, cols]
+        out.append(KernelQuery(uid=uid0 + i, x=x[:, 0] if width == 1 else x,
+                               node=None if i % 2 == 0 else j))
+    return out
+
+
+def serve_path(run: dict, *, queries: int, seed: int = 1) -> dict:
+    """The serving tier on the main path's solution: snapshot → registry
+    → a replica server per precision, then a second publish."""
+    from repro_torch.serve import DeKRRReplicaServer, DeKRRServeEngine
+    from repro_torch.stream import SnapshotRegistry
+
+    snap, theta2 = serve_snapshot(run, run["theta"], version=1)
+    registry = SnapshotRegistry()
+    registry.publish(snap)
+    test = run["test"]
+    out = dict(snap=snap, registry=registry, runs={})
+    for precision in PRECISIONS:
+        srv = DeKRRReplicaServer(registry, replicas=SERVE_REPLICAS,
+                                 batch_size=SERVE_BATCH, backend="cuda",
+                                 precision=precision)
+        srv.run(serve_queries(test, SERVE_BATCH, seed + 100))   # warm-up
+        before = srv.waves_served
+        qs = serve_queries(test, queries, seed)
+        _, secs, launches = _launched(lambda: srv.run(qs))
+        out["runs"][precision] = dict(queries=qs, report=srv.report(),
+                                      waves=srv.waves_served - before,
+                                      secs=secs, launches=launches)
+    out["engine"] = DeKRRServeEngine(registry, batch_size=SERVE_BATCH,
+                                     backend="cuda").run(
+        serve_queries(test, queries, seed))
+    # the same full-precision load on one replica, beside the two above
+    one = DeKRRReplicaServer(registry, replicas=1, batch_size=SERVE_BATCH,
+                             backend="cuda")
+    one.run(serve_queries(test, SERVE_BATCH, seed + 100))     # warm-up
+    one.run(serve_queries(test, queries, seed))
+    out["one_replica"] = one.report()
+    snap2, _ = serve_snapshot(run, theta2, version=2)
+    out["version2"] = registry.publish(snap2)
+    out["snap2"] = snap2
+    srv = DeKRRReplicaServer(registry, replicas=SERVE_REPLICAS,
+                             batch_size=SERVE_BATCH, backend="cuda")
+    out["after"] = srv.run(serve_queries(test, SERVE_BATCH, seed + 1,
+                                         uid0=queries))
+    return out
+
+
+def _predict_all(solver, theta, queries) -> list:
+    """solver.predict on each query's columns, one call per node choice."""
+    groups: dict = {}
+    for i, q in enumerate(queries):
+        groups.setdefault(q.node, []).append(i)
+    want = [None] * len(queries)
+    for node, idx in groups.items():
+        blocks = [np.asarray(queries[i].x).reshape(
+            queries[i].x.shape[0], -1) for i in idx]
+        x = torch.as_tensor(np.concatenate(blocks, axis=1),
+                            device=theta[0].device)
+        pred = solver.predict(theta, x, node=node).cpu().numpy()
+        start = 0
+        for i, blk in zip(idx, blocks):
+            want[i] = pred[start:start + blk.shape[1]]
+            start += blk.shape[1]
+    return want
+
+
+def _answers(queries) -> np.ndarray:
+    return np.concatenate([np.atleast_1d(np.asarray(q.prediction,
+                                                    dtype=np.float64))
+                           for q in queries])
+
+
+def _plain_lowp(snap, queries, precision: str):
+    """The low-precision answers to ``queries`` computed by the plain
+    versions on the snapshot's device, column by column: bf16 features
+    (`rff_features_lowp_reference`; the bf16 `featurize` for cos_sin
+    maps), then the f32 GEMV (bf16) or the int8 quantization of θ and of
+    each feature column with an exact product (int8). Returns the answers
+    and, per answer entry, the rounding two orders of the f32 sums may
+    differ by: 2γ_D·|θ₃₂|ᵀ|z| per node plus 4u·Σ|f_j| for the mean."""
+    from repro_torch.core.rff import FeatureMap, featurize
+    from repro_torch.kernels.rff_features import rff_features_lowp_reference
+
+    blocks = [np.asarray(q.x, dtype=np.float64).reshape(q.x.shape[0], -1)
+              for q in queries]
+    x32 = torch.as_tensor(np.concatenate(blocks, axis=1),
+                          device=snap.device).float()
+    bf16 = torch.bfloat16
+    fs, tols = [], []
+    for fm, theta in zip(snap.feature_maps, snap.theta):
+        t32 = (theta[:, None] if theta.ndim == 1 else theta).float()
+        d_feat = t32.shape[0]
+        if fm.kind == "cos_bias":
+            z = rff_features_lowp_reference(
+                fm.omega, fm.bias, x32,
+                scale=math.sqrt(2.0 / fm.num_frequencies))
+        else:
+            lo = FeatureMap(omega=fm.omega.to(bf16), bias=None, kind=fm.kind)
+            z = featurize(lo, x32.to(bf16)).float()
+        if precision == "int8":
+            tscale = t32.abs().max(dim=0).values.clamp_min(1e-30) / 127.0
+            tq = torch.clamp(torch.round(t32 / tscale), -127, 127)
+            c = z.abs().max(dim=0).values.clamp_min(1e-30) / 127.0
+            zq = torch.clamp(torch.round(z / c), -127, 127)
+            f = (tq.T.double() @ zq.double()).float() * tscale[:, None] \
+                * c[None, :]
+        else:
+            f = t32.T @ z
+        nu = min(d_feat * U_F32, 0.5)
+        fs.append(f.double())
+        tols.append(2 * nu / (1 - nu) * (t32.abs().T @ z.abs()).double())
+    fs, tols = torch.stack(fs), torch.stack(tols)     # [J, Dyy, columns]
+    mean_tol = tols.mean(dim=0) + 4 * U_F32 * fs.abs().mean(dim=0)
+    want, tol, start = [], [], 0
+    for q, blk in zip(queries, blocks):
+        sl = slice(start, start + blk.shape[1])
+        start += blk.shape[1]
+        if q.node is None:
+            want.append(fs.mean(dim=0)[:, sl])
+            tol.append(mean_tol[:, sl])
+        else:
+            want.append(fs[q.node][:, sl])
+            tol.append(tols[q.node][:, sl])
+    flat = lambda ts: np.concatenate([t.cpu().numpy().ravel() for t in ts])
+    return flat(want), flat(tol)
+
+
+def check_serve_path(sv: dict, run: dict, on_card: bool) -> dict:
+    """The serving checks; raises on failure."""
+    solver = run["solver"]
+    runs = sv["runs"]
+    full = runs[None]["queries"]
+    hi = _answers(full)
+    want = np.concatenate(_predict_all(solver, sv["snap"].theta, full))
+    as_t = torch.from_numpy
+    err = compare("full-precision answers vs solver.predict", as_t(hi),
+                  as_t(want), torch.float64)
+    compare("2 replicas vs one engine", as_t(hi),
+            as_t(_answers(sv["engine"])), torch.float64)
+    if any(q.staleness != sv["snap"].staleness for q in full):
+        raise PhaseError("a full-precision answer carries another "
+                         "staleness than its snapshot's")
+    n_bias = sum(fm.kind == "cos_bias" for fm in solver.feature_maps)
+    out = dict(err=err, bounds={}, plain={}, scale=float(np.abs(hi).max()))
+    for precision, r in runs.items():
+        if len(r["queries"]) != len(full) or not all(
+                q.done for q in r["queries"]):
+            raise PhaseError(f"precision {precision}: not every query "
+                             f"was answered")
+        waves = r["waves"]
+        if precision is None:
+            expect = {"rff_features": n_bias * waves}
+        else:
+            lo = _answers(r["queries"])
+            sizes = [np.atleast_1d(np.asarray(q.prediction)).size
+                     for q in r["queries"]]
+            bound = np.repeat([q.staleness.precision for q in r["queries"]],
+                              sizes)
+            plain, tol = _plain_lowp(sv["snap"], r["queries"], precision)
+            off = np.abs(lo - plain)
+            if not (off <= tol).all():
+                raise PhaseError(f"precision {precision}: an answer differs "
+                                 f"from the plain versions' by more than "
+                                 f"the f32 sums' rounding (max "
+                                 f"|f_lo − plain|/tol "
+                                 f"{(off / tol).max():.3f})")
+            out["plain"][precision] = (float(off.max()),
+                                       float((off / tol).max()))
+            gap = np.abs(lo - hi)
+            if not (np.isfinite(lo).all() and (gap <= bound).all()):
+                raise PhaseError(f"precision {precision}: an answer lies "
+                                 f"outside its attached bound (max "
+                                 f"|f_lo − f_hi|/bound "
+                                 f"{(gap / bound).max():.3f})")
+            out["bounds"][precision] = (float(gap.max()),
+                                        float(bound.min()),
+                                        float(bound.max()))
+            expect = {"rff_features_lowp": n_bias * waves,
+                      "rff_features": n_bias * waves}
+        got = {k: v for k, v in r["launches"].items() if v}
+        if got != (expect if on_card else {}):
+            raise PhaseError(f"serving precision={precision}: launch "
+                             f"counts {got} over {waves} waves, expected "
+                             f"{expect if on_card else {}}")
+    after = sv["after"]
+    if sv["version2"] != 2 or any(
+            q.staleness.theta_version != 2 for q in after):
+        raise PhaseError("queries submitted after the second publish were "
+                         "not served from version 2")
+    compare("version-2 answers vs solver.predict", as_t(_answers(after)),
+            as_t(np.concatenate(_predict_all(solver, sv["snap2"].theta,
+                                             after))), torch.float64)
+    return out
 
 
 # ----------------------------------------------------------------- timings
@@ -919,6 +1251,52 @@ def chain_timings(run: dict, a: dict, c: dict) -> list[dict]:
     return rows_out
 
 
+def feature_timings(run: dict) -> list[dict]:
+    """The featurize kernel at the serving shape (one node's map, D = 200,
+    d = 148, on N = 512 test columns, the column bucket of the serving
+    waves), by CUDA events: f64, and bf16 as the low-precision path runs
+    it (bf16 operands, unit scale)."""
+    from repro_torch.kernels.rff_features import (rff_features_bf16_reference,
+                                                  rff_features_cuda,
+                                                  rff_features_reference)
+
+    fm = run["solver"].feature_maps[0]
+    omega, bias = fm.omega.contiguous(), fm.bias.contiguous()
+    x = torch.cat([nd.x for nd in run["test"]], dim=1)[:, :SERVE_N]
+    x = x.contiguous()
+    d_feat, dim = omega.shape
+    n = x.shape[1]
+    scale = math.sqrt(2.0 / d_feat)
+    # the product, the bias add and the scale (cosines not counted)
+    flops = 2 * d_feat * dim * n + 2 * d_feat * n
+    src = dict(route="cuda",
+               source="src/repro_torch/kernels/csrc/rff_features.cu",
+               replaces="src/repro/kernels/rff_features.py:33")
+    z = torch.empty((d_feat, n), dtype=omega.dtype, device=omega.device)
+    bms, by = bound_ms(nbytes(omega, bias, x, z), flops, omega.dtype)
+    rows = [dict(
+        name="rff_features", **src,
+        ms=cuda_ms(lambda: rff_features_cuda(omega, bias, x, z,
+                                             scale=scale)),
+        plain_ms=cuda_ms(lambda: rff_features_reference(omega, bias, x,
+                                                        scale=scale)),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.cos(torch.addmm(
+            bias[:, None], omega, x)) * scale))]
+    bf16 = torch.bfloat16
+    ob, bb, xb = omega.to(bf16), bias.to(bf16), x.float().to(bf16)
+    zb = torch.empty((d_feat, n), dtype=bf16, device=omega.device)
+    bms, by = bound_ms(nbytes(ob, bb, xb, zb), flops, bf16)
+    rows.append(dict(
+        name="rff_features_lowp", **src,
+        ms=cuda_ms(lambda: rff_features_cuda(ob, bb, xb, zb, scale=1.0)),
+        plain_ms=cuda_ms(lambda: rff_features_bf16_reference(ob, bb, xb)),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.cos(torch.addmm(
+            bb[:, None], ob, xb)))))
+    return rows
+
+
 def check_launches(run: dict) -> None:
     got = {k: v for k, v in run["launches"].items() if v}
     rounds = run["rounds"]
@@ -930,20 +1308,26 @@ def check_launches(run: dict) -> None:
 
 # ------------------------------------------------------------------- main
 def rehearse_on_cpu() -> int:
-    """The main, async and Chebyshev paths on the CPU at a small size
-    (plain kernel versions)."""
+    """The main, async, Chebyshev and serving paths on the CPU at a small
+    size (plain kernel versions)."""
     run = main_path("cpu", subsample=2000, d_per_node=12, num_iters=200)
     checks = check_main_path(run)
     a = async_path(run, rounds=300)
     a_checks = check_async_path(a, run, checks)
     c = cheb_path(run, checks)
     c_checks = check_cheb_path(c, run, checks)
+    sv = serve_path(run, queries=128)
+    sv_checks = check_serve_path(sv, run, on_card=False)
     summary = dict(rounds=run["rounds"], rse=run["rse"],
                    launches=run["launches"], exact_err=checks["exact_err"],
                    rho=checks["rho"], async_err=a_checks["err"],
                    async_tol_rounds=a_checks["tol_rounds"],
                    cheb_err=c_checks["err"],
-                   cheb_rounds=(c["plain_rounds"], c["cheb_rounds"]))
+                   cheb_rounds=(c["plain_rounds"], c["cheb_rounds"]),
+                   serve_err=sv_checks["err"],
+                   serve_plain=sv_checks["plain"],
+                   serve_waves={str(p): r["waves"]
+                                for p, r in sv["runs"].items()})
     print(json.dumps({"cpu_rehearsal": summary}))
     return 0
 
@@ -1021,10 +1405,40 @@ def run_on_card() -> int:
           f"Chebyshev {c['cheb_rounds']}", flush=True)
     print(f"chebyshev launches: {json.dumps(c_launches)}")
 
+    errs.update(features_phase())
+    sv = serve_path(run, queries=SERVE_QUERIES)
+    sv_checks = check_serve_path(sv, run, on_card=True)
+    serve_launches = {"rff_features": 0, "rff_features_lowp": 0}
+    for precision, r in sv["runs"].items():
+        rep = r["report"]
+        bound = sv_checks["bounds"].get(precision)
+        plain = sv_checks["plain"].get(precision)
+        print(f"serving [{card}] precision={precision}: {rep.count} "
+              f"queries in {r['waves']} waves on {SERVE_REPLICAS} replicas, "
+              f"p50 {rep.p50 * 1e3:.3f} ms, p99 {rep.p99 * 1e3:.3f} ms, "
+              f"{rep.qps:.1f} qps; launches {json.dumps(r['launches'])}"
+              + ("" if bound is None else
+                 f"; max |f_lo − f_hi| {bound[0]:.3e}, attached bounds "
+                 f"{bound[1]:.3e}–{bound[2]:.3e}, max |f_lo − plain| "
+                 f"{plain[0]:.3e} ({plain[1]:.3g} of its tolerance)"),
+              flush=True)
+        for k in serve_launches:
+            serve_launches[k] += r["launches"].get(k, 0)
+    one = sv["one_replica"]
+    print(f"serving [{card}] precision=None on 1 replica: p50 "
+          f"{one.p50 * 1e3:.3f} ms, p99 {one.p99 * 1e3:.3f} ms, "
+          f"{one.qps:.1f} qps")
+    print(f"serving checks: pass (|f − predict| {sv_checks['err']:.3e}, "
+          f"max |f| {sv_checks['scale']:.3e}, snapshot residual "
+          f"{sv['snap'].staleness.residual:.3e}, version 2 served to "
+          f"{len(sv['after'])} later queries)")
+
     launches = dict(run["launches"], dekrr_step_masked=a_launches[
         "dekrr_step_masked"], dekrr_async_solve=a_launches[
-        "dekrr_async_solve"], dekrr_cheb_solve=c_launches["dekrr_cheb_solve"])
-    rows = timings(run["packed"], run) + chain_timings(run, a, c)
+        "dekrr_async_solve"], dekrr_cheb_solve=c_launches["dekrr_cheb_solve"],
+        **serve_launches)
+    rows = timings(run["packed"], run) + chain_timings(run, a, c) \
+        + feature_timings(run)
     for row in rows:
         row["max_abs_err"] = errs[row["name"]]
         row["launches"] = launches[row["name"]]

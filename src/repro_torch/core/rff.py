@@ -78,12 +78,15 @@ def featurize(fmap: FeatureMap, x: torch.Tensor) -> torch.Tensor:
     if x.ndim != 2:
         raise ValueError(f"x must be [d, N], got {tuple(x.shape)}")
     d = fmap.omega.shape[0]
+    # The scale is rounded to the working dtype where the reference rounds
+    # it (a Python float would be applied unrounded, at f32 for bf16).
     if fmap.kind == "cos_sin":
         proj = fmap.omega @ x                            # [D, N]
-        return torch.cat([torch.cos(proj), torch.sin(proj)], dim=0) \
-            * (1.0 / math.sqrt(d))
+        scale = torch.tensor(1.0 / math.sqrt(d), dtype=proj.dtype).item()
+        return torch.cat([torch.cos(proj), torch.sin(proj)], dim=0) * scale
     proj = fmap.omega @ x + fmap.bias[:, None]           # [D, N]
-    return torch.cos(proj) * math.sqrt(2.0 / d)
+    scale = torch.sqrt(torch.tensor(2.0 / d, dtype=proj.dtype)).item()
+    return torch.cos(proj) * scale
 
 
 def gaussian_kernel(x: torch.Tensor, x2: torch.Tensor,

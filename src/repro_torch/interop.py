@@ -17,6 +17,7 @@ from repro_torch._device import resolve_device
 from repro_torch.core.dekrr import NodeData
 from repro_torch.core.rff import FeatureMap
 from repro_torch.dist.dekrr_spmd import PackedProblem
+from repro_torch.stream.runtime import ServeSnapshot, StalenessBound
 
 _ARRAY_FIELDS = ("g", "d", "s", "p", "theta_mask", "nbr_idx", "nbr_mask")
 
@@ -62,6 +63,23 @@ def packed_to_arrays(packed: PackedProblem) -> dict:
     out.update(offsets=packed.offsets, node_dims=packed.node_dims,
                num_edges_directed=packed.num_edges_directed)
     return out
+
+
+def snapshot_from_arrays(omegas, biases, kinds, thetas, staleness, *,
+                         device=None) -> ServeSnapshot:
+    """ServeSnapshot from the reference snapshot's arrays: per node ω
+    [D_j, d], b [D_j] (None for cos_sin), its kind and θ_j, plus the
+    staleness as a `StalenessBound` or the tuple of its fields
+    (`dataclasses.astuple` of the reference's)."""
+    device = resolve_device(device)
+    if not isinstance(staleness, StalenessBound):
+        staleness = StalenessBound(*staleness)
+    fmaps = tuple(feature_map_from_arrays(o, b, k, device=device)
+                  for o, b, k in zip(omegas, biases, kinds, strict=True))
+    theta = tuple(torch.as_tensor(np.array(t), device=device)
+                  for t in thetas)
+    return ServeSnapshot(feature_maps=fmaps, theta=theta,
+                         staleness=staleness)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -1,19 +1,32 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version.
+version (sources in ``csrc/``).
 
-* rff_gram.py     — fused random-feature Gram blocks of Eq. 17
-* dekrr_step.py   — one Eq. 19 round over all nodes
-* dekrr_solve.py  — R Eq. 19 rounds in one cooperative launch
-* ref.py          — plain featurize / Gram versions
-* ops.py          — the public wrappers (layout, checks, device dispatch,
-                    launch counts)
-* _build.py       — nvcc build of ``csrc/*.cu`` and ctypes loading
+* rff_gram.py      — fused random-feature Gram blocks of Eq. 17
+                     (``csrc/rff_gram.cu``)
+* dekrr_step.py    — one Eq. 19 round over all nodes, with the optional
+                     activation mask of asynchronous gossip
+                     (``csrc/dekrr_step.cu``)
+* dekrr_solve.py   — R Eq. 19 rounds in one cooperative launch
+                     (``csrc/dekrr_solve.cu``), the R-round asynchronous
+                     gossip chain (``csrc/dekrr_async_solve.cu``) and the
+                     R-round Chebyshev chain (``csrc/dekrr_cheb_solve.cu``);
+                     shared node body in ``csrc/dekrr_common.cuh``
+* rff_features.py  — the serving tier's feature map Z = scale·cos(ΩX + b)
+                     in f64/f32 and the bf16 arrangement of
+                     ``rff_features_lowp`` (``csrc/rff_features.cu``)
+* ref.py           — plain featurize / Gram versions
+* ops.py           — the public wrappers (layout, checks, device dispatch,
+                     launch counts)
+* _build.py        — nvcc build of ``csrc/*.cu`` and ctypes loading
 
 Nothing is compiled at import; the first CUDA launch builds its kernel.
 """
 from repro_torch.kernels import ops
-from repro_torch.kernels.ops import (dekrr_solve, dekrr_step, rff_gram,
+from repro_torch.kernels.ops import (dekrr_async_solve, dekrr_cheb_solve,
+                                     dekrr_solve, dekrr_step, rff_features,
+                                     rff_features_lowp, rff_gram,
                                      rff_gram_batched)
 
-__all__ = ["dekrr_solve", "dekrr_step", "ops", "rff_gram",
-           "rff_gram_batched"]
+__all__ = ["dekrr_async_solve", "dekrr_cheb_solve", "dekrr_solve",
+           "dekrr_step", "ops", "rff_features", "rff_features_lowp",
+           "rff_gram", "rff_gram_batched"]

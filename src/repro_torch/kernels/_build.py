@@ -30,7 +30,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("dekrr_step", "dekrr_solve", "dekrr_async_solve",
-           "dekrr_cheb_solve", "rff_gram")
+           "dekrr_cheb_solve", "rff_gram", "rff_features")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +62,11 @@ SIGNATURES = {
     "rff_gram": {
         "rff_gram_f64": [_P] * 7 + [_I] * 4 + [ctypes.c_double, _P],
         "rff_gram_f32": [_P] * 7 + [_I] * 4 + [ctypes.c_double, _P],
+    },
+    "rff_features": {
+        "rff_features_f64": [_P] * 4 + [_I] * 3 + [ctypes.c_double, _P],
+        "rff_features_f32": [_P] * 4 + [_I] * 3 + [ctypes.c_double, _P],
+        "rff_features_bf16": [_P] * 4 + [_I] * 3 + [_P],
     },
 }
 

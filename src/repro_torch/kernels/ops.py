@@ -18,11 +18,15 @@ The TPU wrappers' (8, 128) padding has no counterpart: the CUDA kernels
 mask their own ragged edges.
 
 `LAUNCHES` counts kernel launches per kernel; a wrapper adds one exactly
-where it launches its kernel, never on the CPU path. The round kernel with
-an activation mask counts as ``dekrr_step_masked``, apart from the
-unmasked round.
+where it launches its kernel, never on the CPU path, under a lock, since
+serving replicas launch from several threads. The round kernel with an
+activation mask counts as ``dekrr_step_masked``, apart from the unmasked
+round; the featurize kernel counts as ``rff_features`` in f64/f32 and as
+``rff_features_lowp`` in bf16.
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -37,21 +41,33 @@ from repro_torch.kernels.dekrr_step import (dekrr_step_cuda,
                                             dekrr_step_masked_reference,
                                             dekrr_step_reference)
 from repro_torch.kernels.ref import rff_gram_ref
+from repro_torch.kernels.rff_features import (rff_features_cuda,
+                                              rff_features_lowp_reference,
+                                              rff_features_reference)
 from repro_torch.kernels.rff_gram import (rff_gram_batched_reference,
                                           rff_gram_cuda)
 
 LAUNCHES = {"rff_gram": 0, "dekrr_step": 0, "dekrr_step_masked": 0,
-            "dekrr_solve": 0, "dekrr_async_solve": 0, "dekrr_cheb_solve": 0}
+            "dekrr_solve": 0, "dekrr_async_solve": 0, "dekrr_cheb_solve": 0,
+            "rff_features": 0, "rff_features_lowp": 0}
 _FLOATS = (torch.float32, torch.float64)
+_count_lock = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(LAUNCHES)
+    with _count_lock:
+        return dict(LAUNCHES)
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
@@ -85,6 +101,61 @@ def _check_shape(name: str, key: str, t: torch.Tensor, want: tuple) -> None:
     if tuple(t.shape) != tuple(want):
         raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
                          f"expected {tuple(want)}")
+
+
+# ---------------------------------------------------------------- featurize
+def _check_features(name, omega, bias, x):
+    if omega.ndim != 2 or x.ndim != 2:
+        raise ValueError(f"{name}: omega {tuple(omega.shape)} and x "
+                         f"{tuple(x.shape)} must be [D, d] and [d, N]")
+    _check_shape(name, "bias", bias, (omega.shape[0],))
+    _check_shape(name, "x", x, (omega.shape[1], x.shape[1]))
+    return _on_cuda(name, omega, bias, x)
+
+
+def rff_features(omega: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                 *, scale: float) -> torch.Tensor:
+    """Z = scale·cos(Ω X + b): omega [D, d], bias [D], x [d, N] → Z [D, N]
+    in the operands' dtype (f32 or f64)."""
+    name = "rff_features"
+    on_cuda = _check_features(name, omega, bias, x)
+    dtype = _check_floats(name, omega, bias, x)
+    if not on_cuda:
+        return rff_features_reference(omega, bias, x, scale=scale)
+    z = torch.empty((omega.shape[0], x.shape[1]), dtype=dtype,
+                    device=x.device)
+    if z.numel():
+        rff_features_cuda(omega.contiguous(), bias.contiguous(),
+                          x.contiguous(), z, scale=scale)
+        _count(name)
+    return z
+
+
+def rff_features_lowp(omega: torch.Tensor, bias: torch.Tensor,
+                      x: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """Low-precision serving featurize: Ω, b and X (any float dtypes) are
+    cast to bf16, the product is summed in f32 and rounded to bf16, the
+    bias sum and the f32 cosine are rounded to bf16, and the result is
+    cast to f32 and multiplied by the f32 ``scale``. Returns Z [D, N] in
+    float32. The serving tier's analytic forward-error bound assumes
+    exactly this arrangement, so the scale stays out of the bf16 kernel."""
+    name = "rff_features_lowp"
+    on_cuda = _check_features(name, omega, bias, x)
+    for key, t in (("omega", omega), ("bias", bias), ("x", x)):
+        if not t.is_floating_point():
+            raise TypeError(f"{name}: {key} must be floating point, got "
+                            f"{t.dtype}")
+    if not on_cuda:
+        return rff_features_lowp_reference(omega, bias, x, scale=scale)
+    bf16 = torch.bfloat16
+    z = torch.empty((omega.shape[0], x.shape[1]), dtype=bf16,
+                    device=x.device)
+    if z.numel():
+        rff_features_cuda(omega.to(bf16).contiguous(),
+                          bias.to(bf16).contiguous(),
+                          x.to(bf16).contiguous(), z, scale=1.0)
+        _count(name)
+    return z.float() * scale
 
 
 # --------------------------------------------------------------------- Gram
@@ -137,7 +208,7 @@ def _launch_rff_gram(omega, bias, x, y, col_mask, scale, dtype):
     gram = torch.empty((b, f, f), dtype=dtype, device=x.device)
     zy = torch.empty((b, f), dtype=dtype, device=x.device)
     rff_gram_cuda(omega, bias, x, y, col_mask, gram, zy, scale=scale)
-    LAUNCHES["rff_gram"] += 1
+    _count("rff_gram")
     return gram, zy
 
 
@@ -274,7 +345,7 @@ def dekrr_step(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
         out = torch.empty((d.shape[0] * dy, d.shape[1]), dtype=d.dtype,
                           device=d.device)
         dekrr_step_cuda(*ops, out, dy=dy, active=act)
-        LAUNCHES["dekrr_step" if act is None else "dekrr_step_masked"] += 1
+        _count("dekrr_step" if act is None else "dekrr_step_masked")
     return _unflatten_dy(out, dy, d.ndim)
 
 
@@ -317,7 +388,7 @@ def dekrr_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
     work = torch.empty((2,) + tuple(table.shape), dtype=d.dtype,
                        device=d.device)
     dekrr_solve_cuda(*ops, out, res, work, num_rounds=num_rounds, dy=dy)
-    LAUNCHES["dekrr_solve"] += 1
+    _count("dekrr_solve")
     out = _unflatten_dy(out, dy, d.ndim)
     return (out, res) if trace else out
 
@@ -431,7 +502,7 @@ def dekrr_async_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
         dekrr_async_solve_cuda(*raw, *outs[:3], res, bc, work, flags,
                                censored=censored,
                                edge_gossip=gossip == "edge", dy=dy)
-        LAUNCHES[name] += 1
+        _count(name)
     state = (_unflatten_dy(outs[0], dy, d.ndim),
              _unflatten_dy(outs[1], dy, d.ndim),
              _unflatten_buffers(outs[2], j_nodes, nbr_idx.shape[1], dy,
@@ -484,7 +555,7 @@ def dekrr_cheb_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
         res = torch.empty((num_rounds, j_nodes), **kw) if trace else None
         work = torch.empty((2,) + tuple(ops[4].shape), **kw)
         dekrr_cheb_solve_cuda(*raw, *outs, res, work, dy=dy)
-        LAUNCHES[name] += 1
+        _count(name)
         if trace:
             outs = outs + (res,)
     out = (_unflatten_dy(outs[0], dy, d.ndim),

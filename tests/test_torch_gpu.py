@@ -237,3 +237,104 @@ def test_gpu_cheb_chain_matches_plain(cuda_device, dtype, rtol, j, k, dfeat,
     torch.cuda.synchronize()
     assert torch.equal(rest[0], whole[0]) and torch.equal(rest[1], whole[1])
     assert torch.equal(torch.cat([first[2], rest[2]]), whole[2])
+
+
+FEATURE_SHAPES = [(200, 148, 8), (200, 148, 64), (200, 148, 512),
+                  (37, 5, 13)]
+
+
+def feature_case(d_feat, dim, n, seed):
+    """Ω ~ N(0, 1), b ~ U[0, 2π), X ~ N(0, 1): |ΩX| reaches ~50 at
+    d = 148, as on the paper's problems."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(d_feat, dim)), rng.uniform(0, 2 * np.pi, d_feat),
+            rng.normal(size=(dim, n)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-9),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("d_feat,dim,n", FEATURE_SHAPES)
+def test_gpu_rff_features_matches_plain(cuda_device, dtype, rtol, d_feat,
+                                        dim, n):
+    from repro_torch.kernels.rff_features import rff_features_reference
+
+    args = [a.to(cuda_device, dtype) for a in to_t(
+        feature_case(d_feat, dim, n, seed=n))]
+    scale = float(np.sqrt(2.0 / d_feat))
+    got = ops.rff_features(*args, scale=scale)
+    want = rff_features_reference(*args, scale=scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (d_feat, n)
+    assert_close(got, want.cpu(), rtol=rtol)
+    assert ops.LAUNCHES["rff_features"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_feat,dim,n", FEATURE_SHAPES)
+def test_gpu_rff_features_lowp_within_model_bound(cuda_device, d_feat, dim,
+                                                  n):
+    """bf16: every entry within s·((3u + γ_d)(|Ω||x| + |b|) + 3u) of the
+    f64 value, and nearly all entries bit-equal to the plain version (the
+    f32 sums run in another order)."""
+    from repro_torch.kernels.rff_features import rff_features_lowp_reference
+
+    omega, bias, x = feature_case(d_feat, dim, n, seed=n + 1)
+    x32 = torch.as_tensor(x, dtype=torch.float32)
+    scale = float(np.sqrt(2.0 / d_feat))
+    dev = (torch.as_tensor(omega).to(cuda_device),
+           torch.as_tensor(bias).to(cuda_device), x32.to(cuda_device))
+    got = ops.rff_features_lowp(*dev, scale=scale)
+    plain = rff_features_lowp_reference(*dev, scale=scale)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (d_feat, n)
+    x64 = x32.double().numpy()
+    exact = scale * np.cos(omega @ x64 + bias[:, None])
+    u = 2.0 ** -8
+    nu = min(dim * u, 0.5)
+    bound = scale * ((3 * u + nu / (1 - nu))
+                     * (np.abs(omega) @ np.abs(x64) + np.abs(bias)[:, None])
+                     + 3 * u)
+    assert (np.abs(got.cpu().numpy() - exact) <= bound).all()
+    assert (got == plain).double().mean().item() >= 0.99
+    assert ops.LAUNCHES["rff_features_lowp"] == 1
+    assert ops.LAUNCHES["rff_features"] == 0
+
+
+@pytest.mark.gpu
+def test_gpu_serving_launches_the_kernel_and_refuses_tf32(cuda_device):
+    """A CUDA snapshot's waves launch the featurize kernel once per
+    cos_bias node (the cos_sin node takes featurize); the low-precision
+    path refuses to stage while TF32 matmuls are allowed."""
+    from repro_torch.core.rff import FeatureMap
+    from repro_torch.serve import DeKRRServeEngine, KernelQuery
+    from repro_torch.stream import ServeSnapshot, StalenessBound
+
+    rng = np.random.default_rng(0)
+    kinds = ("cos_bias", "cos_bias", "cos_sin")
+    fmaps, thetas = [], []
+    for kind in kinds:
+        omega = torch.as_tensor(rng.normal(size=(16, 5)), device=cuda_device)
+        bias = None if kind == "cos_sin" else torch.as_tensor(
+            rng.uniform(0, 6, 16), device=cuda_device)
+        fm = FeatureMap(omega=omega, bias=bias, kind=kind)
+        fmaps.append(fm)
+        thetas.append(torch.as_tensor(rng.normal(size=fm.num_features),
+                                      device=cuda_device))
+    snap = ServeSnapshot(tuple(fmaps), tuple(thetas),
+                         StalenessBound(1, 0, 0, 0.0))
+    queries = [KernelQuery(uid=i, x=rng.normal(size=5)) for i in range(6)]
+    eng = DeKRRServeEngine(snap, batch_size=3, backend="cuda")
+    got = [q.prediction for q in eng.run(queries)]
+    plain = DeKRRServeEngine(snap, batch_size=3, backend="torch").run(
+        [KernelQuery(uid=q.uid, x=q.x) for q in queries])
+    assert_close(np.array(got), np.array([q.prediction for q in plain]))
+    assert ops.LAUNCHES["rff_features"] == 2 * 2      # 2 waves × 2 nodes
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            DeKRRServeEngine(snap, precision="bf16").run(
+                [KernelQuery(uid=0, x=np.zeros(5))])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before

@@ -43,7 +43,10 @@ def test_no_jax_or_reference_import(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import repro_torch, repro_torch.core, repro_torch.data.synthetic,"
             " repro_torch.dist, repro_torch.kernels, repro_torch.interop, "
-            "repro_torch.core.acceleration, repro_torch.obs; "
+            "repro_torch.core.acceleration, repro_torch.obs, "
+            "repro_torch.obs.metrics, repro_torch.obs.spans, "
+            "repro_torch.stream, repro_torch.serve, "
+            "repro_torch.serve.dekrr, repro_torch.kernels.rff_features; "
             "import sys; bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.'))]; assert not bad, bad")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
