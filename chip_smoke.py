@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 1. Card: name and power limit (nvidia-smi), TF32 switched off.
-2. Build: the six CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. Build: the seven CUDA sources of ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel), with each ``-Xptxas -v`` report.
 3. Kernel phases: each solve-path kernel against its plain PyTorch
    version on the card, at the main path's shapes, in float64 and
@@ -43,19 +43,34 @@
    featurize launches per wave (plus J calibration-stripe launches on
    the low-precision paths); p50, p99 and qps per precision, and at full
    precision on 1 replica.
-9. Launch counts of each path and run, zeroed just before it.
-10. Kernel times by CUDA events (timed on the device, behind a spin that
+9. The decode-attention kernel (``flash_decode``) against its plain
+   version at DECODE_SHAPES (2e-5), and unchanged bit for bit by ±999 in
+   the cache beyond cur_index.
+10. LLM serving at qwen1.5-0.5b's full width and depth (24 layers,
+   d_model 1024, 16 heads, vocab 151,936; the port's seeded weights, no
+   checkpoint): ServeEngine(batch 8, max_seq 512, backend cuda) serves
+   16 requests (prompts of 16–128 seeded tokens, 32 new tokens each, two
+   waves); the same requests again give the same tokens, one request
+   alone equals sequential decode_step calls, the first wave's tokens
+   teacher-forced through decode_step give logits on backend torch
+   within LLM_LOGIT_TOL of backend cuda and with the int8 cache within
+   5%, and flash_decode launches 24 times per decode step; tokens/s,
+   p50/p99 per request and ms per decode step.
+11. Launch counts of each path and run, zeroed just before it.
+12. Kernel times by CUDA events (timed on the device, behind a spin that
    lets the host queue the launches first) beside their plain versions,
    a PyTorch yardstick and the least time the card could take.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase
 exits non-zero before it. Without a CUDA device the script exits
-non-zero. ``--cpu-rehearsal`` runs steps 4–6 and 8 on the CPU at a small
-size (the kernels' plain versions), for the tests.
+non-zero. ``--cpu-rehearsal`` runs steps 4–6, 8 and 10 on the CPU at a
+small size (the kernels' plain versions; the LLM path on the reduced
+qwen1.5-0.5b), for the tests.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -110,6 +125,38 @@ PRECISIONS = (None, "bf16", "int8")
 U_BF16 = 2.0 ** -8
 U_F32 = 2.0 ** -24
 BIT_EQUAL_SHARE = 0.99   # bf16 kernel vs its plain version (sum order)
+
+# Decode attention: (B, H, K, dh, S, cur) of the kernel's phase — the
+# five cases of tests/test_kernels_decode.py, then the heads of
+# qwen1.5-0.5b (MHA), smollm-135m (GQA 3:1) and granite-3-8b (GQA 4:1,
+# dh 128) at the serving batch and cache length — and its timing shape
+# (B, H, K, dh, S): the registry's decode_32k length with the batch cut
+# from 128 to 8 so the f32 cache (2.15 GB) fits beside the rest.
+DECODE_SHAPES = (
+    (2, 8, 8, 64, 256, 200), (2, 8, 2, 64, 512, 512),
+    (1, 16, 16, 128, 1024, 37), (4, 4, 1, 80, 300, 123),
+    (3, 6, 3, 32, 96, 50),
+    (8, 16, 16, 64, 512, 1), (8, 16, 16, 64, 512, 37),
+    (8, 16, 16, 64, 512, 512),
+    (8, 9, 3, 64, 512, 37), (8, 9, 3, 64, 512, 512),
+    (8, 32, 8, 128, 512, 37), (8, 32, 8, 128, 512, 512))
+DECODE_TOL = 2e-5     # the reference kernel's own tolerance (sum order)
+DECODE_TIMING = (8, 16, 16, 64, 32768)
+
+# LLM serving at qwen1.5-0.5b's full width and depth (seeded weights):
+# 16 requests, prompts of 16–128 tokens, 32 new tokens each, 8 slots over
+# a 512-position cache (2 waves).
+LLM_ARCH = "qwen1_5_0_5b"
+LLM_REQUESTS = 16
+LLM_BATCH = 8
+LLM_MAX_SEQ = 512
+LLM_PROMPT = (16, 128)
+LLM_NEW_TOKENS = 32
+# cuda vs torch decode logits, as a share of max|logit|: the same f32
+# function with sums in another order, amplified through 24 layers
+LLM_LOGIT_TOL = 1e-3
+# int8 vs f32 cache, the bound of test_int8_kv_cache_decode_close_to_bf16
+INT8_LOGIT_TOL = 0.05
 
 
 class PhaseError(RuntimeError):
@@ -1297,6 +1344,303 @@ def feature_timings(run: dict) -> list[dict]:
     return rows
 
 
+# ------------------------------------------------------------ decode attention
+def _decode_operands(b, h, kh, dh, s, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(dtype=torch.float32, device="cuda", generator=gen)
+    return (torch.randn((b, 1, h, dh), **kw),
+            torch.randn((b, s, kh, dh), **kw),
+            torch.randn((b, s, kh, dh), **kw))
+
+
+def flash_decode_phase() -> dict[str, float]:
+    """The decode-attention kernel against its plain version on the card
+    at DECODE_SHAPES, |got − plain| ≤ DECODE_TOL·(1 + |plain|); and at
+    each shape with a stale tail, the cache set to ±999 beyond cur_index
+    gives the same output bit for bit. Returns the largest error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import flash_decode_reference
+
+    worst = 0.0
+    for b, h, kh, dh, s, cur in DECODE_SHAPES:
+        case = f"B={b} H={h} K={kh} dh={dh} S={s} cur={cur}"
+        q, k, v = _decode_operands(b, h, kh, dh, s, seed=s + cur)
+        got = ops.flash_decode(q, k, v, cur)
+        lens = torch.full((b * kh,), cur, dtype=torch.int32, device="cuda")
+        want = flash_decode_reference(q, k, v, lens)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        if not (torch.isfinite(got).all()
+                and (err <= DECODE_TOL * (1 + want.abs())).all()):
+            raise PhaseError(f"flash_decode {case}: disagrees with the "
+                             f"plain version beyond {DECODE_TOL:g} (max abs "
+                             f"err {err.max().item():.3e})")
+        worst = max(worst, err.max().item())
+        if cur < s:
+            k[:, cur:] = 999.0
+            v[:, cur:] = -999.0
+            if not torch.equal(ops.flash_decode(q, k, v, cur), got):
+                raise PhaseError(f"flash_decode {case}: the cache beyond "
+                                 f"cur_index changed the output")
+    print(f"flash_decode phase: pass ({len(DECODE_SHAPES)} shapes, max abs "
+          f"err {worst:.3e} against the plain version, stale tail bit for "
+          f"bit)", flush=True)
+    return {"flash_decode": worst}
+
+
+# ------------------------------------------------------------- LLM serving
+def llm_requests(cfg, count: int, seed: int, *, prompt=LLM_PROMPT,
+                 new_tokens=LLM_NEW_TOKENS) -> list:
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(
+        0, cfg.vocab_size, int(rng.integers(prompt[0], prompt[1] + 1)))
+        .tolist(), max_new_tokens=new_tokens) for i in range(count)]
+
+
+def _token_plan(wave, batch: int) -> list[list[int]]:
+    """The engine's input tokens per step for one wave: each slot feeds
+    prompt + output (its next token while active), then 0, as do the
+    slots the wave leaves empty."""
+    seqs = [list(r.prompt) + list(r.output) for r in wave]
+    steps = max(len(s) for s in seqs) - 1
+    return [[s[t] if t < len(s) - 1 else 0 for s in seqs]
+            + [0] * (batch - len(seqs)) for t in range(steps)]
+
+
+def llm_path(device: str, cfg, *, requests: int, batch: int, max_seq: int,
+             prompt=LLM_PROMPT, new_tokens=LLM_NEW_TOKENS) -> dict:
+    """The LLM serving path: ServeEngine (backend cuda) with the port's
+    seeded weights serves `requests` greedy requests twice, the repeat
+    run timed with the launch counts zeroed just before; then one request
+    alone against sequential decode_step calls, and the first wave's
+    tokens teacher-forced through decode_step on both backends and with
+    the int8 cache."""
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Request, ServeEngine
+
+    engine = ServeEngine(cfg, batch_size=batch, max_seq=max_seq, seed=0,
+                         device=device, backend="cuda")
+    kw = dict(prompt=prompt, new_tokens=new_tokens)
+    # the first run meets a cold model (first cuBLAS handles, allocator
+    # growth); the repeat run is the one timed and counted
+    first, cold_secs, _ = _launched(
+        lambda: engine.run(llm_requests(cfg, requests, seed=7, **kw)))
+    done, secs, launches = _launched(
+        lambda: engine.run(llm_requests(cfg, requests, seed=7, **kw)))
+    out = dict(engine=engine, done=done, secs=secs, launches=launches,
+               steps=engine.decode_steps, report=engine.latency.report(),
+               again=first, cold_secs=cold_secs)
+
+    first = done[0]
+    solo = Request(uid=99, prompt=first.prompt[:prompt[0]],
+                   max_new_tokens=8)
+    [solo] = engine.run([solo])
+    model = engine.model
+    cache = model.init_cache(batch, max_seq)
+    seq = []
+    with torch.inference_mode():
+        for t in range(len(solo.prompt) + 7):
+            tok = solo.prompt[t] if t < len(solo.prompt) else seq[-1]
+            toks = torch.zeros((batch, 1), dtype=torch.long, device=device)
+            toks[0, 0] = tok
+            logits, cache = model.decode_step(cache, toks, t)
+            if t >= len(solo.prompt) - 1:
+                seq.append(int(logits[0].argmax()))
+    out["solo"], out["sequential"] = solo.output, seq
+
+    # teacher forcing the first wave: cuda vs torch, and the int8 cache
+    wave = done[:batch]
+    int8 = Model(dataclasses.replace(cfg, kv_cache_dtype="int8"),
+                 engine.params)
+    runs = {"cuda": (model, "cuda"), "torch": (model, "torch"),
+            "int8": (int8, "cuda")}
+    caches = {k: m.init_cache(batch, max_seq) for k, (m, _) in runs.items()}
+    diff = {"torch": 0.0, "int8": 0.0}
+    scale, mismatches = 0.0, 0
+    plan = _token_plan(wave, batch)
+    with torch.inference_mode():
+        for t, col in enumerate(plan):
+            toks = torch.tensor(col, dtype=torch.long, device=device)[:, None]
+            lg = {}
+            for k, (m, backend) in runs.items():
+                lg[k], caches[k] = m.decode_step(caches[k], toks, t,
+                                                 backend=backend)
+            scale = max(scale, lg["cuda"].abs().max().item())
+            for k in diff:
+                diff[k] = max(diff[k],
+                              (lg[k] - lg["cuda"]).abs().max().item())
+            nxt = lg["cuda"].argmax(dim=-1).tolist()
+            for i, r in enumerate(wave):
+                g = t - (len(r.prompt) - 1)
+                if 0 <= g < len(r.output) and nxt[i] != r.output[g]:
+                    mismatches += 1
+    out.update(diff=diff, scale=scale, replay_mismatches=mismatches,
+               replay_steps=len(plan))
+    return out
+
+
+def graph_step_ms(model, batch: int, max_seq: int, pos: int) -> float:
+    """Device time of one eager decode step at ``pos``: the step captured
+    into a CUDA graph and replayed, timed by CUDA events (the same
+    launches as the eager step, without the host's time between them)."""
+    cache = model.init_cache(batch, max_seq)
+    toks = torch.zeros((batch, 1), dtype=torch.long, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.inference_mode():
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                model.decode_step(cache, toks, pos)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            model.decode_step(cache, toks, pos)
+    return cuda_ms(graph.replay)
+
+
+def check_llm_path(llm: dict, cfg, on_card: bool) -> None:
+    done, again = llm["done"], llm["again"]
+    n_tokens = sum(len(r.output) for r in done)
+    if not all(r.done and r.output for r in done):
+        raise PhaseError("LLM serving: a request finished without output")
+    if [r.output for r in done] != [r.output for r in again]:
+        raise PhaseError("LLM serving: the same requests run again gave "
+                         "other tokens")
+    if llm["solo"] != llm["sequential"]:
+        raise PhaseError(f"LLM serving: one request alone {llm['solo']} "
+                         f"differs from sequential decode_step calls "
+                         f"{llm['sequential']}")
+    if llm["replay_mismatches"]:
+        raise PhaseError(f"LLM serving: teacher forcing the engine's tokens "
+                         f"on the cuda backend gave {llm['replay_mismatches']}"
+                         f" other argmax tokens")
+    rel = {k: v / llm["scale"] for k, v in llm["diff"].items()}
+    if not rel["torch"] <= LLM_LOGIT_TOL:
+        raise PhaseError(f"LLM serving: cuda and torch logits differ by "
+                         f"{rel['torch']:.3e} of max|logit| (tolerance "
+                         f"{LLM_LOGIT_TOL:g})")
+    if not rel["int8"] < INT8_LOGIT_TOL:
+        raise PhaseError(f"LLM serving: int8-cache logits differ by "
+                         f"{rel['int8']:.3e} of max|logit| from the f32 cache "
+                         f"(tolerance {INT8_LOGIT_TOL:g})")
+    got = {k: v for k, v in llm["launches"].items() if v}
+    want = {"flash_decode": cfg.num_layers * llm["steps"]} if on_card else {}
+    if got != want:
+        raise PhaseError(f"LLM serving launch counts {got}, expected {want}")
+    llm.update(tokens=n_tokens, rel=rel)
+
+
+def sdpa_yardsticks(q, k, v, want) -> dict:
+    """PyTorch's scaled_dot_product_attention computing the kernel's
+    function at cur = S on the same cache views ([B, S, K, dh] transposed
+    to [B, K, S, dh], no copy): the call with the length mask and
+    enable_gqa, and the plain call (the mask is all true and H = K here),
+    each under every SDPA backend that takes it, beside the plain call on
+    contiguous [B, K, S, dh] copies (another layout, timed for reference
+    only). Only calls within DECODE_TOL·(1 + |want|) of `want` count.
+    Returns {"ms": fastest on the same inputs, "call": its label, "table":
+    {label: {backend: ms}}, "default": {label: kernels the default
+    dispatch launched}}."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    s = k.shape[1]
+    mask = (torch.arange(s, device="cuda") < s)[None, None, None, :]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    calls = {
+        "views, mask, enable_gqa": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True),
+        "views": lambda: F.scaled_dot_product_attention(qt, kt, vt),
+    }
+    backends = [getattr(SDPBackend, n) for n in (
+        "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+        if hasattr(SDPBackend, n)]
+    want_t = want.transpose(1, 2)
+
+    def agrees(got):
+        return bool((got - want_t).abs().le(
+            DECODE_TOL * (1 + want_t.abs())).all())
+
+    def table(calls):
+        out = {}
+        for label, fn in calls.items():
+            out[label] = {}
+            for be in backends:
+                def run(fn=fn, be=be):
+                    with sdpa_kernel([be]):
+                        return fn()
+                try:
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")
+                        ok = agrees(run())
+                except RuntimeError:
+                    continue
+                if ok:
+                    out[label][be.name] = cuda_ms(run, reps=5, warmup=1)
+        return out
+
+    def default_kernels(fn):
+        try:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [e.key for e in prof.key_averages()
+                     if getattr(e, "device_time_total",
+                                getattr(e, "cuda_time_total", 0)) > 0]
+            return sorted(names)[:6] or ["not recorded"]
+        except Exception as exc:                  # the profiler is optional
+            return [f"not recorded ({type(exc).__name__})"]
+
+    same = table(calls)
+    default = {label: default_kernels(fn) for label, fn in calls.items()}
+    best = min(((ms, f"{label} [{be}]") for label, row in same.items()
+                for be, ms in row.items()), default=(float("nan"), "none"))
+    qc, kc, vc = qt.contiguous(), kt.contiguous(), vt.contiguous()
+    same.update(table({"contiguous copies": lambda: (
+        F.scaled_dot_product_attention(qc, kc, vc))}))
+    return dict(ms=best[0], call=best[1], table=same, default=default)
+
+
+def decode_timings() -> list[dict]:
+    """The decode-attention kernel by CUDA events at DECODE_TIMING (the
+    registry's decode_32k length, cur = S), beside its plain version and
+    the fastest scaled_dot_product_attention call on the same inputs
+    (`sdpa_yardsticks`); and the kernel alone at the serving cache
+    (S = LLM_MAX_SEQ)."""
+    from repro_torch.kernels.decode_attention import (flash_decode_cuda,
+                                                      flash_decode_reference)
+
+    def kernel_ms(b, h, kh, dh, s, cur):
+        q, k, v = _decode_operands(b, h, kh, dh, s, seed=1)
+        lens = torch.full((b * kh,), cur, dtype=torch.int32, device="cuda")
+        out = torch.empty_like(q)
+        # K and V up to cur read once, q and lens read, out written; the
+        # two products (softmax arithmetic not counted)
+        bound = bound_ms(2 * b * cur * kh * dh * 4 + nbytes(q, lens, out),
+                         4 * b * h * cur * dh, torch.float32)
+        return (q, k, v, lens, out, bound,
+                cuda_ms(lambda: flash_decode_cuda(q, k, v, lens, out)))
+
+    b, h, kh, dh, s = DECODE_TIMING
+    q, k, v, lens, out, (bms, by), ms = kernel_ms(b, h, kh, dh, s, s)
+    plain_ms = cuda_ms(lambda: flash_decode_reference(q, k, v, lens),
+                       reps=5, warmup=1)
+    sdpa = sdpa_yardsticks(q, k, v, out)
+    del q, k, v, out
+    serving = {cur: kernel_ms(LLM_BATCH, 16, 16, 64, LLM_MAX_SEQ, cur)[-2:]
+               for cur in (LLM_MAX_SEQ // 4, LLM_MAX_SEQ)}
+    return [dict(name="flash_decode", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_decode.cu",
+                 replaces="src/repro/kernels/decode_attention.py:73",
+                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                 library_ms=sdpa["ms"], serving_ms=serving, sdpa=sdpa)]
+
+
 def check_launches(run: dict) -> None:
     got = {k: v for k, v in run["launches"].items() if v}
     rounds = run["rounds"]
@@ -1307,9 +1651,15 @@ def check_launches(run: dict) -> None:
 
 
 # ------------------------------------------------------------------- main
+def _llm_config():
+    from repro_torch.configs import get_arch
+    return get_arch(LLM_ARCH).config
+
+
 def rehearse_on_cpu() -> int:
-    """The main, async, Chebyshev and serving paths on the CPU at a small
-    size (plain kernel versions)."""
+    """The main, async, Chebyshev, serving and LLM serving paths on the
+    CPU at a small size (plain kernel versions; the LLM path on
+    qwen1.5-0.5b's reduced configuration)."""
     run = main_path("cpu", subsample=2000, d_per_node=12, num_iters=200)
     checks = check_main_path(run)
     a = async_path(run, rounds=300)
@@ -1318,6 +1668,10 @@ def rehearse_on_cpu() -> int:
     c_checks = check_cheb_path(c, run, checks)
     sv = serve_path(run, queries=128)
     sv_checks = check_serve_path(sv, run, on_card=False)
+    llm_cfg = _llm_config().reduced()
+    llm = llm_path("cpu", llm_cfg, requests=6, batch=4, max_seq=64,
+                   prompt=(4, 16), new_tokens=8)
+    check_llm_path(llm, llm_cfg, on_card=False)
     summary = dict(rounds=run["rounds"], rse=run["rse"],
                    launches=run["launches"], exact_err=checks["exact_err"],
                    rho=checks["rho"], async_err=a_checks["err"],
@@ -1327,7 +1681,9 @@ def rehearse_on_cpu() -> int:
                    serve_err=sv_checks["err"],
                    serve_plain=sv_checks["plain"],
                    serve_waves={str(p): r["waves"]
-                                for p, r in sv["runs"].items()})
+                                for p, r in sv["runs"].items()},
+                   llm_steps=llm["steps"], llm_tokens=llm["tokens"],
+                   llm_logit_rel=llm["rel"])
     print(json.dumps({"cpu_rehearsal": summary}))
     return 0
 
@@ -1433,12 +1789,51 @@ def run_on_card() -> int:
           f"{sv['snap'].staleness.residual:.3e}, version 2 served to "
           f"{len(sv['after'])} later queries)")
 
+    errs.update(flash_decode_phase())
+    cfg = _llm_config()
+    llm = llm_path("cuda", cfg, requests=LLM_REQUESTS, batch=LLM_BATCH,
+                   max_seq=LLM_MAX_SEQ)
+    check_llm_path(llm, cfg, on_card=True)
+    step_pos = LLM_MAX_SEQ // 4 - 1
+    device_ms = graph_step_ms(llm["engine"].model, LLM_BATCH, LLM_MAX_SEQ,
+                              step_pos)
+    rep = llm["report"]
+    print(f"LLM serving [{card}] {cfg.name} (full width, {cfg.num_layers} "
+          f"layers, seeded weights): {rep.count} requests in "
+          f"{llm['secs']:.2f} s (repeat run; the first, cold run "
+          f"{llm['cold_secs']:.2f} s), {llm['steps']} decode steps of "
+          f"{LLM_BATCH} slots, {llm['secs'] / llm['steps'] * 1e3:.2f} ms per "
+          f"decode step, {llm['tokens'] / llm['secs']:.1f} generated "
+          f"tokens/s, per-request p50 {rep.p50 * 1e3:.1f} ms, p99 "
+          f"{rep.p99 * 1e3:.1f} ms; launches {json.dumps(llm['launches'])}",
+          flush=True)
+    print(f"LLM decode step on the device [{card}]: {device_ms:.3f} ms at "
+          f"cur={step_pos + 1} (CUDA graph replay of the eager step), "
+          f"{device_ms / (llm['secs'] / llm['steps'] * 1e3):.3f} of the "
+          f"eager step's wall time", flush=True)
+    print(f"LLM serving checks: pass (repeat run equal, one request == "
+          f"sequential decode_step, {llm['replay_steps']} teacher-forced "
+          f"steps: cuda vs torch max |Δlogit| {llm['rel']['torch']:.3e} of "
+          f"max|logit| {llm['scale']:.3f} (tolerance {LLM_LOGIT_TOL:g}), "
+          f"int8 cache {llm['rel']['int8']:.3e} (tolerance "
+          f"{INT8_LOGIT_TOL:g}))")
+
     launches = dict(run["launches"], dekrr_step_masked=a_launches[
         "dekrr_step_masked"], dekrr_async_solve=a_launches[
         "dekrr_async_solve"], dekrr_cheb_solve=c_launches["dekrr_cheb_solve"],
-        **serve_launches)
+        flash_decode=llm["launches"]["flash_decode"], **serve_launches)
     rows = timings(run["packed"], run) + chain_timings(run, a, c) \
-        + feature_timings(run)
+        + feature_timings(run) + decode_timings()
+    serving = rows[-1].pop("serving_ms")
+    sdpa = rows[-1].pop("sdpa")
+    print(f"time [{card}] flash_decode yardstick: the fastest SDPA call on "
+          f"the same inputs is {sdpa['call']} at {sdpa['ms']:.4f} ms; every "
+          f"backend that agreed (ms): {json.dumps(sdpa['table'])}; kernels "
+          f"of the default dispatch: {json.dumps(sdpa['default'])}")
+    print(f"time [{card}] flash_decode at the serving cache (B={LLM_BATCH}, "
+          f"H=K=16, dh=64, S={LLM_MAX_SEQ}): "
+          + ", ".join(f"cur={cur}: {ms:.4f} ms (bound {bound[0]:.4f} ms)"
+                      for cur, (bound, ms) in serving.items()))
     for row in rows:
         row["max_abs_err"] = errs[row["name"]]
         row["launches"] = launches[row["name"]]

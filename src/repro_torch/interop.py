@@ -17,6 +17,7 @@ from repro_torch._device import resolve_device
 from repro_torch.core.dekrr import NodeData
 from repro_torch.core.rff import FeatureMap
 from repro_torch.dist.dekrr_spmd import PackedProblem
+from repro_torch.models.model import ModelConfig, Params, param_shapes
 from repro_torch.stream.runtime import ServeSnapshot, StalenessBound
 
 _ARRAY_FIELDS = ("g", "d", "s", "p", "theta_mask", "nbr_idx", "nbr_mask")
@@ -80,6 +81,48 @@ def snapshot_from_arrays(omegas, biases, kinds, thetas, staleness, *,
                   for t in thetas)
     return ServeSnapshot(feature_maps=fmaps, theta=theta,
                          staleness=staleness)
+
+
+def lm_params_from_arrays(cfg: ModelConfig, arrays: dict, *,
+                          device=None) -> Params:
+    """The model's parameters from the reference's parameter pytree as
+    numpy arrays (``embed``, ``final_norm``, ``lm_head`` unless the
+    embeddings are tied, and one ``slot{i}`` dict per slot, stacked over
+    groups), in ``cfg.param_dtype``. Raises on a missing, extra or
+    misshapen entry. The [in, out] layout is the same on both sides, so
+    this is a copy."""
+    device = resolve_device(device)
+    shapes = param_shapes(cfg)
+
+    def convert(key: str, a, want: tuple) -> torch.Tensor:
+        t = torch.as_tensor(np.array(a), device=device).to(cfg.pdt)
+        if tuple(t.shape) != tuple(want):
+            raise ValueError(f"parameter {key} has shape "
+                             f"{tuple(t.shape)}, expected {tuple(want)}")
+        return t
+
+    if set(arrays) != set(shapes):
+        raise ValueError(f"parameter names {sorted(arrays)} differ from "
+                         f"{sorted(shapes)} of {cfg.name}")
+    params: Params = {}
+    for key, want in shapes.items():
+        if isinstance(want, dict):
+            if set(arrays[key]) != set(want):
+                raise ValueError(f"{key} names {sorted(arrays[key])} "
+                                 f"differ from {sorted(want)}")
+            params[key] = {n: convert(f"{key}.{n}", arrays[key][n], w)
+                           for n, w in want.items()}
+        else:
+            params[key] = convert(key, arrays[key], want)
+    return params
+
+
+def lm_params_to_arrays(params: Params) -> dict:
+    """The inverse of `lm_params_from_arrays`: the same pytree of numpy
+    arrays."""
+    return {k: ({n: to_numpy(t) for n, t in v.items()}
+                if isinstance(v, dict) else to_numpy(v))
+            for k, v in params.items()}
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

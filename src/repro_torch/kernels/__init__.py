@@ -14,7 +14,10 @@ version (sources in ``csrc/``).
 * rff_features.py  — the serving tier's feature map Z = scale·cos(ΩX + b)
                      in f64/f32 and the bf16 arrangement of
                      ``rff_features_lowp`` (``csrc/rff_features.cu``)
-* ref.py           — plain featurize / Gram versions
+* decode_attention.py — single-token GQA decode attention of the LLM
+                     serving path, reading the KV cache in place
+                     (``csrc/flash_decode.cu``)
+* ref.py           — plain featurize / Gram / decode-attention versions
 * ops.py           — the public wrappers (layout, checks, device dispatch,
                      launch counts)
 * _build.py        — nvcc build of ``csrc/*.cu`` and ctypes loading
@@ -23,10 +26,10 @@ Nothing is compiled at import; the first CUDA launch builds its kernel.
 """
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import (dekrr_async_solve, dekrr_cheb_solve,
-                                     dekrr_solve, dekrr_step, rff_features,
-                                     rff_features_lowp, rff_gram,
-                                     rff_gram_batched)
+                                     dekrr_solve, dekrr_step, flash_decode,
+                                     rff_features, rff_features_lowp,
+                                     rff_gram, rff_gram_batched)
 
 __all__ = ["dekrr_async_solve", "dekrr_cheb_solve", "dekrr_solve",
-           "dekrr_step", "ops", "rff_features", "rff_features_lowp",
-           "rff_gram", "rff_gram_batched"]
+           "dekrr_step", "flash_decode", "ops", "rff_features",
+           "rff_features_lowp", "rff_gram", "rff_gram_batched"]

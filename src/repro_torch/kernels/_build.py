@@ -30,10 +30,11 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("dekrr_step", "dekrr_solve", "dekrr_async_solve",
-           "dekrr_cheb_solve", "rff_gram", "rff_features")
+           "dekrr_cheb_solve", "rff_gram", "rff_features", "flash_decode")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures of the entry points, by library. Every pointer and the
 # stream are c_void_p so ctypes never truncates them to 32 bits.
 SIGNATURES = {
@@ -67,6 +68,10 @@ SIGNATURES = {
         "rff_features_f64": [_P] * 4 + [_I] * 3 + [ctypes.c_double, _P],
         "rff_features_f32": [_P] * 4 + [_I] * 3 + [ctypes.c_double, _P],
         "rff_features_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    },
+    "flash_decode": {
+        "flash_decode_f32": [_P] * 5 + [_L] * 4 + [_I] * 4
+        + [ctypes.c_double, _P],
     },
 }
 

@@ -22,7 +22,8 @@ where it launches its kernel, never on the CPU path, under a lock, since
 serving replicas launch from several threads. The round kernel with an
 activation mask counts as ``dekrr_step_masked``, apart from the unmasked
 round; the featurize kernel counts as ``rff_features`` in f64/f32 and as
-``rff_features_lowp`` in bf16.
+``rff_features_lowp`` in bf16; the decode-attention kernel as
+``flash_decode``.
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ from repro_torch.kernels.dekrr_solve import (dekrr_async_solve_cuda,
                                              dekrr_cheb_solve_reference,
                                              dekrr_solve_cuda,
                                              dekrr_solve_reference)
+from repro_torch.kernels.decode_attention import (flash_decode_cuda,
+                                                  flash_decode_reference)
 from repro_torch.kernels.dekrr_step import (dekrr_step_cuda,
                                             dekrr_step_masked_reference,
                                             dekrr_step_reference)
@@ -49,7 +52,7 @@ from repro_torch.kernels.rff_gram import (rff_gram_batched_reference,
 
 LAUNCHES = {"rff_gram": 0, "dekrr_step": 0, "dekrr_step_masked": 0,
             "dekrr_solve": 0, "dekrr_async_solve": 0, "dekrr_cheb_solve": 0,
-            "rff_features": 0, "rff_features_lowp": 0}
+            "rff_features": 0, "rff_features_lowp": 0, "flash_decode": 0}
 _FLOATS = (torch.float32, torch.float64)
 _count_lock = threading.Lock()
 
@@ -156,6 +159,66 @@ def rff_features_lowp(omega: torch.Tensor, bias: torch.Tensor,
                           x.to(bf16).contiguous(), z, scale=1.0)
         _count(name)
     return z.float() * scale
+
+
+# ------------------------------------------------------------------ decode
+FLASH_DECODE_MAX_HEAD_DIM = 256
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor,
+                 cur_index: int | torch.Tensor) -> torch.Tensor:
+    """Single-token decode attention: q [B, 1, H, dh] against k/v caches
+    [B, S, K, dh] (GQA: H % K == 0) whose first ``cur_index`` positions
+    are valid, ``cur_index`` a scalar in [1, S] (a tensor is read to the
+    host). Returns [B, 1, H, dh] in q's dtype. Float64 operands are cast
+    to float32 and the result back, as the reference does.
+
+    On CUDA the kernel takes f32 with dh a multiple of 4 up to 256, q
+    contiguous, and caches whose head and dh axes are contiguous (any
+    batch and position strides, multiples of 4) at 16-byte aligned
+    addresses; anything else raises."""
+    name = "flash_decode"
+    if q.ndim != 4 or k_cache.ndim != 4 or q.shape[1] != 1:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k_cache "
+                         f"{tuple(k_cache.shape)} must be [B, 1, H, dh] and "
+                         f"[B, S, K, dh]")
+    b, _, h, dh = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    _check_shape(name, "k_cache", k_cache, (b, s, kh, dh))
+    _check_shape(name, "v_cache", v_cache, (b, s, kh, dh))
+    if kh == 0 or h % kh:
+        raise ValueError(f"{name}: {h} query heads do not group over {kh} "
+                         f"kv heads")
+    on_cuda = _on_cuda(name, q, k_cache, v_cache)
+    out_dtype = _check_floats(name, q, k_cache, v_cache)
+    cur = int(cur_index)
+    if not 1 <= cur <= s:
+        raise ValueError(f"{name}: cur_index {cur} lies outside [1, {s}]")
+    if out_dtype == torch.float64:
+        q, k_cache, v_cache = (t.float() for t in (q, k_cache, v_cache))
+    lens = torch.full((b * kh,), cur, dtype=torch.int32, device=q.device)
+    if not on_cuda:
+        return flash_decode_reference(q, k_cache, v_cache,
+                                      lens).to(out_dtype)
+    _check_contiguous(name, q=q)
+    if dh % 4 or dh > FLASH_DECODE_MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {dh} must be a multiple of 4 "
+                         f"up to {FLASH_DECODE_MAX_HEAD_DIM}")
+    for key, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.stride(3) != 1 or t.stride(2) != dh:
+            raise ValueError(f"{name}: {key} must have contiguous head and "
+                             f"dh axes, got strides {t.stride()}")
+        if t.stride(0) % 4 or t.stride(1) % 4 or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned with "
+                             f"batch and position strides that are "
+                             f"multiples of 4, got strides {t.stride()}")
+    if q.data_ptr() % 16:
+        raise ValueError(f"{name}: q must be 16-byte aligned")
+    out = torch.empty_like(q)
+    flash_decode_cuda(q, k_cache, v_cache, lens, out)
+    _count(name)
+    return out.to(out_dtype)
 
 
 # --------------------------------------------------------------------- Gram

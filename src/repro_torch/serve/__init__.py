@@ -14,6 +14,8 @@ precision-bounded answers from a fitted DeKRR model.
     `ServeSnapshot` or a `SnapshotRegistry`).
   * `DeKRRReplicaServer` — N engine replicas off one registry and one
     admission queue.
+  * `ServeEngine` — the LLM continuous-batching engine (token slots,
+    width 1) over the model's decode step (`repro_torch.serve.engine`).
 
 Every answer carries its snapshot's `StalenessBound`; on the
 mixed-precision paths (precision="bf16"/"int8") its `precision` term
@@ -25,6 +27,7 @@ from repro_torch.serve.admission import (Admitted, AdmissionQueue,
 from repro_torch.serve.dekrr import (DeKRRReplicaServer, DeKRRServeEngine,
                                      KernelQuery, answer_wave,
                                      stage_snapshot)
+from repro_torch.serve.engine import Request, ServeEngine
 
 __all__ = [
     "Admitted",
@@ -34,6 +37,8 @@ __all__ = [
     "KernelQuery",
     "LatencyRecorder",
     "LatencyReport",
+    "Request",
+    "ServeEngine",
     "answer_wave",
     "pad_bucket",
     "stage_snapshot",

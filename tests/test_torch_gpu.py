@@ -338,3 +338,101 @@ def test_gpu_serving_launches_the_kernel_and_refuses_tf32(cuda_device):
                 [KernelQuery(uid=0, x=np.zeros(5))])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
+
+
+# (B, H, K, dh, S, cur): the cases of tests/test_kernels_decode.py, then
+# qwen1.5-0.5b's heads at the serving cache length, smollm-135m's (GQA
+# 3:1) and granite-3-8b's (GQA 4:1, dh 128)
+DECODE_SHAPES = [
+    (2, 8, 8, 64, 256, 200), (2, 8, 2, 64, 512, 512),
+    (1, 16, 16, 128, 1024, 37), (4, 4, 1, 80, 300, 123),
+    (3, 6, 3, 32, 96, 50),
+    (8, 16, 16, 64, 512, 1), (8, 16, 16, 64, 512, 37),
+    (8, 16, 16, 64, 512, 512),
+    (8, 9, 3, 64, 512, 37), (8, 9, 3, 64, 512, 512),
+    (8, 32, 8, 128, 512, 37), (8, 32, 8, 128, 512, 512),
+]
+DECODE_TOL = 2e-5     # the reference kernel's tolerance (sum order)
+
+
+def decode_case(b, h, kh, dh, s, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(dtype=torch.float32, device=device, generator=gen)
+    return (torch.randn((b, 1, h, dh), **kw),
+            torch.randn((b, s, kh, dh), **kw),
+            torch.randn((b, s, kh, dh), **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kh,dh,s,cur", DECODE_SHAPES)
+def test_gpu_flash_decode_matches_plain(cuda_device, b, h, kh, dh, s, cur):
+    from repro_torch.kernels.decode_attention import flash_decode_reference
+
+    q, k, v = decode_case(b, h, kh, dh, s, s + cur, cuda_device)
+    got = ops.flash_decode(q, k, v, cur)
+    lens = torch.full((b * kh,), cur, dtype=torch.int32, device=cuda_device)
+    want = flash_decode_reference(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=DECODE_TOL, atol=DECODE_TOL)
+    assert ops.LAUNCHES["flash_decode"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kh,dh,s,cur", [DECODE_SHAPES[i]
+                                             for i in (0, 3, 6, 11)])
+def test_gpu_flash_decode_ignores_stale_tail(cuda_device, b, h, kh, dh, s,
+                                             cur):
+    """±999 beyond cur_index changes no bit of the output, and a strided
+    view of a larger cache (the model's per-layer slice) gives the same
+    bits as the contiguous cache."""
+    q, k, v = decode_case(b, h, kh, dh, s, 7, cuda_device)
+    out = ops.flash_decode(q, k, v, cur)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, cur:] = 999.0
+    v2[:, cur:] = -999.0
+    assert torch.equal(ops.flash_decode(q, k2, v2, cur), out)
+    big = torch.zeros((2, b, s + 8, kh, dh), device=cuda_device)
+    big[1, :, :s] = k
+    bigv = torch.zeros_like(big)
+    bigv[1, :, :s] = v
+    assert torch.equal(ops.flash_decode(q, big[1, :, :cur + 4],
+                                        bigv[1, :, :cur + 4], cur), out)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_decode_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    q, k, v = decode_case(1, 4, 2, 32, 16, 0, cuda_device)
+    with pytest.raises(ValueError, match="head and dh axes"):
+        ops.flash_decode(q, k.transpose(2, 3).contiguous().transpose(2, 3),
+                         v, 8)
+    q6, k6, v6 = decode_case(1, 4, 2, 6, 16, 0, cuda_device)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ops.flash_decode(q6, k6, v6, 8)
+    with pytest.raises(TypeError):
+        ops.flash_decode(q.half(), k.half(), v.half(), 8)
+    assert ops.LAUNCHES["flash_decode"] == 0
+
+
+@pytest.mark.gpu
+def test_gpu_decode_step_launches_flash_decode_per_layer(cuda_device):
+    """A reduced model's decode step on the card launches the kernel once
+    per layer, and its logits agree with the plain attention's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model, init_params
+
+    cfg = get_arch("smollm_135m").config.reduced()
+    model = Model(cfg, init_params(
+        cfg, torch.Generator(cuda_device).manual_seed(0)))
+    toks = torch.randint(0, cfg.vocab_size, (3, 6), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    caches = {b: model.init_cache(3, 16) for b in ("cuda", "torch")}
+    for t in range(6):
+        out = {}
+        for b in caches:
+            out[b], caches[b] = model.decode_step(caches[b], toks[:, t:t + 1],
+                                                  t, backend=b)
+        torch.testing.assert_close(out["cuda"], out["torch"], rtol=1e-4,
+                                   atol=1e-4 * out["torch"].abs().max())
+    assert ops.LAUNCHES["flash_decode"] == 6 * cfg.num_layers

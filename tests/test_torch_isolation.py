@@ -46,7 +46,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.acceleration, repro_torch.obs, "
             "repro_torch.obs.metrics, repro_torch.obs.spans, "
             "repro_torch.stream, repro_torch.serve, "
-            "repro_torch.serve.dekrr, repro_torch.kernels.rff_features; "
+            "repro_torch.serve.dekrr, repro_torch.kernels.rff_features, "
+            "repro_torch.models, repro_torch.configs, "
+            "repro_torch.serve.engine, repro_torch.launch.serve, "
+            "repro_torch.kernels.decode_attention; "
             "import sys; bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.'))]; assert not bad, bad")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
