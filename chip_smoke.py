@@ -4,13 +4,16 @@
 
 1. Card: name and power limit (nvidia-smi), TF32 switched off.
 2. Build: the seven CUDA sources of ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, in parallel), with each ``-Xptxas -v`` report.
+   (one nvcc per source, in parallel), with each ``-Xptxas -v`` report,
+   a summary of registers and spills of ``rff_gram`` and the round
+   kernel, and ``rff_gram``'s launch plans at the main path's shapes.
 3. Kernel phases: each solve-path kernel against its plain PyTorch
    version on the card, at the main path's shapes, in float64 and
-   float32, with the invariants that hold bit for bit (a solve launch ==
-   round launches; the masked round at all ones == the unmasked one; an
-   async-chain launch == masked round launches plus the delivery rule;
-   chunked Chebyshev launches == one launch).
+   float32, with the invariants that hold bit for bit (``rff_gram``:
+   two launches give the same bits and G == Gᵀ exactly; a solve launch
+   == round launches; the masked round at all ones == the unmasked one;
+   an async-chain launch == masked round launches plus the delivery
+   rule; chunked Chebyshev launches == one launch).
 4. Main path at the paper's full width (Table 2, ``wave``): N = 63,600,
    d = 148, noniid_y over J = 10 nodes of circulant(10, (1, 2)), D_j = 200
    energy-selected DDRF features from D0 = 4,000 candidates per node,
@@ -56,7 +59,8 @@
    within LLM_LOGIT_TOL of backend cuda and with the int8 cache within
    5%, and flash_decode launches 24 times per decode step; tokens/s,
    p50/p99 per request and ms per decode step.
-11. Launch counts of each path and run, zeroed just before it.
+11. Launch counts of each path and run, zeroed just before it, and
+   ``pack_problem`` repeated warm.
 12. Kernel times by CUDA events (timed on the device, behind a spin that
    lets the host queue the launches first) beside their plain versions,
    a PyTorch yardstick and the least time the card could take.
@@ -92,6 +96,11 @@ PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12,
               torch.bfloat16: 989e12}
 
 TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
+# rff_gram's phase (B, F, d, N): the main path's two calls (own blocks,
+# slot blocks), N inside one column tile, ragged 16-row blocks, and F past
+# one group of Gram blocks
+GRAM_SHAPES = ((10, 200, 148, 3180), (40, 200, 148, 3180), (2, 200, 148, 21),
+               (3, 70, 13, 300), (2, 330, 21, 700))
 SPIN_CYCLES = 20_000_000    # ~10 ms at the H100's ~1.98 GHz SM clock
 
 # The paper's Table 2 `wave` setting.
@@ -212,6 +221,24 @@ def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
                                  else "operations")
 
 
+def ptxas_summary(report: str) -> list[str]:
+    """Registers, spills and static shared memory of each kernel entry in
+    an ``nvcc -Xptxas -v`` report, one line per entry."""
+    out, name = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            name = "f64" if "IdE" in name else "f32" if "IfE" in name \
+                else name
+        elif "spill stores" in line and name:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            out.append(f"{name}: {line.split('info    :')[-1].strip()}; "
+                       f"{spill}")
+            name = None
+    return out
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -263,13 +290,19 @@ def kernel_phases() -> dict[str, float]:
     errs = {"rff_gram": 0.0, "dekrr_step": 0.0, "dekrr_solve": 0.0}
     for dtype in (torch.float64, torch.float32):
         f64 = dtype == torch.float64
-        for b in (J_NODES, J_NODES * 4):
-            args = gram_operands(b, D_PER_NODE, 148, 3180, dtype, seed=b)
+        for shape in GRAM_SHAPES:
+            args = gram_operands(*shape, dtype, seed=sum(shape))
             gram, zy = ops.rff_gram_batched(*args)
             gref, zref = rff_gram_batched_reference(*args)
+            again = ops.rff_gram_batched(*args)
             torch.cuda.synchronize()
-            e = max(compare(f"rff_gram B={b} {dtype}", gram, gref, dtype),
-                    compare(f"rff_gram zy B={b} {dtype}", zy, zref, dtype))
+            tag = f"(B, F, d, N)={shape} {dtype}"
+            e = max(compare(f"rff_gram {tag}", gram, gref, dtype),
+                    compare(f"rff_gram zy {tag}", zy, zref, dtype))
+            if not (torch.equal(again[0], gram) and torch.equal(again[1], zy)):
+                raise PhaseError(f"rff_gram: two launches differ ({tag})")
+            if not torch.equal(gram, gram.transpose(1, 2)):
+                raise PhaseError(f"rff_gram: G ≠ Gᵀ ({tag})")
             if f64:
                 errs["rff_gram"] = max(errs["rff_gram"], e)
         for dy, t_rows, k in ((1, J_NODES, 4), (1, J_NODES + 3, 4),
@@ -547,6 +580,21 @@ def main_path(device: str, *, subsample: int | None, d_per_node: int,
                 theta_step=theta_step, rounds=rounds, trace=trace,
                 rse=test_rse, t_pack=t_pack, t_solve=t_solve,
                 launches=launches, n_train=n_train, preds=preds, test=test)
+
+
+def warm_pack_ms(run: dict, repeats: int = 3) -> list[float]:
+    """Host-clock ms of `pack_problem` on the main path's solver, repeated
+    after the timed (cold) first call; the launches it makes are not the
+    main path's."""
+    from repro_torch.dist import pack_problem
+    out = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pack_problem(run["solver"], gram_backend="cuda", device="cuda")
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
 
 
 def check_main_path(run: dict) -> dict:
@@ -1092,7 +1140,8 @@ def timings(packed, run) -> list[dict]:
     for om, bi, x, y, cm in calls:
         n_live = cm.sum().item()          # columns this data needs
         b, f, d_in = om.shape
-        flops += 2 * f * d_in * n_live + 2 * f * f * n_live
+        # the projection, and the Gram's upper triangle (G is symmetric)
+        flops += 2 * f * d_in * n_live + f * (f + 1) * n_live
         byts += nbytes(om, bi, x, y, cm) + (b * f * f + b * f) * om.element_size()
     bms, by = bound_ms(byts, flops, dtype)
     rows.append(dict(
@@ -1705,12 +1754,21 @@ def run_on_card() -> int:
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.rff_gram import gram_plan
     t0 = time.perf_counter()
     reports = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"(sources {_build.source_hash()})")
     for src, text in reports.items():
         print(f"--- ptxas {src} ---\n{text.strip()}")
+    for src in ("rff_gram", "dekrr_step"):
+        for line in ptxas_summary(reports[src]):
+            print(f"ptxas {src}: {line}")
+    print(f"rff_gram plan at B = {J_NODES}, {4 * J_NODES}: " + "; ".join(
+        str(gram_plan(b, D_PER_NODE, 148, 3180,
+                      sms=torch.cuda.get_device_properties(0)
+                      .multi_processor_count))
+        for b in (J_NODES, 4 * J_NODES)))
 
     errs = kernel_phases()
     errs.update(chain_phases())
@@ -1726,6 +1784,8 @@ def run_on_card() -> int:
           f"{run['t_solve'] * 1e3:.1f} ms", flush=True)
     print(f"launches: {json.dumps(run['launches'])}")
     check_launches(run)
+    print(f"pack_problem warm [{card}]: " + ", ".join(
+        f"{ms:.1f}" for ms in warm_pack_ms(run)) + " ms")
 
     a = async_path(run, rounds=ASYNC_ROUNDS)
     a_checks = check_async_path(a, run, checks)

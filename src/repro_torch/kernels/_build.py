@@ -39,8 +39,8 @@ _L = ctypes.c_longlong
 # stream are c_void_p so ctypes never truncates them to 32 bits.
 SIGNATURES = {
     "dekrr_step": {
-        "dekrr_step_f64": [_P] * 10 + [_I] * 4 + [_P],
-        "dekrr_step_f32": [_P] * 10 + [_I] * 4 + [_P],
+        "dekrr_step_f64": [_P] * 10 + [_I] * 6 + [_P],
+        "dekrr_step_f32": [_P] * 10 + [_I] * 6 + [_P],
     },
     "dekrr_solve": {
         "dekrr_solve_f64": [_P] * 11 + [_I] * 6 + [_P],
@@ -61,8 +61,10 @@ SIGNATURES = {
         "dekrr_cheb_solve_max_blocks_f32": [_I] * 3,
     },
     "rff_gram": {
-        "rff_gram_f64": [_P] * 7 + [_I] * 4 + [ctypes.c_double, _P],
-        "rff_gram_f32": [_P] * 7 + [_I] * 4 + [ctypes.c_double, _P],
+        "rff_gram_f64": [_P] * 9 + [_I] * 4 + [ctypes.c_double]
+        + [_I] * 7 + [_P],
+        "rff_gram_f32": [_P] * 9 + [_I] * 4 + [ctypes.c_double]
+        + [_I] * 7 + [_P],
     },
     "rff_features": {
         "rff_features_f64": [_P] * 4 + [_I] * 3 + [ctypes.c_double, _P],

@@ -1,9 +1,12 @@
-// One node's Eq. 19 update, shared by the round kernel (dekrr_step.cu, with
+// One node's Eq. 19 update, the counterpart of the node body the Pallas
+// kernels of src/repro/kernels/dekrr_step.py and dekrr_solve.py share
+// (_eq19_update), shared here by the round kernel (dekrr_step.cu, with
 // or without an activation mask), the multi-round solve (dekrr_solve.cu),
 // the asynchronous-gossip chain (dekrr_async_solve.cu) and the Chebyshev
-// chain (dekrr_cheb_solve.cu). All launch the same block shape and call one
-// function, so a fused chain equals the same number of per-round launches
-// bit for bit. The cooperative launch the three chains share is at the end.
+// chain (dekrr_cheb_solve.cu). All compute each output row with the same two
+// per-row routines, so a fused chain equals the same number of per-round
+// launches bit for bit. The cooperative launch the three chains share is at
+// the end.
 //
 // Layout (row-major, all contiguous):
 //   g, s   [J, D, D]        p [J, K, D, D]
@@ -13,10 +16,19 @@
 //
 //   out_j = G_j (d_j + S_j θ_self(j) + Σ_{k live} P_jk θ_nbr(j,k))
 //
-// The block stages the 1 + K live θ row blocks in shared memory, forms acc
-// with one warp per output row (lanes stride the contraction axis, so each
-// warp reads a matrix row with coalesced loads), then applies G the same
-// way. Masked slots are skipped: their P blocks are zero and are not read.
+// Bound on the card: bytes. A round reads (2 + K) D×D blocks per node once
+// and does 2 flops per element read, far below the ~20 flop/byte at which
+// an H100 stops being limited by device memory in f64.
+//
+// Each element of acc = d + Sθ + ΣPθ and of out = G acc is computed by ONE
+// warp, in one fixed order: lane_dot's lane-strided partials over the
+// contraction axis (S first, then the live P blocks in slot order), then
+// warp_sum's shuffle tree, then d + sum (`eq19_acc_row`, `eq19_out_row`).
+// The bits of a row therefore do not depend on which warp, block or
+// cluster computes it: the chains run a whole node in one block
+// (`eq19_node_rows`), the round kernel spreads a node's rows over a
+// thread-block cluster, and both give the same bits. Masked slots are
+// skipped: their P blocks are zero and are not read.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -81,13 +93,92 @@ struct BufferRows {
   }
 };
 
-// Node j's update from an explicit own row block and neighbour row blocks.
-// `smem` holds node_smem_elems(K, D, Dy) elements; on return its first
-// Dy*D elements still hold the staged own rows θ_self(j). Returns this
-// thread's share of max |out_j - θ_self(j)| (reduce over the block for the
-// node's residual). Ends with a block barrier, so the caller may read
-// out_rows and the staged own rows at once; it must barrier again before
-// the next call reuses smem.
+// Copy node j's own θ rows and its live neighbours' rows into th
+// [(1 + K), Dy, D] (slot k at block 1 + k; masked slots are left alone).
+// Threads `first`, `first + step`, ... of the caller's group take part.
+template <typename T, typename NbrRows>
+__device__ __forceinline__ void stage_theta(T* th, const T* self_src,
+                                            NbrRows nbr_rows,
+                                            const int* mask_j, int K,
+                                            size_t rows, int first,
+                                            int step) {
+  for (size_t i = first; i < rows; i += step) th[i] = self_src[i];
+  for (int k = 0; k < K; ++k) {
+    if (mask_j[k] == 0) continue;
+    const T* src = nbr_rows(k);
+    T* dst = th + (1 + k) * rows;
+    for (size_t i = first; i < rows; i += step) dst[i] = src[i];
+  }
+}
+
+// Row a of acc = d_j + S_j θ_self + Σ_live P_jk θ_k, every output column
+// o < Dy, by one warp (lane 0 writes acc[o*D + a]). th holds the staged
+// rows as `stage_theta` leaves them.
+template <typename T>
+__device__ __forceinline__ void eq19_acc_row(int a, const T* __restrict__ s_j,
+                                             const T* __restrict__ p_j,
+                                             const T* __restrict__ d_j,
+                                             const int* mask_j, const T* th,
+                                             T* acc, int K, int D, int Dy,
+                                             int lane) {
+  const size_t rows = static_cast<size_t>(Dy) * D;
+  const size_t dd = static_cast<size_t>(D) * D;
+  for (int o0 = 0; o0 < Dy; o0 += kDyChunk) {
+    const int no = min(kDyChunk, Dy - o0);
+    T part[kDyChunk];
+#pragma unroll
+    for (int o = 0; o < kDyChunk; ++o) part[o] = T(0);
+    lane_dot(part, s_j + static_cast<size_t>(a) * D, th + o0 * D, lane, D, no);
+    for (int k = 0; k < K; ++k) {
+      if (mask_j[k] == 0) continue;
+      lane_dot(part, p_j + k * dd + static_cast<size_t>(a) * D,
+               th + (1 + k) * rows + o0 * D, lane, D, no);
+    }
+#pragma unroll
+    for (int o = 0; o < kDyChunk; ++o) {
+      if (o >= no) break;
+      const T sum = warp_sum(part[o]);
+      const size_t at = static_cast<size_t>(o0 + o) * D + a;
+      if (lane == 0) acc[at] = d_j[at] + sum;
+    }
+  }
+}
+
+// Row a of out = G_j acc, every output column o < Dy, by one warp (lane 0
+// writes out_rows[o*D + a]). Returns max(local, |out − θ_self|) over the
+// elements this lane wrote.
+template <typename T>
+__device__ __forceinline__ T eq19_out_row(int a, const T* __restrict__ g_j,
+                                          const T* acc, const T* th_self,
+                                          T* out_rows, T local, int D, int Dy,
+                                          int lane) {
+  for (int o0 = 0; o0 < Dy; o0 += kDyChunk) {
+    const int no = min(kDyChunk, Dy - o0);
+    T part[kDyChunk];
+#pragma unroll
+    for (int o = 0; o < kDyChunk; ++o) part[o] = T(0);
+    lane_dot(part, g_j + static_cast<size_t>(a) * D, acc + o0 * D, lane, D, no);
+#pragma unroll
+    for (int o = 0; o < kDyChunk; ++o) {
+      if (o >= no) break;
+      const T val = warp_sum(part[o]);
+      const size_t at = static_cast<size_t>(o0 + o) * D + a;
+      if (lane == 0) {
+        out_rows[at] = val;
+        local = fmax(local, fabs(val - th_self[at]));
+      }
+    }
+  }
+  return local;
+}
+
+// Node j's update by one block, from an explicit own row block and
+// neighbour row blocks. `smem` holds node_smem_elems(K, D, Dy) elements; on
+// return its first Dy*D elements still hold the staged own rows
+// θ_self(j). Returns this thread's share of max |out_j - θ_self(j)| (reduce
+// over the block for the node's residual). Ends with a block barrier, so
+// the caller may read out_rows and the staged own rows at once; it must
+// barrier again before the next call reuses smem.
 //
 // The arithmetic after staging does not depend on where the rows came
 // from, so every kernel that calls this with the same row values gets the
@@ -106,64 +197,21 @@ __device__ T eq19_node_rows(int j, const T* __restrict__ g,
   T* acc = smem + (K + 1) * rows;        // [Dy, D]
   const int* mask_j = nbr_mask + static_cast<size_t>(j) * K;
 
-  for (size_t i = threadIdx.x; i < rows; i += blockDim.x) th[i] = self_src[i];
-  for (int k = 0; k < K; ++k) {
-    if (mask_j[k] == 0) continue;
-    const T* src = nbr_rows(k);
-    T* dst = th + (1 + k) * rows;
-    for (size_t i = threadIdx.x; i < rows; i += blockDim.x) dst[i] = src[i];
-  }
+  stage_theta(th, self_src, nbr_rows, mask_j, K, rows, threadIdx.x,
+              blockDim.x);
   __syncthreads();
 
-  // acc = d + S θ_self + Σ_live P_k θ_k
   const T* s_j = s + j * dd;
   const T* p_j = p + static_cast<size_t>(j) * K * dd;
   const T* d_j = d + j * rows;
-  for (int a = warp; a < D; a += kWarps) {
-    for (int o0 = 0; o0 < Dy; o0 += kDyChunk) {
-      const int no = min(kDyChunk, Dy - o0);
-      T part[kDyChunk];
-#pragma unroll
-      for (int o = 0; o < kDyChunk; ++o) part[o] = T(0);
-      lane_dot(part, s_j + static_cast<size_t>(a) * D, th + o0 * D, lane, D, no);
-      for (int k = 0; k < K; ++k) {
-        if (mask_j[k] == 0) continue;
-        lane_dot(part, p_j + k * dd + static_cast<size_t>(a) * D,
-                 th + (1 + k) * rows + o0 * D, lane, D, no);
-      }
-#pragma unroll
-      for (int o = 0; o < kDyChunk; ++o) {
-        if (o >= no) break;
-        const T sum = warp_sum(part[o]);
-        const size_t at = static_cast<size_t>(o0 + o) * D + a;
-        if (lane == 0) acc[at] = d_j[at] + sum;
-      }
-    }
-  }
+  for (int a = warp; a < D; a += kWarps)
+    eq19_acc_row(a, s_j, p_j, d_j, mask_j, th, acc, K, D, Dy, lane);
   __syncthreads();
 
-  // out = G acc
   const T* g_j = g + j * dd;
   T local = T(0);
-  for (int a = warp; a < D; a += kWarps) {
-    for (int o0 = 0; o0 < Dy; o0 += kDyChunk) {
-      const int no = min(kDyChunk, Dy - o0);
-      T part[kDyChunk];
-#pragma unroll
-      for (int o = 0; o < kDyChunk; ++o) part[o] = T(0);
-      lane_dot(part, g_j + static_cast<size_t>(a) * D, acc + o0 * D, lane, D, no);
-#pragma unroll
-      for (int o = 0; o < kDyChunk; ++o) {
-        if (o >= no) break;
-        const T val = warp_sum(part[o]);
-        const size_t at = static_cast<size_t>(o0 + o) * D + a;
-        if (lane == 0) {
-          out_rows[at] = val;
-          local = fmax(local, fabs(val - th[at]));
-        }
-      }
-    }
-  }
+  for (int a = warp; a < D; a += kWarps)
+    local = eq19_out_row(a, g_j, acc, th, out_rows, local, D, Dy, lane);
   __syncthreads();
   return local;
 }

@@ -5,152 +5,602 @@
 // For each problem b:  Z = scale · cos(Ω X + b) · colmask   (Z is never stored)
 //                      G = Z Zᵀ [F, F],  zy = Z y [F]
 //
-// The Pallas kernel carries the [F, F] sum in VMEM from one grid step to the
-// next. Here every block owns one 64×64 tile of one G and loops over all N
-// in tiles of kTN columns: it computes cos(ΩX+b) for its own 64 row- and 64
-// column-frequencies into shared memory, masks padded columns and
-// accumulates its tile in registers (4×4 per thread). No block shares an
-// output, so there are no atomics and no second pass, and the result is the
-// same from run to run. zy comes from the blocks of the first column tile.
+// Bound on the card: operations, 2·F·d·N for the projection plus F(F+1)·N
+// for the Gram's upper triangle (G is symmetric). In f64 only the FP64 tensor cores (mma.sync .f64, 67 TFLOP/s)
+// reach that rate; the FP64 vector units give half. The Pallas kernel walks
+// N in order and carries the [F, F] sum in VMEM; a CUDA grid has no order
+// and a block has 227 KB of shared memory, so this kernel splits N across
+// clusters and reduces in a fixed order:
 //
-// Bound on the card: operations. Forming Z costs 2·F·d·N flops and the Gram
-// 2·F²·N; X is read once. This simple kernel recomputes each cosine once
-// per tile in the other dimension (ceil(F/64) times) and runs on the FP64
-// vector units, not the tensor cores.
+// * Grid (C·S, Q, B), clusters of C blocks along x, 8 warps a block. Cluster
+//   s of problem b owns slice_cols columns (a multiple of kNc) and walks
+//   them in tiles of kNc. The wrapper (kernels/rff_gram.py::gram_plan)
+//   picks C, S, Q and whether Ω stays resident.
+// * Block rank r owns feature rows [r·H, (r+1)·H), H a multiple of 16 (at
+//   C = 2, F = 200: 112 and 96 rows). Its Ω rows are loaded into shared
+//   memory once (`resident`; else streamed with X), and X goes through a
+//   ring of kStages chunks of kKc rows by cp.async (16-byte copies through
+//   L2 where rows are 16-byte aligned; each thread's share of a chunk is
+//   fixed, so a stage costs a few adds, not integer divisions). Two slots
+//   of 32 rows beat four of 16: half the barriers a tile.
+// * Projection: P = Ω X_tile on the FP64 tensor cores (mma.sync m16n8k16
+//   .f64), two 16×16 units a warp, four independent accumulators.
+// * Epilogue: scale·cos(P + b)·mask with the accurate cos into the shared Z
+//   tile [F_pad, kNc]; each cosine of each column is computed once (Q = 1,
+//   i.e. F ≤ 208 at C = 2). The block adds its rows' Z·y to a register.
+// * Exchange: a cluster barrier, then each block copies the other ranks'
+//   rows out of their shared memory (distributed shared memory). The
+//   barrier that keeps a rank from overwriting rows a peer still copies is
+//   split (arrive after the copy, wait before the next epilogue), so its
+//   latency hides behind the Gram and the next projection.
+// * Gram: the upper triangle of Z Zᵀ in 16×16 blocks, six per warp, dealt
+//   over ranks and warps, on the tensor cores, summed in registers over the
+//   slice.
+// * Reduction: each block writes its partial blocks (and zy rows) to a
+//   workspace [B, Q, S, group_blocks, 16·16] (+ [B, S, F_pad]) and bumps a
+//   per-(problem, group, rank) counter after __threadfence(); the block
+//   that brings it to S sums s = 0 … S−1 in slice order and writes each
+//   upper element to G[i][j] and G[j][i] (G is exactly symmetric). The
+//   wrapper zeroes the counters for each launch. No float atomics: two
+//   launches give the same bits.
+//
+// What still holds it back (chip_smoke.py and PERF.md): every tile passes
+// through ~5 chunk barriers, a cluster barrier and a copy with only 8
+// warps an SM to hide their latency, so the phases add up instead of
+// overlapping. F above 208 at C = 2 (the wrapper raises C first) splits the
+// triangle into Q groups whose clusters each recompute Z. f32 runs the
+// same tiling with the products on the FP32 units (FMA, no TF32).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "cluster_launch.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTile = 64;
-constexpr int kTN = 16;
-constexpr int kThreads = 256;  // 16 × 16 threads, 4 × 4 outputs each
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kNc = 32;       // columns per tile
+constexpr int kKc = 32;       // projection depth per staged chunk
+constexpr int kStages = 2;    // chunks in the cp.async ring (1 in flight)
+// Shared row strides ≡ 4 (mod 8) words: the fragment loads below (lane
+// (g, t) reads row g, column t) hit 16 distinct 8-byte banks per half warp.
+constexpr int kZs = kNc + 4;
+constexpr int kXs = kNc + 4;
+constexpr int kOs = kKc + 4;
+constexpr int kUnits = kNc / 16;           // 16×16 projection units per m-tile
+constexpr int kPSlots = 2;                 // projection units per warp
+constexpr int kMaxRankRows = kPSlots * kWarps / kUnits * 16;  // 128
+constexpr int kGSlots = 6;                 // 16×16 Gram blocks per warp
+constexpr int kCopyBatch = 8;              // peer Z loads in flight a thread
+constexpr int kSumBatch = 4;               // reduced elements a thread at once
 
-__host__ __device__ inline size_t gram_smem_elems(int dim) {
-  return static_cast<size_t>(dim) * kTN + 2 * kTile * kTN + kTN;
+__host__ __device__ inline int rank_rows_alloc(int F, int C) {
+  const int nb = (F + 15) / 16;
+  return (nb + C - 1) / C * 16;
+}
+
+// Row stride of the resident Ω rows: d padded to the chunk depth, + 4.
+__host__ __device__ inline int resident_stride(int dim) {
+  return (dim + kKc - 1) / kKc * kKc + 4;
+}
+
+// Z tile [F_pad][kZs], Ω rows (resident [H][stride] or a ring [kStages][H]
+// [kOs]), X ring [kStages][kKc][kXs], y and mask ring [kStages][2][kNc],
+// bias rows [H]. The wrapper's plan sizes the launch
+// (kernels/rff_gram.py::gram_plan); the launcher only checks that it
+// covers this layout.
+__host__ __device__ inline size_t gram_smem_bytes(int F, int dim, int C,
+                                                  int resident, int elem) {
+  const size_t fp = (F + 15) / 16 * 16;
+  const size_t hr = rank_rows_alloc(F, C);
+  const size_t om = resident ? hr * resident_stride(dim)
+                             : kStages * hr * kOs;
+  return (fp * kZs + om + static_cast<size_t>(kStages) * kKc * kXs +
+          kStages * 2 * kNc + hr) *
+         elem;
+}
+
+// c += A·B for a 16×8 (m×n) tile over k = 16 on the FP64 tensor cores:
+// A(m, k) = a[m·am + k·ak], B(k, n) = b[k·bk + n·bn]. c is the lane's share
+// in the mma layout: rows g, g, g+8, g+8 and columns 2t, 2t+1, 2t, 2t+1
+// (g = lane/4, t = lane%4); the lane holds A at rows g + 8·(i % 2), columns
+// t + 4·(i / 2), and B at rows t + 4·i, column g.
+__device__ __forceinline__ void mma16x8x16(double (&c)[4], const double* a,
+                                           int am, int ak, const double* b,
+                                           int bk, int bn, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  double av[8], bv[4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    av[i] = a[(g + 8 * (i % 2)) * am + (t + 4 * (i / 2)) * ak];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) bv[i] = b[(t + 4 * i) * bk + g * bn];
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(av[0]), "d"(av[1]), "d"(av[2]), "d"(av[3]), "d"(av[4]),
+        "d"(av[5]), "d"(av[6]), "d"(av[7]), "d"(bv[0]), "d"(bv[1]),
+        "d"(bv[2]), "d"(bv[3]));
+}
+
+// The same product in f32 on the FP32 units, k in order.
+__device__ __forceinline__ void mma16x8x16(float (&c)[4], const float* a,
+                                           int am, int ak, const float* b,
+                                           int bk, int bn, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const float lo = a[g * am + k * ak], hi = a[(g + 8) * am + k * ak];
+    const float b0 = b[k * bk + 2 * t * bn], b1 = b[k * bk + (2 * t + 1) * bn];
+    c[0] = fmaf(lo, b0, c[0]);
+    c[1] = fmaf(lo, b1, c[1]);
+    c[2] = fmaf(hi, b0, c[2]);
+    c[3] = fmaf(hi, b1, c[3]);
+  }
+}
+
+// Copy `bytes` (0 … 16, the rest zero-filled) of the 16-byte source chunk
+// to 16 bytes of shared memory, through L2 only (an 8-byte copy must go
+// through L1, which the shared-memory carve-out leaves at ~28 KB).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
+               "l"(src), "r"(bytes));
+}
+
+// One element, zero when !valid (rows whose length is not a multiple of
+// 16 bytes).
+template <int Bytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(addr),
+               "l"(src), "n"(Bytes), "r"(valid ? Bytes : 0));
+}
+
+// Start copying `rows` rows of `width` elements (src row r at
+// src + r·src_stride) to dst (row stride dst_stride), zero-filling rows at
+// or past rows_valid and elements at or past `valid`; the block's threads
+// share the work. 16-byte chunks when `vec` (width a multiple of 16 bytes,
+// 16-byte aligned rows), else one element a copy.
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int dst_stride,
+                                          const T* src, size_t src_stride,
+                                          int rows, int rows_valid, int width,
+                                          int valid, bool vec) {
+  const int v = vec ? 16 / static_cast<int>(sizeof(T)) : 1;
+  const int per_row = width / v;
+  for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
+    const int r = e / per_row, i = e % per_row * v;
+    const int n = r < rows_valid ? max(0, min(v, valid - i)) : 0;
+    const T* from = n ? src + r * src_stride + i : src;
+    T* to = dst + r * dst_stride + i;
+    if (vec)
+      cp_async16(to, from, n * static_cast<int>(sizeof(T)));
+    else
+      cp_async<sizeof(T)>(to, from, n > 0);
+  }
+}
+
+// The two halves of cluster.sync(), so a block can work between them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most kStages − 2 committed groups are pending.
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+}
+
+// (bi, bj) of upper-triangle block `idx` (row-major, bi ≤ bj < nb).
+__device__ __forceinline__ void tri_block(int idx, int nb, int& bi, int& bj) {
+  bi = 0;
+  while (idx >= nb - bi) {
+    idx -= nb - bi;
+    ++bi;
+  }
+  bj = bi + idx;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 rff_gram_kernel(const T* __restrict__ omega, const T* __restrict__ bias,
                 const T* __restrict__ x, const T* __restrict__ y,
                 const T* __restrict__ mask, T* __restrict__ gram,
-                T* __restrict__ zy, int F, int dim, int N, T scale) {
+                T* __restrict__ zy, T* __restrict__ work,
+                int* __restrict__ counters, int F, int dim, int N, T scale,
+                int slices, int slice_cols, int group_blocks, int resident) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);   // [dim, kTN]
-  T* zr = xs + static_cast<size_t>(dim) * kTN;  // [kTN, kTile] row features
-  T* zc = zr + kTile * kTN;                  // [kTN, kTile] column features
-  T* ys = zc + kTile * kTN;                  // [kTN]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int s = blockIdx.x / C, q = blockIdx.y, b = blockIdx.z;
+  const int groups = gridDim.y, B = gridDim.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
 
-  const int ct = blockIdx.x, rt = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int nb = (F + 15) / 16, fp = nb * 16;
+  const int hr = rank_rows_alloc(F, C);       // rows per rank (allocated)
+  const int row0 = rank * hr;
+  const int my_rows = max(0, min(fp, row0 + hr) - row0);
+  // Ω rows of this rank: resident [hr][ostr] loaded once, or a ring of
+  // kStages chunks [hr][kOs] streamed with X.
+  const int ostr = resident ? resident_stride(dim) : kOs;
+  T* zs = reinterpret_cast<T*>(smem_raw);     // [fp][kZs]
+  T* os = zs + static_cast<size_t>(fp) * kZs;
+  T* xs = os + static_cast<size_t>(hr) * (resident ? ostr : kStages * kOs);
+  T* ym = xs + kStages * kKc * kXs;            // [kStages][y, mask][kNc]
+  T* bs = ym + kStages * 2 * kNc;              // [hr] bias of this rank's rows
+
   const T* om = omega + static_cast<size_t>(b) * F * dim;
-  const T* bi = bias + static_cast<size_t>(b) * F;
+  const T* bi_b = bias + static_cast<size_t>(b) * F;
   const T* xb = x + static_cast<size_t>(b) * dim * N;
   const T* yb = y + static_cast<size_t>(b) * N;
   const T* mb = mask + static_cast<size_t>(b) * N;
-  const bool want_zy = (ct == 0);
 
-  T acc[4][4];
+  const int c_begin = s * slice_cols;
+  const int c_end = min(N, c_begin + slice_cols);
+  const int tiles = c_end > c_begin ? (c_end - c_begin + kNc - 1) / kNc : 0;
+  const int kchunks = max(1, (dim + kKc - 1) / kKc);
+  const int stages = tiles * kchunks;
+
+  // This warp's projection units u = warp + kWarps·i: rows pm·16 of the
+  // rank, columns pn·16 of the tile.
+  int pm[kPSlots], pn[kPSlots];
+  bool p_live[kPSlots];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kPSlots; ++i) {
+    const int u = warp + kWarps * i;
+    pm[i] = u / kUnits;
+    pn[i] = u % kUnits;
+    p_live[i] = pm[i] * 16 < my_rows;
+  }
+  // This warp's Gram blocks in group q: the rank takes every C-th block
+  // of the row-major upper triangle, each warp a run of kGSlots of them.
+  const int total_blocks = nb * (nb + 1) / 2;
+  const int blocks_here = min(group_blocks, total_blocks - q * group_blocks);
+  int gbi[kGSlots], gbj[kGSlots];
+  bool g_live[kGSlots];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) acc[i][k] = T(0);
+  for (int i = 0; i < kGSlots; ++i) {
+    const int l = (warp * kGSlots + i) * C + rank;
+    g_live[i] = l < blocks_here;
+    tri_block(g_live[i] ? q * group_blocks + l : 0, nb, gbi[i], gbj[i]);
+  }
+
+  T pacc[kPSlots][2][4], gacc[kGSlots][2][4];
+#pragma unroll
+  for (int i = 0; i < kGSlots; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gacc[i][h][e] = T(0);
   T zy_acc = T(0);
 
-  for (int n0 = 0; n0 < N; n0 += kTN) {
-    for (int i = tid; i < dim * kTN; i += kThreads) {
-      const int k = i / kTN, n = i % kTN;
-      xs[i] = (n0 + n < N) ? xb[static_cast<size_t>(k) * N + n0 + n] : T(0);
-    }
-    if (tid < kTN) ys[tid] = (n0 + tid < N) ? yb[n0 + tid] : T(0);
-    __syncthreads();
+  // 16-byte copies where every row starts on a 16-byte boundary.
+  auto aligned = [](const void* ptr, size_t row_bytes) {
+    return reinterpret_cast<size_t>(ptr) % 16 == 0 && row_bytes % 16 == 0;
+  };
+  const bool xvec = aligned(x, N * sizeof(T)) && aligned(y, N * sizeof(T)) &&
+                    aligned(mask, N * sizeof(T));
+  const bool ovec = aligned(omega, dim * sizeof(T));
+  const bool bvec = aligned(bias, F * sizeof(T));
 
-    for (int e = tid; e < 2 * kTile * kTN; e += kThreads) {
-      const int n = e % kTN;
-      const int rr = e / kTN;                  // 0..2*kTile-1
-      const bool col = rr >= kTile;
-      const int fl = rr % kTile;
-      const int f = (col ? ct : rt) * kTile + fl;
-      T z = T(0);
-      if (f < F && n0 + n < N) {
-        const T* w = om + static_cast<size_t>(f) * dim;
-        T proj = T(0);
-        for (int k = 0; k < dim; ++k) proj += w[k] * xs[k * kTN + n];
-        z = scale * cos(proj + bi[f]) * mb[n0 + n];
-      }
-      (col ? zc : zr)[n * kTile + fl] = z;
-    }
-    __syncthreads();
+  // Each thread's share of a stage's X chunk [kKc][kNc] and of a tile's
+  // y and mask, fixed for the launch: chunk e = tid + j·kThreads is row
+  // xr[j], columns xi[j] … + xv − 1. A stage then costs a few adds.
+  const int xv = xvec ? 16 / static_cast<int>(sizeof(T)) : 1;
+  constexpr int kXSlots = kKc * kNc / kThreads;
+  int xr[kXSlots], xi[kXSlots];
+#pragma unroll
+  for (int j = 0; j < kXSlots; ++j) {
+    const int e = tid + j * kThreads;
+    xr[j] = e < kKc * kNc / xv ? e / (kNc / xv) : kKc;  // kKc: no chunk
+    xi[j] = e % (kNc / xv) * xv;
+  }
+  const int ym_row = tid / (kNc / xv), ym_col = tid % (kNc / xv) * xv;
 
-#pragma unroll 4
-    for (int n = 0; n < kTN; ++n) {
-      T a[4], c[4];
+  // Stage (tile, kc) into ring slot buf.
+  auto load_stage = [&](int tile, int kc, int buf) {
+    const int c0 = c_begin + tile * kNc, k0 = kc * kKc;
+    if (!resident)
+      copy_rows(os + static_cast<size_t>(buf) * hr * kOs, kOs,
+                om + static_cast<size_t>(row0) * dim + k0, dim, my_rows,
+                F - row0, kKc, dim - k0, ovec);
+    T* xd = xs + buf * kKc * kXs;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = zr[n * kTile + ty * 4 + i];
-        c[i] = zc[n * kTile + tx * 4 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][k] += a[i] * c[k];
+    for (int j = 0; j < kXSlots; ++j) {
+      if (xr[j] >= kKc) continue;
+      const int k = k0 + xr[j], col = c0 + xi[j];
+      const int n = k < dim ? max(0, min(xv, c_end - col)) : 0;
+      const T* src = n ? xb + static_cast<size_t>(k) * N + col : xb;
+      T* dst = xd + xr[j] * kXs + xi[j];
+      if (xvec)
+        cp_async16(dst, src, n * static_cast<int>(sizeof(T)));
+      else
+        cp_async<sizeof(T)>(dst, src, n > 0);
     }
-    if (want_zy && tid < kTile)
-      for (int n = 0; n < kTN; ++n) zy_acc += zr[n * kTile + tid] * ys[n];
-    __syncthreads();
+    if (kc == kchunks - 1 && ym_row < 2) {  // y and mask, for the epilogue
+      const int col = c0 + ym_col;
+      const int n = max(0, min(xv, c_end - col));
+      const T* row = ym_row ? mb : yb;
+      const T* src = n ? row + col : row;
+      T* dst = ym + buf * 2 * kNc + ym_row * kNc + ym_col;
+      if (xvec)
+        cp_async16(dst, src, n * static_cast<int>(sizeof(T)));
+      else
+        cp_async<sizeof(T)>(dst, src, n > 0);
+    }
+  };
+
+  // This rank's bias rows and (resident) Ω rows, zero past F and d, once.
+  copy_rows(bs, hr, bi_b + row0, 0, 1, 1, hr, F - row0, bvec);
+  if (resident)
+    copy_rows(os, ostr, om + static_cast<size_t>(row0) * dim, dim, my_rows,
+              F - row0, ostr - 4, dim, ovec);
+  cp_async_commit();
+  // One commit group per stage (empty past the end), kStages − 1 ahead;
+  // (ld_tile, ld_kc) is the next stage to load, (tile, kc) this one.
+  int ld_tile = 0, ld_kc = 0;
+  auto next = [&](int& tl, int& k) {
+    if (++k == kchunks) {
+      k = 0;
+      ++tl;
+    }
+  };
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < stages) {
+      load_stage(ld_tile, ld_kc, st);
+      next(ld_tile, ld_kc);
+    }
+    cp_async_commit();
+  }
+  int tile = 0, kc = 0;
+  for (int st = 0; st < stages; ++st, next(tile, kc)) {
+    const int buf = st % kStages;
+    cp_async_wait_ring();
+    __syncthreads();  // chunk st visible; every warp is done with st − 1
+    if (st + kStages - 1 < stages) {
+      load_stage(ld_tile, ld_kc, (st + kStages - 1) % kStages);
+      next(ld_tile, ld_kc);
+    }
+    cp_async_commit();
+
+    if (kc == 0) {
+#pragma unroll
+      for (int i = 0; i < kPSlots; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pacc[i][h][e] = T(0);
+    }
+#pragma unroll
+    for (int i = 0; i < kPSlots; ++i) {
+      if (!p_live[i]) continue;
+      const T* oa = resident
+          ? os + static_cast<size_t>(pm[i]) * 16 * ostr + kc * kKc
+          : os + (static_cast<size_t>(buf) * hr + pm[i] * 16) * kOs;
+      const T* xa = xs + buf * kKc * kXs + pn[i] * 16;
+#pragma unroll
+      for (int ks = 0; ks < kKc / 16; ++ks)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          mma16x8x16(pacc[i][h], oa + ks * 16, ostr, 1,
+                     xa + ks * 16 * kXs + h * 8, kXs, 1, lane);
+    }
+    if (kc != kchunks - 1) continue;
+
+    // Epilogue of the tile: this rank's Z rows into the shared tile.
+    const int c0 = c_begin + tile * kNc;
+    const T* yms = ym + buf * 2 * kNc;  // y, mask of the tile (0 past c_end)
+    if (tile > 0) cluster_wait();  // peers are done reading our rows
+#pragma unroll
+    for (int i = 0; i < kPSlots; ++i) {
+      if (!p_live[i]) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + pm[i] * 16 + g + (e >= 2 ? 8 : 0);
+          const int col = pn[i] * 16 + h * 8 + 2 * t + (e & 1);
+          T z = T(0);
+          if (row < F && c0 + col < c_end)
+            z = scale * cos(pacc[i][h][e] + bs[row - row0]) * yms[kNc + col];
+          zs[static_cast<size_t>(row) * kZs + col] = z;
+        }
+    }
+    cluster_arrive();
+    cluster_wait();  // every rank's rows written
+    if (q == 0 && tid < my_rows) {
+      const T* zr = zs + static_cast<size_t>(row0 + tid) * kZs;
+#pragma unroll
+      for (int n = 0; n < kNc; ++n) zy_acc += zr[n] * yms[n];
+    }
+    // The other ranks' rows, in 16-byte words (kZs·sizeof(T) is a multiple
+    // of 16), all loads in flight before the stores.
+    constexpr int kW = kNc * sizeof(T) / 16, kRowW = kZs * sizeof(T) / 16;
+    for (int peer = 0; peer < C; ++peer) {
+      const int p0 = peer * hr;
+      const int total = (min(fp, p0 + hr) - p0) * kW;
+      if (peer == rank || total <= 0) continue;
+      const uint4* src = reinterpret_cast<const uint4*>(
+          cluster.map_shared_rank(zs, peer)) + p0 * kRowW;
+      uint4* dst = reinterpret_cast<uint4*>(zs) + p0 * kRowW;
+      for (int e0 = tid; e0 < total; e0 += kCopyBatch * kThreads) {
+        uint4 v[kCopyBatch];
+#pragma unroll
+        for (int u = 0; u < kCopyBatch; ++u) {
+          const int e = e0 + u * kThreads;
+          if (e < total) v[u] = src[e / kW * kRowW + e % kW];
+        }
+#pragma unroll
+        for (int u = 0; u < kCopyBatch; ++u) {
+          const int e = e0 + u * kThreads;
+          if (e < total) dst[e / kW * kRowW + e % kW] = v[u];
+        }
+      }
+    }
+    __syncthreads();   // the copies, for the Gram
+    cluster_arrive();  // done with the peers' rows; waited on at the next tile
+
+    // Gram: this warp's upper-triangle blocks, k over the tile's columns.
+#pragma unroll
+    for (int i = 0; i < kGSlots; ++i) {
+      if (!g_live[i]) continue;
+      const T* za = zs + static_cast<size_t>(gbi[i]) * 16 * kZs;
+      const T* zb = zs + static_cast<size_t>(gbj[i]) * 16 * kZs;
+#pragma unroll
+      for (int ks = 0; ks < kNc / 16; ++ks)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          mma16x8x16(gacc[i][h], za + ks * 16, kZs, 1,
+                     zb + h * 8 * kZs + ks * 16, 1, kZs, lane);
+    }
   }
 
+  if (stages > 0) cluster_wait();  // no block leaves while peers read it
+
+  // Partials of this slice.
+  const size_t blk_elems = static_cast<size_t>(group_blocks) * 256;
+  T* wg = work + ((static_cast<size_t>(b) * groups + q) * slices + s) * blk_elems;
+#pragma unroll
+  for (int i = 0; i < kGSlots; ++i) {
+    if (!g_live[i]) continue;
+    const int l = (warp * kGSlots + i) * C + rank;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        wg[static_cast<size_t>(l) * 256 + (g + (e >= 2 ? 8 : 0)) * 16 + h * 8 +
+           2 * t + (e & 1)] = gacc[i][h][e];
+  }
+  T* wz = work + static_cast<size_t>(B) * groups * slices * blk_elems;
+  if (q == 0 && tid < my_rows)
+    wz[(static_cast<size_t>(b) * slices + s) * fp + row0 + tid] = zy_acc;
+
+  // The last block of (b, q, rank) to finish sums the slices in order.
+  __shared__ int is_last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* ctr = counters + (b * groups + q) * C + rank;
+    is_last = atomicAdd(ctr, 1) == slices - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  const T* wq = work + (static_cast<size_t>(b) * groups + q) * slices * blk_elems;
   T* gb = gram + static_cast<size_t>(b) * F * F;
+  const int mine = blocks_here > rank ? (blocks_here - rank + C - 1) / C : 0;
+  for (int e0 = tid; e0 < mine * 256; e0 += kSumBatch * kThreads) {
+    size_t at[kSumBatch];
+    int ij[kSumBatch][2];
+    bool ok[kSumBatch];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = rt * kTile + ty * 4 + i;
+    for (int u = 0; u < kSumBatch; ++u) {
+      const int e = e0 + u * kThreads;
+      const int l = rank + (e / 256) * C, el = e % 256;
+      int bi, bj;
+      tri_block(e < mine * 256 ? q * group_blocks + l : 0, nb, bi, bj);
+      ij[u][0] = bi * 16 + el / 16;
+      ij[u][1] = bj * 16 + el % 16;
+      ok[u] = e < mine * 256 && ij[u][0] < F && ij[u][1] < F &&
+              ij[u][0] <= ij[u][1];
+      at[u] = static_cast<size_t>(l) * 256 + el;
+    }
+    T v[kSumBatch];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int colx = ct * kTile + tx * 4 + k;
-      if (row < F && colx < F) gb[static_cast<size_t>(row) * F + colx] = acc[i][k];
+    for (int u = 0; u < kSumBatch; ++u) v[u] = T(0);
+    for (int sl = 0; sl < slices; ++sl) {  // slice order, loads batched
+      T w[kSumBatch];
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u)
+        w[u] = ok[u] ? __ldcg(wq + sl * blk_elems + at[u]) : T(0);
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u) v[u] += w[u];
+    }
+#pragma unroll
+    for (int u = 0; u < kSumBatch; ++u) {
+      if (!ok[u]) continue;
+      gb[static_cast<size_t>(ij[u][0]) * F + ij[u][1]] = v[u];
+      gb[static_cast<size_t>(ij[u][1]) * F + ij[u][0]] = v[u];
     }
   }
-  if (want_zy && tid < kTile && rt * kTile + tid < F)
-    zy[static_cast<size_t>(b) * F + rt * kTile + tid] = zy_acc;
+  if (q == 0 && tid < my_rows && row0 + tid < F) {
+    T v = T(0);
+    for (int sl = 0; sl < slices; ++sl)
+      v += __ldcg(wz + (static_cast<size_t>(b) * slices + sl) * fp + row0 + tid);
+    zy[static_cast<size_t>(b) * F + row0 + tid] = v;
+  }
 }
 
 template <typename T>
 int launch(const void* omega, const void* bias, const void* x, const void* y,
-           const void* mask, void* gram, void* zy, int B, int F, int dim, int N,
-           double scale, void* stream) {
-  const size_t smem = gram_smem_elems(dim) * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        rff_gram_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int tiles = (F + kTile - 1) / kTile;
-  dim3 grid(tiles, tiles, B);
-  rff_gram_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+           const void* mask, void* gram, void* zy, void* work, void* counters,
+           int B, int F, int dim, int N, double scale, int cluster, int slices,
+           int slice_cols, int groups, int group_blocks, int resident,
+           int smem_bytes, void* stream) {
+  const int nb = (F + 15) / 16;
+  if (cluster < 1 || cluster > 8 || slices < 1 || slice_cols % kNc != 0 ||
+      static_cast<size_t>(smem_bytes) <
+          gram_smem_bytes(F, dim, cluster, resident, sizeof(T)) ||
+      static_cast<long long>(slices) * slice_cols < N ||
+      rank_rows_alloc(F, cluster) > kMaxRankRows ||
+      group_blocks > kGSlots * kWarps * cluster ||
+      static_cast<long long>(groups) * group_blocks < nb * (nb + 1) / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return cluster_launch(
+      rff_gram_kernel<T>, dim3(cluster * slices, groups, B), kThreads,
+      smem_bytes, cluster, stream,
       static_cast<const T*>(omega), static_cast<const T*>(bias),
       static_cast<const T*>(x), static_cast<const T*>(y),
       static_cast<const T*>(mask), static_cast<T*>(gram), static_cast<T*>(zy),
-      F, dim, N, static_cast<T>(scale));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<T*>(work), static_cast<int*>(counters), F, dim, N,
+      static_cast<T>(scale), slices, slice_cols, group_blocks, resident);
 }
 
 }  // namespace
 
 extern "C" {
 
+// work: B·groups·slices·group_blocks·256 + B·slices·F_pad elements;
+// counters: B·groups·cluster int32, zero on entry (one launch's use);
+// resident: 1 keeps each block's Ω rows in shared memory for the launch;
+// smem_bytes: dynamic shared memory per block, at least gram_smem_bytes.
 int rff_gram_f64(const void* omega, const void* bias, const void* x,
-                 const void* y, const void* mask, void* gram, void* zy, int B,
-                 int F, int dim, int N, double scale, void* stream) {
-  return launch<double>(omega, bias, x, y, mask, gram, zy, B, F, dim, N, scale,
-                        stream);
+                 const void* y, const void* mask, void* gram, void* zy,
+                 void* work, void* counters, int B, int F, int dim, int N,
+                 double scale, int cluster, int slices, int slice_cols,
+                 int groups, int group_blocks, int resident, int smem_bytes,
+                 void* stream) {
+  return launch<double>(omega, bias, x, y, mask, gram, zy, work, counters, B,
+                        F, dim, N, scale, cluster, slices, slice_cols, groups,
+                        group_blocks, resident, smem_bytes, stream);
 }
 
 int rff_gram_f32(const void* omega, const void* bias, const void* x,
-                 const void* y, const void* mask, void* gram, void* zy, int B,
-                 int F, int dim, int N, double scale, void* stream) {
-  return launch<float>(omega, bias, x, y, mask, gram, zy, B, F, dim, N, scale,
-                       stream);
+                 const void* y, const void* mask, void* gram, void* zy,
+                 void* work, void* counters, int B, int F, int dim, int N,
+                 double scale, int cluster, int slices, int slice_cols,
+                 int groups, int group_blocks, int resident, int smem_bytes,
+                 void* stream) {
+  return launch<float>(omega, bias, x, y, mask, gram, zy, work, counters, B, F,
+                       dim, N, scale, cluster, slices, slice_cols, groups,
+                       group_blocks, resident, smem_bytes, stream);
 }
 
 }  // extern "C"

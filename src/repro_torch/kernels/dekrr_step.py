@@ -15,15 +15,36 @@ active [J] int32: nodes with active[j] == 0 return their own θ-table rows
 unchanged; with all ones it is the unmasked round bit for bit (the kernel
 runs the same node body).
 
-The kernel (`csrc/dekrr_step.cu`, body in `csrc/dekrr_common.cuh`) is
-bound by the bytes of the (2 + K) D×D blocks it streams once per node;
-one block of 256 threads per node, one warp per matrix row.
+The kernel (`csrc/dekrr_step.cu`, rows in `csrc/dekrr_common.cuh`) is
+bound by the bytes of the (2 + K) D×D blocks it streams once per node.
+One block per node would stream them through J of the card's 132 SMs; so
+each node is a thread-block cluster of C blocks that split the node's rows
+and pass acc = d + Sθ + ΣPθ between the round's two phases through
+distributed shared memory. `round_plan` chooses C and the rows per block.
+Each row is computed as the chain kernels compute it, so their fused
+rounds equal per-round launches bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+
+# Warps per block of the round kernel (csrc/dekrr_step.cu's kWarps).
+ROUND_WARPS = 32
+# Blocks per node cluster at most: the portable cluster size.
+ROUND_CLUSTER = 8
+
+
+def round_plan(d_feat: int) -> tuple[int, int]:
+    """(blocks per node cluster, rows per block) of the round kernel at D
+    features: at most ROUND_CLUSTER blocks, no more than it takes to give
+    every warp one row, and none without rows. Block c forms rows
+    [c·rows, min(D, (c+1)·rows))."""
+    d_feat = max(1, d_feat)
+    blocks = max(1, min(ROUND_CLUSTER, -(-d_feat // ROUND_WARPS)))
+    rows = -(-d_feat // blocks)
+    return -(-d_feat // rows), rows
 
 
 def _table_rows(table: torch.Tensor, idx: torch.Tensor,
@@ -66,6 +87,7 @@ def dekrr_step_cuda(g, d, s, p, theta, nbr_idx, self_idx, nbr_mask,
     tables, ``active`` [J] int32 or None for all ones), writing out
     [J·Dy, D] on the current stream."""
     j_nodes, k_slots, d_feat = p.shape[0], p.shape[1], d.shape[1]
+    blocks, rows = round_plan(d_feat)
     lib = _build.library("dekrr_step")
     fn = lib.dekrr_step_f64 if g.dtype == torch.float64 \
         else lib.dekrr_step_f32
@@ -74,5 +96,6 @@ def dekrr_step_cuda(g, d, s, p, theta, nbr_idx, self_idx, nbr_mask,
                     theta.data_ptr(), nbr_idx.data_ptr(),
                     self_idx.data_ptr(), nbr_mask.data_ptr(),
                     None if active is None else active.data_ptr(),
-                    out.data_ptr(), j_nodes, k_slots, d_feat, dy, stream),
+                    out.data_ptr(), j_nodes, k_slots, d_feat, dy, blocks,
+                    rows, stream),
                  "dekrr_step launch")

@@ -230,7 +230,12 @@ def rff_gram_batched(omega: torch.Tensor, bias: torch.Tensor,
     scale: omega [B, F, d], bias [B, F], x [B, d, N], y [B, N],
     col_mask [B, N] → (gram [B, F, F], zy [B, F]) with
     Z = cos(Ω X + b)·col_mask. Callers fold in the per-node √(2/D_j) and
-    mask padded frequencies (`repro_torch.dist.pack_problem`)."""
+    mask padded frequencies (`repro_torch.dist.pack_problem`).
+
+    On CUDA tensors F up to 560 in f64 and 1,024 in f32 fits at any d:
+    every block of the kernel holds all F rows of a Z tile in shared
+    memory, and an F that does not fit raises ValueError
+    (`kernels.rff_gram.gram_plan`). The CPU path takes any F."""
     name = "rff_gram_batched"
     b, f, dim = omega.shape
     n = x.shape[2]
@@ -248,7 +253,8 @@ def rff_gram(omega: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
              y: torch.Tensor, *, scale: float
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused (Z Zᵀ, Z yᵀ) for Z = scale·cos(Ω X + b): omega [D, d],
-    bias [D], x [d, N], y [N] → (G [D, D], zy [D])."""
+    bias [D], x [d, N], y [N] → (G [D, D], zy [D]). On CUDA tensors D has
+    the limits of `rff_gram_batched` (560 in f64, 1,024 in f32)."""
     name = "rff_gram"
     d_feat, dim = omega.shape
     n = x.shape[1]

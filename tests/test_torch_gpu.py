@@ -118,22 +118,83 @@ def test_gpu_dekrr_kernels_match_plain(cuda_device, dtype, rtol, j, k,
     assert ops.LAUNCHES["dekrr_solve"] == 1
 
 
+# (B, F, d, N): ragged 16-row blocks; the main path's two calls (own
+# blocks, slot blocks); N inside one 32-column tile; F past one group of
+# Gram blocks (Z recomputed per group, cluster of 4); Ω streamed through
+# shared memory (cluster of 8)
+GRAM_SHAPES = [(3, 70, 13, 300), (10, 200, 148, 3180), (40, 200, 148, 3180),
+               (2, 200, 148, 21), (2, 330, 21, 700), (1, 512, 148, 300)]
+
+
+def gram_case(b, f, dim, n, seed):
+    """Ω ~ N(0, 1), b ~ U[0, 2π), X ~ U[0, 1), y ~ N(0, 1), the last 7
+    columns masked (padding), as `pack_problem` stages them."""
+    rng = np.random.default_rng(seed)
+    mask = (np.arange(n) < n - 7).astype(float)[None].repeat(b, 0)
+    return (rng.normal(size=(b, f, dim)), rng.uniform(0, 2 * np.pi, (b, f)),
+            rng.uniform(size=(b, dim, n)), rng.normal(size=(b, n)), mask)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-9),
                                         (torch.float32, 1e-4)])
-def test_gpu_rff_gram_matches_plain(cuda_device, dtype, rtol):
-    rng = np.random.default_rng(1)
-    b, f, dim, n = 3, 70, 13, 300        # ragged 64-wide tiles
-    arrays = (rng.normal(size=(b, f, dim)), rng.uniform(0, 6, (b, f)),
-              rng.uniform(size=(b, dim, n)), rng.normal(size=(b, n)),
-              (np.arange(n) < n - 9).astype(float)[None].repeat(b, 0))
-    args = [a.to(cuda_device, dtype) for a in to_t(arrays)]
+@pytest.mark.parametrize("b,f,dim,n", GRAM_SHAPES)
+def test_gpu_rff_gram_matches_plain(cuda_device, dtype, rtol, b, f, dim, n):
+    """Against the plain version; a second launch gives the same bits and
+    G is exactly symmetric."""
+    args = [a.to(cuda_device, dtype) for a in to_t(gram_case(b, f, dim, n,
+                                                             seed=f + n))]
     got = ops.rff_gram_batched(*args)
     want = rff_gram_batched_reference(*args)
     torch.cuda.synchronize()
     for a, w in zip(got, want):
         assert_close(a, w.cpu(), rtol=rtol)
     assert ops.LAUNCHES["rff_gram"] == 1
+    again = ops.rff_gram_batched(*args)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    assert torch.equal(got[0], got[0].transpose(1, 2))
+    scale = 0.37
+    one = ops.rff_gram(args[0][0], args[1][0], args[2][0], args[3][0],
+                       scale=scale)
+    plain = rff_gram_batched_reference(*(a[:1] for a in args[:4]),
+                                       torch.ones_like(args[4][:1]),
+                                       scale=scale)
+    for a, w in zip(one, plain):
+        assert_close(a, w[0].cpu(), rtol=rtol)
+    assert ops.LAUNCHES["rff_gram"] == 3
+
+
+# CASES plus D above the round kernel's 8 blocks × 32 warps of rows
+STEP_CASES = CASES + [(3, 2, 200, 1, 0), (3, 2, 150, 3, 2), (2, 0, 257, 1, 1),
+                      (2, 1, 300, 3, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("j,k,dfeat,dy,extra", STEP_CASES)
+def test_gpu_step_launches_equal_one_solve_launch(cuda_device, j, k, dfeat,
+                                                  dy, extra):
+    """R = 7 round launches (each node's rows spread over a cluster) equal
+    one dekrr_solve launch of 7 rounds (each node in one block) bit for
+    bit, table rows owned by no node kept."""
+    from repro_torch.kernels.dekrr_step import dekrr_step_cuda
+
+    args = [a.to(cuda_device) for a in to_t(
+        dekrr_case(j, k, dfeat, dy, extra, seed=j * 10 + k + dy))]
+    lay = ops._pad_dekrr_operands("t", *args)[2]
+    fused = ops.dekrr_solve(*args, num_rounds=7)
+    table = lay[4].clone()
+    own = lay[6].long()
+    for _ in range(7):
+        out = torch.empty((j * dy, dfeat), dtype=table.dtype,
+                          device=cuda_device)
+        dekrr_step_cuda(*lay[:4], table, *lay[5:], out, dy=dy)
+        table = table.clone()
+        table.view(-1, dy, dfeat)[own] = out.view(j, dy, dfeat)
+    torch.cuda.synchronize()
+    got = ops._unflatten_dy(table.view(-1, dy, dfeat)[own].reshape(
+        j * dy, dfeat), dy, args[1].ndim)
+    assert torch.equal(got, fused)
+    assert ops.LAUNCHES["dekrr_solve"] == 1
 
 
 @pytest.mark.gpu
