@@ -9,8 +9,9 @@
    kernel, and ``rff_gram``'s launch plans at the main path's shapes.
 3. Kernel phases: each solve-path kernel against its plain PyTorch
    version on the card, at the main path's shapes, in float64 and
-   float32, with the invariants that hold bit for bit (``rff_gram``:
-   two launches give the same bits and G == Gᵀ exactly; a solve launch
+   float32, with the invariants that hold bit for bit (``rff_gram``,
+   F = 600 on its tiled route among the shapes: two launches give the
+   same bits and G == Gᵀ exactly; a solve launch
    == round launches; the masked round at all ones == the unmasked one;
    an async-chain launch == masked round launches plus the delivery
    rule; chunked Chebyshev launches == one launch).
@@ -33,7 +34,10 @@
    D = 37, d = 5, N = 13 (f64 at rtol 1e-9); bf16 (``rff_features_lowp``)
    bit-equal to the plain bf16 version at 99% of the entries or more,
    and within the forward-error model bound of the f64 value at every
-   entry.
+   entry. Then one launch for many nodes (the serving wave, J = 10 at
+   N = 512, and a ragged D_j of 37, 200 and 64 in one launch) against
+   the batched plain versions with the same checks, padded rows exact
+   zeros, and each node bit-equal to its own launch in f64, f32, bf16.
 8. Serving at full width: θ of the main path's cuda_fused solve and the
    DDRF maps taken into a ServeSnapshot (staleness residual from one
    more round), published to a SnapshotRegistry, and 512 test-split
@@ -42,10 +46,11 @@
    full precision == solver.predict at rtol 1e-9, replicas == one
    engine, every low-precision answer within the f32 GEMV's rounding of
    the same answer computed by the plain versions on the card, and
-   within its attached bound, a second publish (θ after one more round) served as version 2, and J
-   featurize launches per wave (plus J calibration-stripe launches on
-   the low-precision paths); p50, p99 and qps per precision, and at full
-   precision on 1 replica.
+   within its attached bound, a second publish (θ after one more round)
+   served as version 2, and one featurize launch per wave for all ten
+   nodes (plus one calibration-stripe launch on the low-precision
+   paths); p50, p99 and qps per precision, and at full precision on 1
+   replica.
 9. The decode-attention kernel (``flash_decode``) against its plain
    version at DECODE_SHAPES (2e-5), and unchanged bit for bit by ±999 in
    the cache beyond cur_index.
@@ -63,7 +68,9 @@
    ``pack_problem`` repeated warm.
 12. Kernel times by CUDA events (timed on the device, behind a spin that
    lets the host queue the launches first) beside their plain versions,
-   a PyTorch yardstick and the least time the card could take.
+   a PyTorch yardstick and the least time the card could take; the
+   featurize kernel at the wave and at one node, and ``rff_gram``'s
+   tiled route at D_j = 600.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase
 exits non-zero before it. Without a CUDA device the script exits
@@ -97,10 +104,13 @@ PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12,
 
 TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
 # rff_gram's phase (B, F, d, N): the main path's two calls (own blocks,
-# slot blocks), N inside one column tile, ragged 16-row blocks, and F past
-# one group of Gram blocks
+# slot blocks), N inside one column tile, ragged 16-row blocks, F past
+# one group of Gram blocks, and F = 600, past the clusters' shared memory
+# in f64 (the tiled route)
 GRAM_SHAPES = ((10, 200, 148, 3180), (40, 200, 148, 3180), (2, 200, 148, 21),
-               (3, 70, 13, 300), (2, 330, 21, 700))
+               (3, 70, 13, 300), (2, 330, 21, 700), (2, 600, 148, 700))
+# the tiled route timed at the main path's own-block call with D_j = 600
+GRAM_TILED_TIMING = (10, 600, 148, 3180)
 SPIN_CYCLES = 20_000_000    # ~10 ms at the H100's ~1.98 GHz SM clock
 
 # The paper's Table 2 `wave` setting.
@@ -122,10 +132,12 @@ ASYNC_CHUNK = 16    # async_solve_batched's default tol-check chunk
 PHASE_ROUNDS = 7    # rounds of the chain kernels' phases
 CHEB_TOL = 1e-8     # relative error of the rounds-to-tolerance comparison
 
-# Serving: the featurize kernel's phase shapes (D, d, N), and the replica
-# server's load.
+# Serving: the featurize kernel's phase shapes (D, d, N), its batched
+# cases (D_j per node, d, N: the serving wave and a ragged launch), and the
+# replica server's load.
 FEATURE_SHAPES = ((D_PER_NODE, 148, 8), (D_PER_NODE, 148, 64),
                   (D_PER_NODE, 148, 512), (37, 5, 13))
+FEATURE_BATCHES = (((D_PER_NODE,) * J_NODES, 148, 512), ((37, 200, 64), 148, 13))
 SERVE_N = 512       # the column bucket of the serving waves
 SERVE_QUERIES = 512
 SERVE_REPLICAS = 2
@@ -881,11 +893,97 @@ def features_phase() -> dict[str, float]:
         errs["rff_features_lowp"] = max(errs["rff_features_lowp"],
                                         (got - plain).abs().max().item())
         shares.append((case, share, (err / bound).max().item()))
-    print("featurize phase: pass (f64/f32 vs plain; bf16 share bit-equal "
+    for d_feats, dim, n in FEATURE_BATCHES:
+        e, e_lo, share, worst = batched_features_case(d_feats, dim, n)
+        errs["rff_features"] = max(errs["rff_features"], e)
+        errs["rff_features_lowp"] = max(errs["rff_features_lowp"], e_lo)
+        shares.append((f"J={len(d_feats)} D_j={sorted(set(d_feats))} "
+                       f"d={dim} N={n}", share, worst))
+    print("featurize phase: pass (f64/f32 vs plain; batched == per-node "
+          "launches bit for bit in f64, f32 and bf16; bf16 share bit-equal "
           "to plain and max |err|/model bound: "
           + ", ".join(f"{c}: {sh:.4f}, {r:.3g}" for c, sh, r in shares)
           + ")", flush=True)
     return errs
+
+
+def batched_features_case(d_feats, dim, n):
+    """One launch for J nodes of D_j features against the batched plain
+    versions (f64/f32 at TOL, bf16 by BIT_EQUAL_SHARE and the model bound),
+    padded rows exact zeros, and every node bit-equal to its own launch in
+    f64, f32 and bf16. The padded Ω rows hold NaN, which must not reach Z.
+    Returns the largest f64 error, the largest bf16 difference from the
+    plain version, the bf16 share bit-equal to it and the largest
+    |err|/model bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rff_features import (
+        rff_features_batched_reference, rff_features_bf16_batched_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(sum(d_feats) + n)
+    kw = dict(dtype=torch.float64, device="cuda", generator=gen)
+    j, d_max = len(d_feats), max(d_feats)
+    omega = torch.full((j, d_max, dim), float("nan"), dtype=torch.float64,
+                       device="cuda")
+    bias = torch.zeros((j, d_max), dtype=torch.float64, device="cuda")
+    for i, dj in enumerate(d_feats):
+        omega[i, :dj] = torch.randn((dj, dim), **kw) / SIGMA
+        bias[i, :dj] = torch.rand((dj,), **kw) * (2 * math.pi)
+    x = torch.randn((dim, n), **kw)
+    scales = [math.sqrt(2.0 / dj) for dj in d_feats]
+    case = f"batched J={j} D_j={sorted(set(d_feats))} d={dim} N={n}"
+
+    def per_node_equal(got, one, tag):
+        for i, dj in enumerate(d_feats):
+            if not torch.equal(got[i, dj:], torch.zeros_like(got[i, dj:])):
+                raise PhaseError(f"{tag} {case}: padded rows of node {i} "
+                                 f"are not exact zeros")
+            if not torch.equal(got[i, :dj], one(i, dj)):
+                raise PhaseError(f"{tag} {case}: node {i} differs from its "
+                                 f"own launch")
+
+    err = 0.0
+    for dtype in (torch.float64, torch.float32):
+        om, bi, xx = (t.to(dtype) for t in (omega, bias, x))
+        got = ops.rff_features_batched(om, bi, xx, scale=scales,
+                                       d_feat=d_feats)
+        want = rff_features_batched_reference(om, bi, xx, scale=scales,
+                                              d_feat=d_feats)
+        torch.cuda.synchronize()
+        e = compare(f"rff_features {case} {dtype}", got, want, dtype)
+        if dtype == torch.float64:
+            err = e
+        per_node_equal(got, lambda i, dj: ops.rff_features(
+            om[i, :dj], bi[i, :dj], xx, scale=scales[i]),
+            f"rff_features {dtype}")
+    x32 = x.float()
+    bf16 = torch.bfloat16
+    got = ops.rff_features_lowp_batched(omega, bias, x32, scale=scales,
+                                        d_feat=d_feats)
+    plain = rff_features_bf16_batched_reference(
+        omega.to(bf16), bias.to(bf16), x32.to(bf16), d_feat=d_feats).float()
+    torch.cuda.synchronize()
+    per_node_equal(got, lambda i, dj: ops.rff_features_lowp(
+        omega[i, :dj], bias[i, :dj], x32, scale=scales[i]),
+        "rff_features_lowp")
+    equal, worst, diff = 0, 0.0, 0.0
+    for i, (dj, s) in enumerate(zip(d_feats, scales)):
+        mine, ref = got[i, :dj], plain[i, :dj] * s
+        exact = torch.cos(omega[i, :dj] @ x32.double()
+                          + bias[i, :dj, None]) * s
+        bound = _lowp_bound(omega[i, :dj], bias[i, :dj], x32.double(), s)
+        e = (mine.double() - exact).abs()
+        if not (torch.isfinite(mine).all() and (e <= bound).all()):
+            raise PhaseError(f"rff_features_lowp {case}: an entry of node "
+                             f"{i} lies outside the bf16 model bound")
+        worst = max(worst, (e / bound).max().item())
+        equal += (mine == ref).sum().item()
+        diff = max(diff, (mine - ref).abs().max().item())
+    share = equal / (sum(d_feats) * n)
+    if share < BIT_EQUAL_SHARE:
+        raise PhaseError(f"rff_features_lowp {case}: only {share:.4f} of "
+                         f"the entries are bit-equal to the plain bf16 "
+                         f"version (needs {BIT_EQUAL_SHARE})")
+    return err, diff, share, worst
 
 
 # -------------------------------------------------------------- serving
@@ -1070,7 +1168,7 @@ def check_serve_path(sv: dict, run: dict, on_card: bool) -> dict:
                              f"was answered")
         waves = r["waves"]
         if precision is None:
-            expect = {"rff_features": n_bias * waves}
+            expect = {"rff_features": waves if n_bias else 0}
         else:
             lo = _answers(r["queries"])
             sizes = [np.atleast_1d(np.asarray(q.prediction)).size
@@ -1096,9 +1194,10 @@ def check_serve_path(sv: dict, run: dict, on_card: bool) -> dict:
             out["bounds"][precision] = (float(gap.max()),
                                         float(bound.min()),
                                         float(bound.max()))
-            expect = {"rff_features_lowp": n_bias * waves,
-                      "rff_features": n_bias * waves}
+            expect = {"rff_features_lowp": waves if n_bias else 0,
+                      "rff_features": waves if n_bias else 0}
         got = {k: v for k, v in r["launches"].items() if v}
+        expect = {k: v for k, v in expect.items() if v}
         if got != (expect if on_card else {}):
             raise PhaseError(f"serving precision={precision}: launch "
                              f"counts {got} over {waves} waves, expected "
@@ -1348,49 +1447,108 @@ def chain_timings(run: dict, a: dict, c: dict) -> list[dict]:
 
 
 def feature_timings(run: dict) -> list[dict]:
-    """The featurize kernel at the serving shape (one node's map, D = 200,
-    d = 148, on N = 512 test columns, the column bucket of the serving
-    waves), by CUDA events: f64, and bf16 as the low-precision path runs
-    it (bf16 operands, unit scale)."""
-    from repro_torch.kernels.rff_features import (rff_features_bf16_reference,
-                                                  rff_features_cuda,
-                                                  rff_features_reference)
+    """The featurize kernel by CUDA events, f64 and bf16 (bf16 operands at
+    unit scale, as the low-precision path launches it), on N = 512 test
+    columns (the column bucket of the serving waves): at one node's shape
+    (D = 200, d = 148; rows ``rff_features`` and ``rff_features_lowp``,
+    timed as in earlier runs) and at the wave shape the main path gives
+    it (the ten maps in one launch; rows ``…@wave``, with the cost of the
+    ten single-node launches a wave made before, ``per_node_ms``)."""
+    from repro_torch.kernels.ops import _node_table
+    from repro_torch.kernels.rff_features import (
+        rff_features_batched_reference, rff_features_bf16_batched_reference,
+        rff_features_cuda)
 
-    fm = run["solver"].feature_maps[0]
-    omega, bias = fm.omega.contiguous(), fm.bias.contiguous()
+    fmaps = run["solver"].feature_maps
+    omega = torch.stack([fm.omega for fm in fmaps]).contiguous()
+    bias = torch.stack([fm.bias for fm in fmaps]).contiguous()
     x = torch.cat([nd.x for nd in run["test"]], dim=1)[:, :SERVE_N]
     x = x.contiguous()
-    d_feat, dim = omega.shape
+    j, d_feat, dim = omega.shape
     n = x.shape[1]
-    scale = math.sqrt(2.0 / d_feat)
-    # the product, the bias add and the scale (cosines not counted)
+    scales = [math.sqrt(2.0 / fm.num_frequencies) for fm in fmaps]
+    d_feats = [fm.num_frequencies for fm in fmaps]
+    dev = omega.device
+    # the product, the bias add and the scale of one map (cosines not
+    # counted)
     flops = 2 * d_feat * dim * n + 2 * d_feat * n
     src = dict(route="cuda",
                source="src/repro_torch/kernels/csrc/rff_features.cu",
                replaces="src/repro/kernels/rff_features.py:33")
-    z = torch.empty((d_feat, n), dtype=omega.dtype, device=omega.device)
-    bms, by = bound_ms(nbytes(omega, bias, x, z), flops, omega.dtype)
-    rows = [dict(
-        name="rff_features", **src,
-        ms=cuda_ms(lambda: rff_features_cuda(omega, bias, x, z,
-                                             scale=scale)),
-        plain_ms=cuda_ms(lambda: rff_features_reference(omega, bias, x,
-                                                        scale=scale)),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.cos(torch.addmm(
-            bias[:, None], omega, x)) * scale))]
+
+    def rows(name, om, bi, xx, sc, plain, library, dtype):
+        """The single-node row and the wave row of one precision."""
+        out = []
+        for k in (1, j):
+            z = torch.empty((k, d_feat, n), dtype=dtype, device=dev)
+            cnt = _node_table(tuple(d_feats[:k]), torch.int32, dev)
+            tab = None if sc is None \
+                else _node_table(tuple(sc[:k]), dtype, dev)
+            bms, by = bound_ms(nbytes(om[:k], bi[:k], xx, z), k * flops,
+                               dtype)
+            out.append(dict(
+                name=name if k == 1 else f"{name}@wave", kernel=name, **src,
+                shape=dict(J=k, D=d_feat, d=dim, N=n),
+                ms=cuda_ms(lambda: rff_features_cuda(om[:k], bi[:k], xx,
+                                                     tab, cnt, z)),
+                plain_ms=cuda_ms(lambda: plain(k)), bound_ms=bms,
+                bound_by=by, library_ms=cuda_ms(lambda: library(k))))
+        one_cnt = _node_table((d_feat,), torch.int32, dev)
+        one = [None if sc is None else _node_table((sc[i],), dtype, dev)
+               for i in range(j)]
+        z1 = torch.empty((1, d_feat, n), dtype=dtype, device=dev)
+        out[1]["per_node_ms"] = cuda_ms(lambda: [
+            rff_features_cuda(om[i:i + 1], bi[i:i + 1], xx, one[i],
+                              one_cnt, z1) for i in range(j)])
+        return out
+
+    sc64 = torch.tensor(scales, dtype=omega.dtype, device=dev)[:, None, None]
+    f64 = rows(
+        "rff_features", omega, bias, x, scales,
+        lambda k: rff_features_batched_reference(
+            omega[:k], bias[:k], x, scale=scales[:k], d_feat=d_feats[:k]),
+        lambda k: torch.cos(torch.baddbmm(
+            bias[:k, :, None], omega[:k], x.expand(k, dim, n))) * sc64[:k],
+        omega.dtype)
     bf16 = torch.bfloat16
     ob, bb, xb = omega.to(bf16), bias.to(bf16), x.float().to(bf16)
-    zb = torch.empty((d_feat, n), dtype=bf16, device=omega.device)
-    bms, by = bound_ms(nbytes(ob, bb, xb, zb), flops, bf16)
-    rows.append(dict(
-        name="rff_features_lowp", **src,
-        ms=cuda_ms(lambda: rff_features_cuda(ob, bb, xb, zb, scale=1.0)),
-        plain_ms=cuda_ms(lambda: rff_features_bf16_reference(ob, bb, xb)),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.cos(torch.addmm(
-            bb[:, None], ob, xb)))))
-    return rows
+    lowp = rows(
+        "rff_features_lowp", ob, bb, xb, None,
+        lambda k: rff_features_bf16_batched_reference(
+            ob[:k], bb[:k], xb, d_feat=d_feats[:k]),
+        lambda k: torch.cos(torch.baddbmm(
+            bb[:k, :, None], ob[:k], xb.expand(k, dim, n))),
+        bf16)
+    return [f64[0], lowp[0], f64[1], lowp[1]]
+
+
+def gram_tiled_timing() -> dict:
+    """rff_gram's tiled route (F past the clusters' shared memory) at
+    GRAM_TILED_TIMING in f64, by CUDA events, beside its plain version,
+    the `cos(baddbmm)` + `bmm` yardstick and its bound (the projection and
+    the upper triangle)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rff_gram import (gram_plan,
+                                              rff_gram_batched_reference)
+
+    b, f, dim, n = GRAM_TILED_TIMING
+    args = gram_operands(b, f, dim, n, torch.float64, seed=f)
+    plan = gram_plan(b, f, dim, n, item=8)
+    n_live = args[4].sum().item()
+    flops = 2 * f * dim * n_live + f * (f + 1) * n_live
+    byts = nbytes(*args) + (b * f * f + b * f) * 8
+    bms, by = bound_ms(byts, flops, torch.float64)
+
+    def library(om, bi, x, y, cm):
+        z = torch.cos(torch.baddbmm(bi[..., None], om, x)) * cm[:, None]
+        return z @ z.transpose(1, 2), (z @ y[..., None])[..., 0]
+
+    return dict(shape=GRAM_TILED_TIMING, blocks=plan.ctas,
+                ms=cuda_ms(lambda: ops.rff_gram_batched(*args), reps=5),
+                plain_ms=cuda_ms(lambda: rff_gram_batched_reference(*args),
+                                 reps=5),
+                library_ms=cuda_ms(lambda: library(*args), reps=5),
+                bound_ms=bms, bound_by=by)
 
 
 # ------------------------------------------------------------ decode attention
@@ -1884,6 +2042,18 @@ def run_on_card() -> int:
         flash_decode=llm["launches"]["flash_decode"], **serve_launches)
     rows = timings(run["packed"], run) + chain_timings(run, a, c) \
         + feature_timings(run) + decode_timings()
+    tiled = gram_tiled_timing()
+    print(f"time [{card}] rff_gram tiled route at (B, F, d, N)="
+          f"{tiled['shape']} f64 ({tiled['blocks']} blocks): "
+          f"{tiled['ms']:.4f} ms, plain {tiled['plain_ms']:.4f} ms, torch "
+          f"yardstick {tiled['library_ms']:.4f} ms, bound "
+          f"{tiled['bound_ms']:.4f} ms ({tiled['bound_by']})")
+    for r in rows:
+        if "per_node_ms" in r:
+            print(f"time [{card}] {r['name']} (J={J_NODES}, D={D_PER_NODE}, "
+                  f"d=148, N={SERVE_N}): one launch {r['ms']:.4f} ms; the "
+                  f"same wave as {J_NODES} single-node launches: "
+                  f"{r.pop('per_node_ms'):.4f} ms")
     serving = rows[-1].pop("serving_ms")
     sdpa = rows[-1].pop("sdpa")
     print(f"time [{card}] flash_decode yardstick: the fastest SDPA call on "
@@ -1895,8 +2065,9 @@ def run_on_card() -> int:
           + ", ".join(f"cur={cur}: {ms:.4f} ms (bound {bound[0]:.4f} ms)"
                       for cur, (bound, ms) in serving.items()))
     for row in rows:
-        row["max_abs_err"] = errs[row["name"]]
-        row["launches"] = launches[row["name"]]
+        kernel = row.pop("kernel", row["name"])
+        row["max_abs_err"] = errs[kernel]
+        row["launches"] = launches[kernel]
         print(f"time [{card}] {row['name']}: {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, torch yardstick "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
@@ -1905,7 +2076,8 @@ def run_on_card() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + ("shape",) if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0

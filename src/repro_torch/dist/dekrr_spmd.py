@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.obs.spans import span
 from repro_torch.obs.trace import SolveTrace
 
 __all__ = [
@@ -192,10 +193,12 @@ def pack_problem(solver, *, method: str = "batched",
                 "auxiliaries and ignores gram_backend — "
                 "gram_backend='cuda' would silently not be honored. Use "
                 "method='batched' for the rff_gram kernel path.")
-        return _pack_problem_from_aux(solver, device)
-    staged = _stage_packed_inputs(solver, device,
-                                  gram_backend=gram_backend or "cuda")
-    return _finish_packed(staged, _node_aux(**staged["inputs"]))
+        with span("pack_problem", nodes=solver.J, method="aux"):
+            return _pack_problem_from_aux(solver, device)
+    with span("pack_problem", nodes=solver.J, method="batched"):
+        staged = _stage_packed_inputs(solver, device,
+                                      gram_backend=gram_backend or "cuda")
+        return _finish_packed(staged, _node_aux(**staged["inputs"]))
 
 
 def _pack_problem_from_aux(solver, device) -> PackedProblem:

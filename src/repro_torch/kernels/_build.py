@@ -65,11 +65,13 @@ SIGNATURES = {
         + [_I] * 7 + [_P],
         "rff_gram_f32": [_P] * 9 + [_I] * 4 + [ctypes.c_double]
         + [_I] * 7 + [_P],
+        "rff_gram_tiled_f64": [_P] * 7 + [_I] * 4 + [ctypes.c_double, _P],
+        "rff_gram_tiled_f32": [_P] * 7 + [_I] * 4 + [ctypes.c_double, _P],
     },
     "rff_features": {
-        "rff_features_f64": [_P] * 4 + [_I] * 3 + [ctypes.c_double, _P],
-        "rff_features_f32": [_P] * 4 + [_I] * 3 + [ctypes.c_double, _P],
-        "rff_features_bf16": [_P] * 4 + [_I] * 3 + [_P],
+        "rff_features_f64": [_P] * 6 + [_I] * 8 + [_P],
+        "rff_features_f32": [_P] * 6 + [_I] * 8 + [_P],
+        "rff_features_bf16": [_P] * 6 + [_I] * 8 + [_P],
     },
     "flash_decode": {
         "flash_decode_f32": [_P] * 5 + [_L] * 4 + [_I] * 4

@@ -50,6 +50,19 @@
 // overlapping. F above 208 at C = 2 (the wrapper raises C first) splits the
 // triangle into Q groups whose clusters each recompute Z. f32 runs the
 // same tiling with the products on the FP32 units (FMA, no TF32).
+//
+// A second, plainer route takes F past what a cluster's shared memory
+// holds (560 features in f64, 1,024 in f32; gram_plan picks it there):
+// rff_gram_tiled_kernel, one 256-thread block per 32×32 tile (I ≤ J) of
+// G's upper triangle and problem. It walks all N in 32-column steps,
+// forms the Z rows of tiles I and J (Ω and X streamed through shared
+// memory in 32-deep chunks, the projection by FMA on the vector units,
+// the accurate cos: every cosine is recomputed once per tile of its row),
+// and sums their products in registers in column order; diagonal blocks
+// also form zy. Each entry of G is summed by one block and written to
+// G[i][j] and G[j][i] from one value: no atomics, no workspace, G == Gᵀ
+// exactly and the same bits from run to run. Its cost grows with F²·d·N
+// on the vector units; it exists so that no F is refused.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -573,6 +586,127 @@ int launch(const void* omega, const void* bias, const void* x, const void* y,
       static_cast<T>(scale), slices, slice_cols, group_blocks, resident);
 }
 
+// ------------------------------------------------------------ tiled route
+constexpr int kT = 32;  // G tile rows and columns, columns and d per step
+
+// Z rows [r0, r0 + kT) of problem b for columns [c0, c0 + kT) into
+// zt[kT][kT + 1]: scale·cos(Ω X + b)·mask, zero past F and N. Thread
+// (ty, tx) of a 16 × 16 layout forms rows ty + 16a, columns tx + 16c,
+// summing d in order.
+template <typename T>
+__device__ void tile_features(T (*zt)[kT + 1], T (*os)[kT + 1],
+                              T (*xs)[kT + 1], const T* om, const T* bi,
+                              const T* xb, const T* ym, int r0, int c0, int F,
+                              int dim, int N, T scale) {
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int lr = tid / kT, lc = tid % kT;
+  T p[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
+  for (int k0 = 0; k0 < dim; k0 += kT) {
+    __syncthreads();  // the previous chunk is no longer read
+#pragma unroll
+    for (int i = 0; i < kT * kT / 256; ++i) {
+      const int r = lr + i * (256 / kT), row = r0 + r, k = k0 + lc;
+      os[r][lc] = row < F && k < dim ? om[static_cast<size_t>(row) * dim + k]
+                                     : T(0);
+      const int kk = k0 + r, col = c0 + lc;
+      xs[r][lc] = kk < dim && col < N ? xb[static_cast<size_t>(kk) * N + col]
+                                      : T(0);
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < kT; ++k)
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          p[a][c] += os[ty + 16 * a][k] * xs[k][tx + 16 * c];
+  }
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int row = r0 + ty + 16 * a, col = tx + 16 * c;
+      zt[ty + 16 * a][col] =
+          row < F && c0 + col < N ? scale * cos(p[a][c] + bi[row]) * ym[kT + col]
+                                  : T(0);
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+rff_gram_tiled_kernel(const T* __restrict__ omega, const T* __restrict__ bias,
+                      const T* __restrict__ x, const T* __restrict__ y,
+                      const T* __restrict__ mask, T* __restrict__ gram,
+                      T* __restrict__ zy, int F, int dim, int N, T scale) {
+  __shared__ T zi[kT][kT + 1], zj[kT][kT + 1], os[kT][kT + 1], xs[kT][kT + 1];
+  __shared__ T ym[2 * kT];  // y, mask of the step's columns
+  const int nt = (F + kT - 1) / kT, b = blockIdx.y;
+  int ti, tj;
+  tri_block(blockIdx.x, nt, ti, tj);
+  const bool diag = ti == tj;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const T* om = omega + static_cast<size_t>(b) * F * dim;
+  const T* bi = bias + static_cast<size_t>(b) * F;
+  const T* xb = x + static_cast<size_t>(b) * dim * N;
+  const T* yb = y + static_cast<size_t>(b) * N;
+  const T* mb = mask + static_cast<size_t>(b) * N;
+
+  T acc[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
+  T zy_acc = T(0);
+  for (int c0 = 0; c0 < N; c0 += kT) {
+    __syncthreads();  // the previous step's tiles are no longer read
+    if (tid < 2 * kT) {
+      const int col = c0 + tid % kT;
+      ym[tid] = col < N ? (tid < kT ? yb : mb)[col] : T(0);
+    }
+    tile_features(zi, os, xs, om, bi, xb, ym, ti * kT, c0, F, dim, N, scale);
+    if (!diag)
+      tile_features(zj, os, xs, om, bi, xb, ym, tj * kT, c0, F, dim, N,
+                    scale);
+    __syncthreads();
+    T (*zb)[kT + 1] = diag ? zi : zj;
+#pragma unroll 8
+    for (int c = 0; c < kT; ++c)
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          acc[a][e] += zi[ty + 16 * a][c] * zb[tx + 16 * e][c];
+    if (diag && tid < kT)
+      for (int c = 0; c < kT; ++c) zy_acc += zi[tid][c] * ym[c];
+  }
+
+  T* gb = gram + static_cast<size_t>(b) * F * F;
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = ti * kT + ty + 16 * a, jj = tj * kT + tx + 16 * e;
+      if (i >= F || jj >= F || (diag && i > jj)) continue;
+      gb[static_cast<size_t>(i) * F + jj] = acc[a][e];
+      gb[static_cast<size_t>(jj) * F + i] = acc[a][e];
+    }
+  if (diag && tid < kT && ti * kT + tid < F)
+    zy[static_cast<size_t>(b) * F + ti * kT + tid] = zy_acc;
+}
+
+template <typename T>
+int launch_tiled(const void* omega, const void* bias, const void* x,
+                 const void* y, const void* mask, void* gram, void* zy, int B,
+                 int F, int dim, int N, double scale, void* stream) {
+  const long long nt = (F + kT - 1) / kT;
+  if (B < 1 || F < 1 || dim < 1 || N < 1 || nt * (nt + 1) / 2 > 0x7fffffff ||
+      B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  rff_gram_tiled_kernel<T><<<dim3(static_cast<unsigned>(nt * (nt + 1) / 2), B),
+                             256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(omega), static_cast<const T*>(bias),
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const T*>(mask), static_cast<T*>(gram), static_cast<T*>(zy),
+      F, dim, N, static_cast<T>(scale));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -601,6 +735,23 @@ int rff_gram_f32(const void* omega, const void* bias, const void* x,
   return launch<float>(omega, bias, x, y, mask, gram, zy, work, counters, B, F,
                        dim, N, scale, cluster, slices, slice_cols, groups,
                        group_blocks, resident, smem_bytes, stream);
+}
+
+// The tiled route (no workspace, no counters): gram [B, F, F], zy [B, F].
+int rff_gram_tiled_f64(const void* omega, const void* bias, const void* x,
+                       const void* y, const void* mask, void* gram, void* zy,
+                       int B, int F, int dim, int N, double scale,
+                       void* stream) {
+  return launch_tiled<double>(omega, bias, x, y, mask, gram, zy, B, F, dim, N,
+                              scale, stream);
+}
+
+int rff_gram_tiled_f32(const void* omega, const void* bias, const void* x,
+                       const void* y, const void* mask, void* gram, void* zy,
+                       int B, int F, int dim, int N, double scale,
+                       void* stream) {
+  return launch_tiled<float>(omega, bias, x, y, mask, gram, zy, B, F, dim, N,
+                             scale, stream);
 }
 
 }  // extern "C"

@@ -22,11 +22,12 @@ where it launches its kernel, never on the CPU path, under a lock, since
 serving replicas launch from several threads. The round kernel with an
 activation mask counts as ``dekrr_step_masked``, apart from the unmasked
 round; the featurize kernel counts as ``rff_features`` in f64/f32 and as
-``rff_features_lowp`` in bf16; the decode-attention kernel as
-``flash_decode``.
+``rff_features_lowp`` in bf16, once a launch whether it covers one node
+or a whole wave; the decode-attention kernel as ``flash_decode``.
 """
 from __future__ import annotations
 
+import functools
 import threading
 
 import numpy as np
@@ -44,9 +45,9 @@ from repro_torch.kernels.dekrr_step import (dekrr_step_cuda,
                                             dekrr_step_masked_reference,
                                             dekrr_step_reference)
 from repro_torch.kernels.ref import rff_gram_ref
-from repro_torch.kernels.rff_features import (rff_features_cuda,
-                                              rff_features_lowp_reference,
-                                              rff_features_reference)
+from repro_torch.kernels.rff_features import (
+    rff_features_batched_reference, rff_features_bf16_batched_reference,
+    rff_features_cuda, rff_features_lowp_reference, rff_features_reference)
 from repro_torch.kernels.rff_gram import (rff_gram_batched_reference,
                                           rff_gram_cuda)
 
@@ -107,6 +108,14 @@ def _check_shape(name: str, key: str, t: torch.Tensor, want: tuple) -> None:
 
 
 # ---------------------------------------------------------------- featurize
+@functools.lru_cache(maxsize=64)
+def _node_table(values: tuple, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """The per-node scales or feature counts as a device tensor, made once
+    per distinct table (a snapshot's waves reuse it) and never written."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _check_features(name, omega, bias, x):
     if omega.ndim != 2 or x.ndim != 2:
         raise ValueError(f"{name}: omega {tuple(omega.shape)} and x "
@@ -116,22 +125,82 @@ def _check_features(name, omega, bias, x):
     return _on_cuda(name, omega, bias, x)
 
 
+def _check_batched_features(name, omega, bias, x, scale, d_feat):
+    """(on_cuda, scale tuple, d_feat tuple) of a batched featurize call;
+    raises on shapes, devices, non-contiguous operands or a feature count
+    outside [0, D_max]."""
+    if omega.ndim != 3 or x.ndim != 2:
+        raise ValueError(f"{name}: omega {tuple(omega.shape)} and x "
+                         f"{tuple(x.shape)} must be [J, D_max, d] and [d, N]")
+    j, d_max, dim = omega.shape
+    _check_shape(name, "bias", bias, (j, d_max))
+    _check_shape(name, "x", x, (dim, x.shape[1]))
+    scale = tuple(float(v) for v in scale)
+    d_feat = tuple(int(v) for v in d_feat)
+    if len(scale) != j or len(d_feat) != j:
+        raise ValueError(f"{name}: {len(scale)} scales and {len(d_feat)} "
+                         f"feature counts for {j} nodes")
+    if any(not 0 <= v <= d_max for v in d_feat):
+        raise ValueError(f"{name}: feature counts {list(d_feat)} must lie "
+                         f"in [0, D_max = {d_max}]")
+    on_cuda = _on_cuda(name, omega, bias, x)
+    _check_contiguous(name, omega=omega, bias=bias, x=x)
+    return on_cuda, scale, d_feat
+
+
+def _launch_features(omega, bias, x, scale, d_feat, dtype):
+    """One kernel launch over contiguous CUDA operands of ``dtype``
+    (scale None in bf16) → Z [J, D_max, N] in ``dtype``."""
+    j, d_max, _ = omega.shape
+    z = torch.empty((j, d_max, x.shape[1]), dtype=dtype, device=x.device)
+    if z.numel():
+        table = None if scale is None \
+            else _node_table(scale, dtype, x.device)
+        rff_features_cuda(omega, bias, x, table,
+                          _node_table(d_feat, torch.int32, x.device), z)
+        _count("rff_features_lowp" if dtype == torch.bfloat16
+               else "rff_features")
+    return z
+
+
 def rff_features(omega: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
                  *, scale: float) -> torch.Tensor:
     """Z = scale·cos(Ω X + b): omega [D, d], bias [D], x [d, N] → Z [D, N]
-    in the operands' dtype (f32 or f64)."""
+    in the operands' dtype (f32 or f64). On CUDA: the batched kernel with
+    J = 1."""
     name = "rff_features"
     on_cuda = _check_features(name, omega, bias, x)
     dtype = _check_floats(name, omega, bias, x)
     if not on_cuda:
         return rff_features_reference(omega, bias, x, scale=scale)
-    z = torch.empty((omega.shape[0], x.shape[1]), dtype=dtype,
-                    device=x.device)
-    if z.numel():
-        rff_features_cuda(omega.contiguous(), bias.contiguous(),
-                          x.contiguous(), z, scale=scale)
-        _count(name)
-    return z
+    return _launch_features(omega.contiguous()[None],
+                            bias.contiguous()[None], x.contiguous(),
+                            (scale,), (omega.shape[0],), dtype)[0]
+
+
+def rff_features_batched(omega: torch.Tensor, bias: torch.Tensor,
+                         x: torch.Tensor, *, scale, d_feat) -> torch.Tensor:
+    """Every node of a wave in one launch: omega [J, D_max, d], bias
+    [J, D_max], x [d, N] (shared by the nodes), ``scale`` and ``d_feat``
+    sequences of J floats and ints (D_j ≤ D_max) → Z [J, D_max, N] in the
+    operands' dtype (f32 or f64), Z[j, :D_j] = scale_j·cos(Ω_j X + b_j) and
+    exact zeros below. Node j's rows are bit-equal to `rff_features` on
+    its first D_j rows, on the card as on the CPU."""
+    name = "rff_features"
+    on_cuda, scale, d_feat = _check_batched_features(name, omega, bias, x,
+                                                     scale, d_feat)
+    dtype = _check_floats(name, omega, bias, x)
+    if not on_cuda:
+        return rff_features_batched_reference(omega, bias, x, scale=scale,
+                                              d_feat=d_feat)
+    return _launch_features(omega, bias, x, scale, d_feat, dtype)
+
+
+def _check_real(name, omega, bias, x):
+    for key, t in (("omega", omega), ("bias", bias), ("x", x)):
+        if not t.is_floating_point():
+            raise TypeError(f"{name}: {key} must be floating point, got "
+                            f"{t.dtype}")
 
 
 def rff_features_lowp(omega: torch.Tensor, bias: torch.Tensor,
@@ -141,24 +210,43 @@ def rff_features_lowp(omega: torch.Tensor, bias: torch.Tensor,
     bias sum and the f32 cosine are rounded to bf16, and the result is
     cast to f32 and multiplied by the f32 ``scale``. Returns Z [D, N] in
     float32. The serving tier's analytic forward-error bound assumes
-    exactly this arrangement, so the scale stays out of the bf16 kernel."""
+    exactly this arrangement, so the scale stays out of the bf16 kernel.
+    On CUDA: the batched kernel with J = 1."""
     name = "rff_features_lowp"
     on_cuda = _check_features(name, omega, bias, x)
-    for key, t in (("omega", omega), ("bias", bias), ("x", x)):
-        if not t.is_floating_point():
-            raise TypeError(f"{name}: {key} must be floating point, got "
-                            f"{t.dtype}")
+    _check_real(name, omega, bias, x)
     if not on_cuda:
         return rff_features_lowp_reference(omega, bias, x, scale=scale)
     bf16 = torch.bfloat16
-    z = torch.empty((omega.shape[0], x.shape[1]), dtype=bf16,
-                    device=x.device)
-    if z.numel():
-        rff_features_cuda(omega.to(bf16).contiguous(),
-                          bias.to(bf16).contiguous(),
-                          x.to(bf16).contiguous(), z, scale=1.0)
-        _count(name)
+    z = _launch_features(omega.to(bf16).contiguous()[None],
+                         bias.to(bf16).contiguous()[None],
+                         x.to(bf16).contiguous(), None, (omega.shape[0],),
+                         bf16)[0]
     return z.float() * scale
+
+
+def rff_features_lowp_batched(omega: torch.Tensor, bias: torch.Tensor,
+                              x: torch.Tensor, *, scale,
+                              d_feat) -> torch.Tensor:
+    """`rff_features_lowp` for every node of a wave in one launch: omega
+    [J, D_max, d], bias [J, D_max], x [d, N] (any float dtypes, cast to
+    bf16), per-node f32 ``scale`` and ``d_feat`` (sequences of J) → Z
+    [J, D_max, N] in float32, node j's first D_j rows bit-equal to
+    `rff_features_lowp` on them and exact zeros below."""
+    name = "rff_features_lowp"
+    on_cuda, scale, d_feat = _check_batched_features(name, omega, bias, x,
+                                                     scale, d_feat)
+    _check_real(name, omega, bias, x)
+    bf16 = torch.bfloat16
+    omega, bias, x = omega.to(bf16), bias.to(bf16), x.to(bf16)
+    if not on_cuda:
+        z = rff_features_bf16_batched_reference(omega, bias, x,
+                                                d_feat=d_feat)
+        scales = torch.tensor(scale, dtype=torch.float32)
+    else:
+        z = _launch_features(omega, bias, x, None, d_feat, bf16)
+        scales = _node_table(scale, torch.float32, x.device)
+    return z.float() * scales[:, None, None]
 
 
 # ------------------------------------------------------------------ decode
@@ -232,10 +320,10 @@ def rff_gram_batched(omega: torch.Tensor, bias: torch.Tensor,
     Z = cos(Ω X + b)·col_mask. Callers fold in the per-node √(2/D_j) and
     mask padded frequencies (`repro_torch.dist.pack_problem`).
 
-    On CUDA tensors F up to 560 in f64 and 1,024 in f32 fits at any d:
-    every block of the kernel holds all F rows of a Z tile in shared
-    memory, and an F that does not fit raises ValueError
-    (`kernels.rff_gram.gram_plan`). The CPU path takes any F."""
+    On CUDA tensors any F: up to 560 in f64 and 1,024 in f32 the
+    kernel's cluster route (every block holds all F rows of a Z tile in
+    shared memory), beyond that its tiled route
+    (`kernels.rff_gram.gram_plan`)."""
     name = "rff_gram_batched"
     b, f, dim = omega.shape
     n = x.shape[2]
@@ -253,8 +341,8 @@ def rff_gram(omega: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
              y: torch.Tensor, *, scale: float
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused (Z Zᵀ, Z yᵀ) for Z = scale·cos(Ω X + b): omega [D, d],
-    bias [D], x [d, N], y [N] → (G [D, D], zy [D]). On CUDA tensors D has
-    the limits of `rff_gram_batched` (560 in f64, 1,024 in f32)."""
+    bias [D], x [d, N], y [N] → (G [D, D], zy [D]), through the kernel
+    of `rff_gram_batched` on CUDA tensors."""
     name = "rff_gram"
     d_feat, dim = omega.shape
     n = x.shape[1]

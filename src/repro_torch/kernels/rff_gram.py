@@ -20,6 +20,12 @@ partial sums to a workspace that the last block of each problem reduces
 in slice order, so G is exactly symmetric and the same from run to run.
 `gram_plan` chooses C, S and the workspace; the wrapper that checks and
 dispatches is `repro_torch.kernels.ops.rff_gram_batched`.
+
+Past what a cluster's shared memory holds (F > 560 in f64, 1,024 in
+f32), `gram_plan` picks the kernel's second, plainer route (a
+`TiledGramPlan`): one block per 32×32 tile of G's upper triangle,
+cosines recomputed per tile, the sums on the vector units, each entry
+written to G[i][j] and G[j][i] from one value. Every F gets a plan.
 """
 from __future__ import annotations
 
@@ -46,11 +52,14 @@ GRAM_CLUSTERS = (2, 4, 8)
 GRAM_SMEM_LIMIT = 232_448 - 1_024
 # Largest workspace a launch may take, in bytes.
 GRAM_WORKSPACE_CAP = 64 << 20
+# The tiled route's G tile (rows and columns).
+GRAM_TILE = 32
 
 
 @dataclasses.dataclass(frozen=True)
 class GramPlan:
-    """One `rff_gram` launch: grid (cluster·slices, groups, problems)."""
+    """One `rff_gram` launch on the cluster route: grid (cluster·slices,
+    groups, problems)."""
     cluster: int          # blocks per cluster, sharing the feature rows
     resident: bool        # Ω rows held in shared memory for the launch
     slices: int           # column slices per problem
@@ -59,6 +68,14 @@ class GramPlan:
     group_blocks: int     # 16×16 Gram blocks per group
     smem_bytes: int       # dynamic shared memory per block
     workspace: int        # workspace elements
+    ctas: int             # blocks in the grid
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledGramPlan:
+    """One `rff_gram` launch on the tiled route: grid (tiles, problems),
+    a block per 32×32 tile of G's upper triangle, with no workspace."""
+    tiles: int            # 32×32 tiles of G's upper triangle
     ctas: int             # blocks in the grid
 
 
@@ -76,7 +93,7 @@ def _smem_bytes(f: int, dim: int, cluster: int, resident: bool,
 
 
 def gram_plan(b: int, f: int, dim: int, n: int, *, item: int = 8,
-              sms: int = 132) -> GramPlan:
+              sms: int = 132) -> GramPlan | TiledGramPlan:
     """Launch plan of `rff_gram` for B problems of F features, d inputs
     and N columns in elements of ``item`` bytes on a card of ``sms`` SMs.
 
@@ -85,8 +102,8 @@ def gram_plan(b: int, f: int, dim: int, n: int, *, item: int = 8,
     failing that, the smallest that holds them with Ω streamed in chunks.
     S minimises the waves times the tiles a slice walks (one block per SM,
     sms // C clusters at a time; ties to fewer slices), within the
-    workspace cap. Raises ValueError where F is too large for any
-    cluster."""
+    workspace cap. Where F is too large for any cluster, the tiled
+    route."""
     nb = -(-f // 16)
     fits = [(cluster, resident) for resident in (True, False)
             for cluster in GRAM_CLUSTERS
@@ -94,8 +111,9 @@ def gram_plan(b: int, f: int, dim: int, n: int, *, item: int = 8,
             and _smem_bytes(f, dim, cluster, resident, item)
             <= GRAM_SMEM_LIMIT]
     if not fits:
-        raise ValueError(f"rff_gram: F = {f} features do not fit the CUDA "
-                         f"kernel's shared memory ({item}-byte elements)")
+        tiles = -(-f // GRAM_TILE)
+        pairs = tiles * (tiles + 1) // 2
+        return TiledGramPlan(tiles=pairs, ctas=pairs * b)
     cluster, resident = fits[0]
     total = nb * (nb + 1) // 2
     group_blocks = min(total, GRAM_BLOCKS_PER_CTA * cluster)
@@ -118,7 +136,8 @@ def gram_plan(b: int, f: int, dim: int, n: int, *, item: int = 8,
         if best is None or cost < best[0]:
             best = (cost, slices, per_slice)
     _, slices, per_slice = best
-    return GramPlan(cluster=cluster, resident=resident, slices=slices,
+    return GramPlan(cluster=cluster, resident=resident,
+                    slices=slices,
                     slice_cols=per_slice * GRAM_COLS, groups=groups,
                     group_blocks=group_blocks,
                     smem_bytes=_smem_bytes(f, dim, cluster, resident, item),
@@ -146,20 +165,27 @@ def rff_gram_cuda(omega: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
                   zy: torch.Tensor, *, scale: float) -> None:
     """Launch the kernel on checked, contiguous CUDA tensors of one dtype,
     writing gram [B, F, F] and zy [B, F] on the current stream (the
-    workspace and zeroed counters are allocated here, for this launch).
-    Raises ValueError where F does not fit (see `gram_plan`)."""
+    workspace and zeroed counters of the cluster route are allocated
+    here, for this launch)."""
     b, f, dim = omega.shape
     n = x.shape[2]
     plan = gram_plan(b, f, dim, n, item=omega.element_size(),
                      sms=_sm_count(omega.device))
+    lib = _build.library("rff_gram")
+    f64 = omega.dtype == torch.float64
+    stream = torch.cuda.current_stream(omega.device).cuda_stream
+    if isinstance(plan, TiledGramPlan):
+        fn = lib.rff_gram_tiled_f64 if f64 else lib.rff_gram_tiled_f32
+        _build.check(fn(omega.data_ptr(), bias.data_ptr(), x.data_ptr(),
+                        y.data_ptr(), col_mask.data_ptr(), gram.data_ptr(),
+                        zy.data_ptr(), b, f, dim, n, float(scale), stream),
+                     "rff_gram launch (tiled route)")
+        return
     work = torch.empty((plan.workspace,), dtype=omega.dtype,
                        device=omega.device)
     counters = torch.zeros((b * plan.groups * plan.cluster,),
                            dtype=torch.int32, device=omega.device)
-    lib = _build.library("rff_gram")
-    fn = lib.rff_gram_f64 if omega.dtype == torch.float64 \
-        else lib.rff_gram_f32
-    stream = torch.cuda.current_stream(omega.device).cuda_stream
+    fn = lib.rff_gram_f64 if f64 else lib.rff_gram_f32
     _build.check(fn(omega.data_ptr(), bias.data_ptr(), x.data_ptr(),
                     y.data_ptr(), col_mask.data_ptr(), gram.data_ptr(),
                     zy.data_ptr(), work.data_ptr(), counters.data_ptr(), b,

@@ -4,8 +4,9 @@ The port's counterpart of the reference's `repro.serve.dekrr`:
 
   `DeKRRServeEngine`    — one engine: queries are admitted through the
       shared `repro_torch.serve.admission` queue into waves of at most
-      `batch_size` slots, each wave is featurized ONCE per node at a power-of-two padded column
-      bucket and answered with a handful of GEMVs. Per-request latency
+      `batch_size` slots, each wave is featurized once at a power-of-two
+      padded column bucket (one kernel launch for every cos_bias node)
+      and answered with a batched product and a few GEMVs. Per-request latency
       (p50/p99/qps) lands in `engine.latency`.
 
   `DeKRRReplicaServer`  — N engine replicas (threads) answering from the
@@ -65,12 +66,17 @@ value is max(analytic, measured):
     slack.
 
 Featurization of cos_bias maps goes through the hand-written kernel
-(`repro_torch.kernels.ops.rff_features` / `rff_features_lowp`) when
-``backend="cuda"`` — on a CUDA snapshot it launches the kernel, on a CPU
-snapshot it runs the kernel's plain version — and through
-`repro_torch.core.rff.featurize` when ``backend="torch"``. cos_sin maps
-take `featurize` on both backends, as in the reference: the kernel
-computes the cos_bias map only.
+when ``backend="cuda"``: the snapshot's cos_bias nodes are packed once
+per staged snapshot (Ω [J_b, D_max, d], b, the per-node scale and D_j,
+and θ as [J_b, Dyy, D_max], zero past D_j) and a wave featurizes all of
+them in ONE launch per precision (`repro_torch.kernels.ops`'s
+`rff_features_batched` / `rff_features_lowp_batched`; on a CPU snapshot
+their plain versions). Full-precision predictions of those nodes are
+one batched product over the packed θ; the low-precision GEMVs and
+bound terms stay per node, on each node's first D_j rows. With
+``backend="torch"`` every node takes `repro_torch.core.rff.featurize`.
+cos_sin maps take `featurize` on both backends, as in the reference:
+the kernel computes the cos_bias map only.
 
 Every answer carries the `StalenessBound` of the snapshot it was
 computed from (and on the mixed-precision paths the precision term
@@ -204,6 +210,48 @@ class _QuantTheta:
 
 
 @dataclasses.dataclass(frozen=True)
+class _PackedFeatures:
+    """A snapshot's cos_bias nodes packed for one featurize launch a wave:
+    Ω [J_b, D_max, d] and b [J_b, D_max] in the launch's dtype (bf16 on
+    the low-precision paths) with zero rows past D_j, the per-node scale
+    √(2/D_j) and D_j, and on the full-precision path θ as
+    [J_b, Dyy, D_max] with zero columns past D_j."""
+
+    nodes: tuple[int, ...]      # snapshot indices of the packed nodes
+    omega: torch.Tensor
+    bias: torch.Tensor
+    scale: tuple[float, ...]
+    d_feat: tuple[int, ...]
+    theta_t: torch.Tensor | None
+
+
+def _pack_features(snap: ServeSnapshot, theta2: tuple[torch.Tensor, ...],
+                   dyy: int, lowp: bool) -> _PackedFeatures | None:
+    nodes = tuple(j for j, fm in enumerate(snap.feature_maps)
+                  if fm.kind == "cos_bias")
+    if not nodes:
+        return None
+    d_feat = tuple(snap.feature_maps[j].num_frequencies for j in nodes)
+    d_max, dev = max(d_feat), snap.device
+    dtype = torch.bfloat16 if lowp else snap.dtype
+    omega = torch.zeros((len(nodes), d_max, snap.input_dim), dtype=dtype,
+                        device=dev)
+    bias = torch.zeros((len(nodes), d_max), dtype=dtype, device=dev)
+    theta_t = None if lowp else torch.zeros(
+        (len(nodes), dyy, d_max), dtype=snap.dtype, device=dev)
+    for i, (j, d_j) in enumerate(zip(nodes, d_feat)):
+        fm = snap.feature_maps[j]
+        omega[i, :d_j] = fm.omega
+        bias[i, :d_j] = fm.bias
+        if theta_t is not None:
+            theta_t[i, :, :d_j] = theta2[j].T
+    return _PackedFeatures(
+        nodes=nodes, omega=omega, bias=bias,
+        scale=tuple(math.sqrt(2.0 / d_j) for d_j in d_feat), d_feat=d_feat,
+        theta_t=theta_t)
+
+
+@dataclasses.dataclass(frozen=True)
 class _StagedSnapshot:
     """One snapshot staged for serving: θ in the shapes the wave math
     wants, plus (on the low-precision paths) the bound constants and a
@@ -221,6 +269,7 @@ class _StagedSnapshot:
     theta_q: tuple[_QuantTheta, ...] | None
     bounds: tuple[_NodeBound, ...] | None
     hi: "_StagedSnapshot | None"              # full-precision twin
+    packed: _PackedFeatures | None            # cos_bias nodes (cuda)
 
     @property
     def input_dim(self) -> int:
@@ -231,11 +280,13 @@ def stage_snapshot(snap: ServeSnapshot, *, backend: str = "cuda",
                    precision: str | None = None) -> _StagedSnapshot:
     """Stage `snap` for serving with the given backend/precision pair.
 
-    Full precision stages only the [D_j, Dyy] θ views. Low precision
+    Full precision stages the [D_j, Dyy] θ views. Low precision
     additionally precomputes, per node, the f32 GEMV θ, the analytic
     bound constants (`_NodeBound`), the int8 quantized θ when asked for,
-    and a full-precision twin used for the wave calibration stripe. On a
-    CUDA snapshot it raises while TF32 matmuls are allowed, because the
+    and a full-precision twin used for the wave calibration stripe. On
+    ``backend="cuda"`` either path packs the cos_bias nodes for the
+    featurize kernel (`_PackedFeatures`). On a CUDA snapshot the low
+    precision paths raise while TF32 matmuls are allowed, because the
     bound assumes f32 accumulation.
     """
     if backend not in _BACKENDS:
@@ -248,11 +299,14 @@ def stage_snapshot(snap: ServeSnapshot, *, backend: str = "cuda",
     dyy = 1 if dy is None else dy
     theta2 = tuple(_theta2d(t) for t in snap.theta)
     np_dtype = _numpy_dtype(snap.dtype)
-    if precision is None:
+    lowp = precision is not None
+    packed = _pack_features(snap, theta2, dyy, lowp) \
+        if backend == "cuda" else None
+    if not lowp:
         return _StagedSnapshot(
             snap=snap, backend=backend, precision=None, dtype=np_dtype,
             dy=dy, dyy=dyy, theta2=theta2, theta32=None, theta_q=None,
-            bounds=None, hi=None)
+            bounds=None, hi=None, packed=packed)
     if snap.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             f"precision={precision!r}: the attached error bound assumes "
@@ -295,31 +349,52 @@ def stage_snapshot(snap: ServeSnapshot, *, backend: str = "cuda",
         dy=dy, dyy=dyy, theta2=theta2, theta32=tuple(theta32),
         theta_q=tuple(theta_q) if precision == "int8" else None,
         bounds=tuple(bounds),
-        hi=stage_snapshot(snap, backend=backend, precision=None))
+        hi=stage_snapshot(snap, backend=backend, precision=None),
+        packed=packed)
 
 
 # -- wave math ---------------------------------------------------------------
-def _features_hi(fmap: FeatureMap, x: torch.Tensor,
-                 backend: str) -> torch.Tensor:
-    """Z_j(X) [D_j, Q] at the wave dtype."""
-    if backend == "cuda" and fmap.kind == "cos_bias":
-        scale = math.sqrt(2.0 / fmap.num_frequencies)
-        return ops.rff_features(fmap.omega.to(x.dtype),
-                                fmap.bias.to(x.dtype), x, scale=scale)
-    return featurize(fmap, x)
+def _predict_hi(st: _StagedSnapshot, x: torch.Tensor) -> torch.Tensor:
+    """Per-node Eq. 1 predictions [J, Dyy, Q] at the wave dtype: the packed
+    cos_bias nodes through one featurize launch and one batched product,
+    every other node through `featurize` and its GEMV."""
+    fmaps = st.snap.feature_maps
+    preds: list[torch.Tensor | None] = [None] * len(fmaps)
+    pk = st.packed
+    if pk is not None:
+        z = ops.rff_features_batched(pk.omega, pk.bias, x, scale=pk.scale,
+                                     d_feat=pk.d_feat)
+        out = torch.bmm(pk.theta_t, z)                      # [J_b, Dyy, Q]
+        for i, j in enumerate(pk.nodes):
+            preds[j] = out[i]
+    for j, (fm, t2) in enumerate(zip(fmaps, st.theta2)):
+        if preds[j] is None:
+            preds[j] = t2.T @ featurize(fm, x)
+    return torch.stack(preds)
 
 
-def _features_lo(fmap: FeatureMap, x32: torch.Tensor, backend: str,
-                 s: float) -> torch.Tensor:
-    """Z_j(X) [D_j, Q] with the GEMM+cos in bf16, returned as f32 (the
-    arrangement the analytic bound models)."""
-    if backend == "cuda" and fmap.kind == "cos_bias":
-        return ops.rff_features_lowp(fmap.omega, fmap.bias, x32, scale=s)
+def _features_lo(st: _StagedSnapshot,
+                 x32: torch.Tensor) -> list[torch.Tensor]:
+    """Z_j(X) [D_j, Q] per node with the GEMM+cos in bf16, returned as f32
+    (the arrangement the analytic bound models): the packed cos_bias
+    nodes through one launch, every other node through the bf16
+    `featurize`."""
+    fmaps = st.snap.feature_maps
+    zs: list[torch.Tensor | None] = [None] * len(fmaps)
+    pk = st.packed
+    if pk is not None:
+        z = ops.rff_features_lowp_batched(pk.omega, pk.bias, x32,
+                                          scale=pk.scale, d_feat=pk.d_feat)
+        for i, (j, d_j) in enumerate(zip(pk.nodes, pk.d_feat)):
+            zs[j] = z[i, :d_j]
     bf16 = torch.bfloat16
-    lo = FeatureMap(omega=fmap.omega.to(bf16),
-                    bias=None if fmap.bias is None else fmap.bias.to(bf16),
-                    kind=fmap.kind)
-    return featurize(lo, x32.to(bf16)).float()
+    for j, fm in enumerate(fmaps):
+        if zs[j] is None:
+            lo = FeatureMap(omega=fm.omega.to(bf16),
+                            bias=None if fm.bias is None
+                            else fm.bias.to(bf16), kind=fm.kind)
+            zs[j] = featurize(lo, x32.to(bf16)).float()
+    return zs
 
 
 def answer_wave(st: _StagedSnapshot, x: torch.Tensor
@@ -332,17 +407,14 @@ def answer_wave(st: _StagedSnapshot, x: torch.Tensor
     per-column precision bound (×SAFETY, answer units).
     """
     if st.precision is None:
-        preds = [t2.T @ _features_hi(fm, x, st.backend)
-                 for fm, t2 in zip(st.snap.feature_maps, st.theta2)]
-        return torch.stack(preds), None
+        return _predict_hi(st, x), None
 
     x32 = x.to(torch.float32)
     ax = x32.abs()
     q8s = st.theta_q or (None,) * len(st.theta2)
     preds, bounds = [], []
-    for fm, t32, nb, q8 in zip(st.snap.feature_maps, st.theta32,
-                               st.bounds, q8s):
-        z = _features_lo(fm, x32, st.backend, nb.s)          # [D_j, Q] f32
+    for z, t32, nb, q8 in zip(_features_lo(st, x32), st.theta32,
+                              st.bounds, q8s):
         col = nb.coef * (nb.v @ ax + nb.wb[:, None]) + nb.const[:, None]
         if st.precision == "int8":
             c = z.abs().max(dim=0).values.clamp_min(1e-30) / 127.0
@@ -364,8 +436,8 @@ def answer_wave(st: _StagedSnapshot, x: torch.Tensor
 
 
 def _serve_wave(st: _StagedSnapshot, entries: list[Admitted]) -> None:
-    """Answer one admitted wave in place: featurize once per node at the
-    padded column bucket, slice per query, COPY per answer, attach the
+    """Answer one admitted wave in place: featurize once at the padded
+    column bucket, slice per query, COPY per answer, attach the
     staleness(+precision) bound."""
     spans: list[tuple[int, int]] = []
     offset = 0

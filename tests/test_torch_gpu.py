@@ -121,9 +121,12 @@ def test_gpu_dekrr_kernels_match_plain(cuda_device, dtype, rtol, j, k,
 # (B, F, d, N): ragged 16-row blocks; the main path's two calls (own
 # blocks, slot blocks); N inside one 32-column tile; F past one group of
 # Gram blocks (Z recomputed per group, cluster of 4); Ω streamed through
-# shared memory (cluster of 8)
+# shared memory (cluster of 8); F = 600, past the clusters' shared memory
+# in f64 (the tiled route; f32 still on a cluster); F = 1,100, the tiled
+# route in both dtypes
 GRAM_SHAPES = [(3, 70, 13, 300), (10, 200, 148, 3180), (40, 200, 148, 3180),
-               (2, 200, 148, 21), (2, 330, 21, 700), (1, 512, 148, 300)]
+               (2, 200, 148, 21), (2, 330, 21, 700), (1, 512, 148, 300),
+               (1, 600, 148, 300), (2, 1100, 21, 100)]
 
 
 def gram_case(b, f, dim, n, seed):
@@ -363,10 +366,134 @@ def test_gpu_rff_features_lowp_within_model_bound(cuda_device, d_feat, dim,
 
 
 @pytest.mark.gpu
+def test_gpu_pack_problem_packs_600_features(cuda_device):
+    """pack_problem on the card with 600 features a node (the rff_gram
+    kernel's tiled route in f64) against the same pack with the torch
+    Gram blocks."""
+    from repro_torch.core import (DeKRRConfig, DeKRRSolver, circulant,
+                                  sample_rff)
+    from repro_torch.data.synthetic import (make_dataset, partition,
+                                            train_test_split_nodes)
+    from repro_torch.dist import pack_problem
+    from repro_torch.kernels.rff_gram import TiledGramPlan, gram_plan
+
+    ds = make_dataset("wave", seed=0, subsample=2400)
+    train, _ = train_test_split_nodes(
+        partition(ds, 3, mode="noniid_y", seed=0, device=cuda_device),
+        seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    fmaps = [sample_rff(gen, ds.dim, 600, 1.0) for _ in train]
+    n = sum(nd.num_samples for nd in train)
+    solver = DeKRRSolver(circulant(3, (1,)), fmaps, train,
+                         DeKRRConfig(lam=0.1, c_nei=0.05 * n),
+                         build_aux=False, device=cuda_device)
+    assert isinstance(gram_plan(3, 600, ds.dim, n, item=8), TiledGramPlan)
+    got = pack_problem(solver, gram_backend="cuda", device=cuda_device)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rff_gram"] == 2     # own blocks, slot blocks
+    want = pack_problem(solver, gram_backend="torch", device=cuda_device)
+    for f in ("g", "d", "s", "p"):
+        assert_close(getattr(got, f), getattr(want, f).cpu())
+
+
+def feature_batch(d_feats, dim, n, seed):
+    """Packed Ω [J, D_max, d] (NaN in the padded rows, which the kernel
+    must not let through), b [J, D_max], X [d, N] as numpy, and the
+    per-node scales."""
+    rng = np.random.default_rng(seed)
+    d_max = max(d_feats)
+    omega = np.full((len(d_feats), d_max, dim), np.nan)
+    bias = np.zeros((len(d_feats), d_max))
+    for j, dj in enumerate(d_feats):
+        omega[j, :dj] = rng.normal(size=(dj, dim))
+        bias[j, :dj] = rng.uniform(0, 2 * np.pi, dj)
+    scales = [float(np.sqrt(2.0 / dj)) for dj in d_feats]
+    return omega, bias, rng.normal(size=(dim, n)), scales
+
+
+# (D_j per node, d, N): the serving wave (10 nodes at the 512 bucket) and
+# the ragged case in one launch
+FEATURE_BATCHES = [((200,) * 10, 148, 512), ((37, 200, 64), 148, 13)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-9),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("d_feats,dim,n", FEATURE_BATCHES)
+def test_gpu_rff_features_batched_matches_plain_and_per_node(
+        cuda_device, dtype, rtol, d_feats, dim, n):
+    """One launch for every node: against the batched plain version,
+    padded rows exact zeros, and each node bit-equal to its own launch."""
+    from repro_torch.kernels.rff_features import \
+        rff_features_batched_reference
+
+    omega, bias, x, scales = feature_batch(d_feats, dim, n, seed=n)
+    omega, bias, x = (torch.as_tensor(a).to(cuda_device, dtype)
+                      for a in (omega, bias, x))
+    got = ops.rff_features_batched(omega, bias, x, scale=scales,
+                                   d_feat=d_feats)
+    want = rff_features_batched_reference(omega, bias, x, scale=scales,
+                                          d_feat=d_feats)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rff_features"] == 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert_close(got, want.cpu(), rtol=rtol)
+    for j, (dj, s) in enumerate(zip(d_feats, scales)):
+        assert torch.equal(got[j, dj:], torch.zeros_like(got[j, dj:]))
+        one = ops.rff_features(omega[j, :dj], bias[j, :dj], x, scale=s)
+        assert torch.equal(got[j, :dj], one)
+    assert ops.LAUNCHES["rff_features"] == 1 + len(d_feats)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_feats,dim,n", FEATURE_BATCHES)
+def test_gpu_rff_features_lowp_batched_matches_plain_and_per_node(
+        cuda_device, d_feats, dim, n):
+    """bf16 in one launch for every node: within the model bound of the
+    f64 value, nearly all entries bit-equal to the batched plain version,
+    padded rows exact zeros, each node bit-equal to its own launch."""
+    from repro_torch.kernels.rff_features import \
+        rff_features_bf16_batched_reference
+
+    omega, bias, x, scales = feature_batch(d_feats, dim, n, seed=n + 1)
+    x32 = torch.as_tensor(x, dtype=torch.float32)
+    dev = (torch.as_tensor(omega).to(cuda_device),
+           torch.as_tensor(bias).to(cuda_device), x32.to(cuda_device))
+    got = ops.rff_features_lowp_batched(*dev, scale=scales, d_feat=d_feats)
+    bf16 = torch.bfloat16
+    plain = rff_features_bf16_batched_reference(
+        *(t.to(bf16) for t in dev), d_feat=d_feats).float()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rff_features_lowp"] == 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    x64 = x32.double().numpy()
+    u = 2.0 ** -8
+    nu = min(dim * u, 0.5)
+    equal = 0
+    for j, (dj, s) in enumerate(zip(d_feats, scales)):
+        om, b = omega[j, :dj], bias[j, :dj]
+        exact = s * np.cos(om @ x64 + b[:, None])
+        bound = s * ((3 * u + nu / (1 - nu))
+                     * (np.abs(om) @ np.abs(x64) + np.abs(b)[:, None])
+                     + 3 * u)
+        mine = got[j, :dj]
+        assert (np.abs(mine.cpu().numpy() - exact) <= bound).all()
+        equal += (mine == plain[j, :dj] * s).sum().item()
+        assert torch.equal(got[j, dj:], torch.zeros_like(got[j, dj:]))
+        one = ops.rff_features_lowp(dev[0][j, :dj], dev[1][j, :dj], dev[2],
+                                    scale=s)
+        assert torch.equal(mine, one)
+    assert equal >= 0.99 * sum(d_feats) * n
+    assert ops.LAUNCHES["rff_features_lowp"] == 1 + len(d_feats)
+    assert ops.LAUNCHES["rff_features"] == 0
+
+
+@pytest.mark.gpu
 def test_gpu_serving_launches_the_kernel_and_refuses_tf32(cuda_device):
-    """A CUDA snapshot's waves launch the featurize kernel once per
-    cos_bias node (the cos_sin node takes featurize); the low-precision
-    path refuses to stage while TF32 matmuls are allowed."""
+    """A CUDA snapshot's waves launch the featurize kernel once per wave
+    for all cos_bias nodes (the cos_sin node takes featurize); the
+    low-precision path refuses to stage while TF32 matmuls are
+    allowed."""
     from repro_torch.core.rff import FeatureMap
     from repro_torch.serve import DeKRRServeEngine, KernelQuery
     from repro_torch.stream import ServeSnapshot, StalenessBound
@@ -390,7 +517,7 @@ def test_gpu_serving_launches_the_kernel_and_refuses_tf32(cuda_device):
     plain = DeKRRServeEngine(snap, batch_size=3, backend="torch").run(
         [KernelQuery(uid=q.uid, x=q.x) for q in queries])
     assert_close(np.array(got), np.array([q.prediction for q in plain]))
-    assert ops.LAUNCHES["rff_features"] == 2 * 2      # 2 waves × 2 nodes
+    assert ops.LAUNCHES["rff_features"] == 2          # 2 waves, 1 launch each
     before = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:

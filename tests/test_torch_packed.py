@@ -151,6 +151,50 @@ def test_bagged_pack_downgrades_loudly():
                      device=CPU)
 
 
+@pytest.mark.parametrize("method", ["batched", "aux"])
+def test_instrumented_pack_problem_emits_span(method, monkeypatch):
+    """Both builds run inside one ``pack_problem`` span with the
+    reference's attributes (nodes, method), from before the first stage
+    of the build to after its last."""
+    from repro.obs import Registry as RefRegistry
+    from repro.obs import spans as ref_spans
+    from repro_torch.dist import dekrr_spmd
+    from repro_torch.obs import metrics, spans
+
+    ref, port = solvers()
+    ref_reg = RefRegistry()
+    with ref_spans.recording(ref_reg):
+        RDIST.pack_problem(ref, method=method)
+    want = [(sp.name, sp.attrs) for sp in ref_reg.spans
+            if sp.name == "pack_problem"]
+
+    ticks = iter(range(1_000_000))
+    clock = lambda: float(next(ticks))
+    marks = []
+
+    def marked(fn):
+        def inner(*args, **kwargs):
+            marks.append(clock())
+            out = fn(*args, **kwargs)
+            marks.append(clock())
+            return out
+        return inner
+
+    stages = (("_stage_packed_inputs", "_finish_packed") if method == "batched"
+              else ("_pack_problem_from_aux",))
+    for name in stages:
+        monkeypatch.setattr(dekrr_spmd, name,
+                            marked(getattr(dekrr_spmd, name)))
+    reg = metrics.Registry()
+    with spans.recording(reg, clock=clock):
+        pack_problem(port, method=method, device=CPU)
+    got = [sp for sp in reg.spans if sp.name == "pack_problem"]
+    assert [(sp.name, sp.attrs) for sp in got] == want == [
+        ("pack_problem", {"nodes": port.J, "method": method})]
+    assert len(marks) == 2 * len(stages)
+    assert got[0].t_start < min(marks) and max(marks) < got[0].t_end
+
+
 def test_entry_points_default_to_the_card():
     _, port = solvers()
     with pytest.raises(RuntimeError, match='device="cpu"'):
