@@ -5,8 +5,10 @@
 1. Card: name and power limit (nvidia-smi), TF32 switched off.
 2. Build: the seven CUDA sources of ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel), with each ``-Xptxas -v`` report,
-   a summary of registers and spills of ``rff_gram`` and the round
-   kernel, and ``rff_gram``'s launch plans at the main path's shapes.
+   a summary of registers and spills of ``rff_gram``, the round kernel
+   and the two cluster chains (``dekrr_solve``, ``dekrr_async_solve``),
+   ``rff_gram``'s launch plans at the main path's shapes and the chains'
+   ``chain_plan`` at J = 10 and 40.
 3. Kernel phases: each solve-path kernel against its plain PyTorch
    version on the card, at the main path's shapes, in float64 and
    float32, with the invariants that hold bit for bit (``rff_gram``,
@@ -14,7 +16,9 @@
    same bits and G == Gᵀ exactly; a solve launch
    == round launches; the masked round at all ones == the unmasked one;
    an async-chain launch == masked round launches plus the delivery
-   rule; chunked Chebyshev launches == one launch).
+   rule; chunked Chebyshev launches == one launch), and the two cluster
+   chains at J = 40, past the clusters the card holds at once, == round
+   launches bit for bit.
 4. Main path at the paper's full width (Table 2, ``wave``): N = 63,600,
    d = 148, noniid_y over J = 10 nodes of circulant(10, (1, 2)), D_j = 200
    energy-selected DDRF features from D0 = 4,000 candidates per node,
@@ -70,7 +74,10 @@
    lets the host queue the launches first) beside their plain versions,
    a PyTorch yardstick and the least time the card could take; the
    featurize kernel at the wave and at one node, and ``rff_gram``'s
-   tiled route at D_j = 600.
+   tiled route at D_j = 600. ``dekrr_solve`` and ``dekrr_async_solve``
+   are timed in turns with their yardsticks (CHAIN_PAIRS pairs, the
+   median of each), and each chain's time per round is printed beside
+   the round kernel's.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase
 exits non-zero before it. Without a CUDA device the script exits
@@ -85,6 +92,7 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -130,6 +138,10 @@ ASYNC_CONFIG = dict(prob=0.5, censor_tau=2e-2, censor_decay=0.9)
 ASYNC_TOL = 1e-10
 ASYNC_CHUNK = 16    # async_solve_batched's default tol-check chunk
 PHASE_ROUNDS = 7    # rounds of the chain kernels' phases
+# J past the clusters the card holds at once (280 blocks of 1,024 threads
+# at D = 200), so the cluster chains loop over nodes
+J_LOOPED = 40
+CHAIN_PAIRS = 5     # kernel / yardstick pairs timed in turns per chain
 CHEB_TOL = 1e-8     # relative error of the rounds-to-tolerance comparison
 
 # Serving: the featurize kernel's phase shapes (D, d, N), its batched
@@ -224,6 +236,18 @@ def cuda_ms(fn, *, reps: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def paired_ms(kernel, yardstick, *, pairs: int = CHAIN_PAIRS, reps: int,
+              yardstick_reps: int, warmup: int = 1) -> tuple[float, float]:
+    """Medians of `pairs` cuda_ms readings of a kernel and of its
+    yardstick, taken in turns, so a drift of the card over the call falls
+    on both alike."""
+    ks, ys = [], []
+    for _ in range(pairs):
+        ks.append(cuda_ms(kernel, reps=reps, warmup=warmup))
+        ys.append(cuda_ms(yardstick, reps=yardstick_reps, warmup=warmup))
+    return statistics.median(ks), statistics.median(ys)
 
 
 def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
@@ -361,6 +385,28 @@ def kernel_phases() -> dict[str, float]:
                 if not torch.equal(seq, fused):
                     raise PhaseError(f"dekrr_solve ≠ 7 dekrr_step launches "
                                      f"bit for bit ({case})")
+        # J past the clusters the card holds: clusters loop over nodes
+        args = dekrr_operands(J_LOOPED, 4, D_PER_NODE, 1, J_LOOPED, dtype,
+                              seed=J_LOOPED)
+        ident = torch.arange(J_LOOPED, device="cuda", dtype=torch.int32)
+        args = args[:6] + (ident,) + args[7:]
+        seq = args[4]
+        for _ in range(PHASE_ROUNDS):
+            seq = ops.dekrr_step(*args[:4], seq, *args[5:])
+        fused, res = ops.dekrr_solve(*args, num_rounds=PHASE_ROUNDS,
+                                     trace=True)
+        want, wres = dekrr_solve_reference(*_raw_layout(args),
+                                           num_rounds=PHASE_ROUNDS, dy=1,
+                                           trace=True)
+        torch.cuda.synchronize()
+        case = f"J={J_LOOPED} {dtype}"
+        e = max(compare(f"dekrr_solve {case}", fused, want, dtype),
+                compare(f"dekrr_solve trace {case}", res, wres, dtype))
+        if f64:
+            errs["dekrr_solve"] = max(errs["dekrr_solve"], e)
+        if not torch.equal(seq, fused):
+            raise PhaseError(f"dekrr_solve ≠ {PHASE_ROUNDS} dekrr_step "
+                             f"launches bit for bit ({case})")
         print(f"kernel phases {dtype}: pass", flush=True)
     return errs
 
@@ -413,8 +459,6 @@ def chain_phases() -> dict[str, float]:
     chain) against their plain versions at the main path's shapes, plus
     T > J, Dy = 3 and K = 0, with their bit-for-bit invariants. Returns
     the largest f64 error per kernel."""
-    from repro_torch.dist import (AsyncGossipState, PackedProblem,
-                                  async_step_batched)
     from repro_torch.kernels import ops
     from repro_torch.kernels.dekrr_solve import (dekrr_async_solve_reference,
                                                  dekrr_cheb_solve_reference)
@@ -482,27 +526,7 @@ def chain_phases() -> dict[str, float]:
                                          f"flags differ ({tag})")
                     if t_rows != J_NODES:
                         continue
-                    # one launch of R rounds == R masked round launches
-                    # followed by the delivery rule, bit for bit
-                    g, d, s, p, theta, sent, bufs, nbr_idx, nbr_mask, act, \
-                        thr = a_args
-                    packed = PackedProblem(
-                        g=g, d=d, s=s, p=p,
-                        theta_mask=torch.ones_like(d[..., 0] if ndim == 3
-                                                   else d),
-                        nbr_idx=nbr_idx, nbr_mask=nbr_mask)
-                    state = AsyncGossipState(theta, sent, bufs)
-                    for r in range(rounds):
-                        state, _ = async_step_batched(
-                            packed, state, act[r], thr[r], gossip=gossip,
-                            censored=censored, backend="cuda")
-                    torch.cuda.synchronize()
-                    if not (torch.equal(got[0], state.theta)
-                            and torch.equal(got[1], state.sent)
-                            and torch.equal(got[2], state.buffers)):
-                        raise PhaseError(f"dekrr_async_solve ≠ {rounds} "
-                                         f"dekrr_step_masked rounds bit for "
-                                         f"bit ({tag})")
+                    _check_async_scanned(got, a_args, gossip, censored, tag)
             # kernel 6: the Chebyshev chain
             g, d, s, p, theta, nbr_idx, self_idx, nbr_mask = args
             gen = torch.Generator(device="cuda").manual_seed(seed + 2)
@@ -540,8 +564,48 @@ def chain_phases() -> dict[str, float]:
                                         whole[2])):
                     raise PhaseError(f"dekrr_cheb_solve chunked ≠ unchunked "
                                      f"bit for bit ({case})")
+        # the async chain at J past the clusters the card holds at once
+        a_args = async_operands(J_LOOPED, 4, D_PER_NODE, 1, J_LOOPED, dtype,
+                                rounds, seed=J_LOOPED)
+        got = ops.dekrr_async_solve(*a_args, censored=True, trace=True)
+        w = dekrr_async_solve_reference(*_async_raw(a_args), censored=True,
+                                        edge_gossip=False, dy=1, trace=True)
+        case = f"J={J_LOOPED} censored {dtype}"
+        want = (w[0], w[1], w[2].reshape(a_args[6].shape), w[3][:rounds])
+        for what, a, b in zip(("θ", "sent", "buffers", "res"), got[:4], want):
+            note("dekrr_async_solve",
+                 compare(f"dekrr_async_solve {what} {case}", a, b, dtype))
+        if not torch.equal(got[4], w[4][:rounds]):
+            raise PhaseError(f"dekrr_async_solve broadcast flags differ "
+                             f"({case})")
+        _check_async_scanned(got, a_args, "bernoulli", True, case)
         print(f"chain kernel phases {dtype}: pass", flush=True)
     return errs
+
+
+def _check_async_scanned(got, a_args, gossip: str, censored: bool,
+                         case: str) -> None:
+    """One async-chain launch of R rounds == R masked round launches
+    followed by the delivery rule (the per-round `cuda` backend), bit for
+    bit. a_args as `async_operands` makes them, with T = J."""
+    from repro_torch.dist import (AsyncGossipState, PackedProblem,
+                                  async_step_batched)
+    g, d, s, p, theta, sent, bufs, nbr_idx, nbr_mask, act, thr = a_args
+    packed = PackedProblem(
+        g=g, d=d, s=s, p=p,
+        theta_mask=torch.ones_like(d[..., 0] if d.ndim == 3 else d),
+        nbr_idx=nbr_idx, nbr_mask=nbr_mask)
+    state = AsyncGossipState(theta, sent, bufs)
+    for r in range(act.shape[0]):
+        state, _ = async_step_batched(packed, state, act[r], thr[r],
+                                      gossip=gossip, censored=censored,
+                                      backend="cuda")
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], state.theta)
+            and torch.equal(got[1], state.sent)
+            and torch.equal(got[2], state.buffers)):
+        raise PhaseError(f"dekrr_async_solve ≠ {act.shape[0]} "
+                         f"dekrr_step_masked rounds bit for bit ({case})")
 
 
 # ---------------------------------------------------------------- main path
@@ -1297,16 +1361,32 @@ def timings(packed, run) -> list[dict]:
         return theta
 
     bms, by = bound_ms(step_bytes, CHUNK * step_flops, dtype)
+    ms, library_ms = paired_ms(
+        lambda: dekrr_solve_cuda(*lay, out, res, work, num_rounds=CHUNK,
+                                 dy=dy),
+        lambda: library_solve(run["theta"]), reps=20, yardstick_reps=5)
+    # where a chain round's time goes: the same launch without the trace,
+    # and CHUNK round launches replayed from a CUDA graph (no host between)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            dekrr_step_cuda(*lay, out, dy=dy)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(CHUNK):
+            dekrr_step_cuda(*lay, out, dy=dy)
     rows.append(dict(
         name="dekrr_solve", route="cuda",
         source="src/repro_torch/kernels/csrc/dekrr_solve.cu",
-        replaces="src/repro/kernels/dekrr_solve.py:204",
-        ms=cuda_ms(lambda: dekrr_solve_cuda(*lay, out, res, work,
-                                            num_rounds=CHUNK, dy=dy)),
+        replaces="src/repro/kernels/dekrr_solve.py:204", ms=ms,
         plain_ms=cuda_ms(lambda: dekrr_solve_reference(
             *lay, num_rounds=CHUNK, dy=dy, trace=True), reps=5),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: library_solve(run["theta"]), reps=5)))
+        bound_ms=bms, bound_by=by, library_ms=library_ms, rounds=CHUNK,
+        untraced_ms=cuda_ms(lambda: dekrr_solve_cuda(
+            *lay, out, None, work, num_rounds=CHUNK, dy=dy)),
+        graph_round_ms=cuda_ms(graph.replay) / CHUNK))
     return rows
 
 
@@ -1399,20 +1479,21 @@ def chain_timings(run: dict, a: dict, c: dict) -> list[dict]:
         + 5 * rows(j_nodes) + 2 * rows(j_nodes * k_slots) \
         + nbytes(raw[7], raw[8], raw[9], thr, outs[3], outs[4])
     bms, by = bound_ms(byts, flops, dtype)
+    ms, library_ms = paired_ms(
+        lambda: dekrr_async_solve_cuda(
+            *raw, *outs, work, flags, censored=True, edge_gossip=False,
+            dy=dy),
+        lambda: async_solve_batched(
+            packed, rounds, masks, config=config, backend="torch",
+            return_trace=True), reps=3, yardstick_reps=1)
     rows_out.append(dict(
         name="dekrr_async_solve", route="cuda",
         source="src/repro_torch/kernels/csrc/dekrr_async_solve.cu",
-        replaces="src/repro/kernels/dekrr_solve.py:457",
-        ms=cuda_ms(lambda: dekrr_async_solve_cuda(
-            *raw, *outs, work, flags, censored=True, edge_gossip=False,
-            dy=dy), reps=3, warmup=1),
+        replaces="src/repro/kernels/dekrr_solve.py:457", ms=ms,
         plain_ms=cuda_ms(lambda: dekrr_async_solve_reference(
             *raw, censored=True, edge_gossip=False, dy=dy, trace=True),
             reps=2, warmup=1),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: async_solve_batched(
-            packed, rounds, masks, config=config, backend="torch",
-            return_trace=True), reps=2, warmup=1)))
+        bound_ms=bms, bound_by=by, library_ms=library_ms, rounds=rounds))
 
     # kernel 6: the Chebyshev schedule in one launch
     lo, hi = c["mu"]
@@ -1442,7 +1523,7 @@ def chain_timings(run: dict, a: dict, c: dict) -> list[dict]:
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(lambda: chebyshev_solve_packed(
             packed, hi, lo, num_iters=c["rounds"], backend="torch",
-            return_trace=True), reps=3, warmup=1)))
+            return_trace=True), reps=3, warmup=1), rounds=c["rounds"]))
     return rows_out
 
 
@@ -1912,6 +1993,7 @@ def run_on_card() -> int:
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.dekrr_solve import chain_max_clusters, chain_plan
     from repro_torch.kernels.rff_gram import gram_plan
     t0 = time.perf_counter()
     reports = _build.build_all()
@@ -1919,7 +2001,7 @@ def run_on_card() -> int:
           f"(sources {_build.source_hash()})")
     for src, text in reports.items():
         print(f"--- ptxas {src} ---\n{text.strip()}")
-    for src in ("rff_gram", "dekrr_step"):
+    for src in ("rff_gram", "dekrr_step", "dekrr_solve", "dekrr_async_solve"):
         for line in ptxas_summary(reports[src]):
             print(f"ptxas {src}: {line}")
     print(f"rff_gram plan at B = {J_NODES}, {4 * J_NODES}: " + "; ".join(
@@ -1927,6 +2009,12 @@ def run_on_card() -> int:
                       sms=torch.cuda.get_device_properties(0)
                       .multi_processor_count))
         for b in (J_NODES, 4 * J_NODES)))
+    for src in ("dekrr_solve", "dekrr_async_solve"):
+        fits = chain_max_clusters(src, 4, D_PER_NODE, 1, torch.float64)
+        print(f"chain_plan {src} f64 (C, rows per block, clusters) at K = 4, "
+              f"D = {D_PER_NODE}: " + "; ".join(
+                  f"J = {j}: {chain_plan(j, D_PER_NODE, fits)}"
+                  for j in (J_NODES, J_LOOPED)))
 
     errs = kernel_phases()
     errs.update(chain_phases())
@@ -2064,6 +2152,18 @@ def run_on_card() -> int:
           f"H=K=16, dh=64, S={LLM_MAX_SEQ}): "
           + ", ".join(f"cur={cur}: {ms:.4f} ms (bound {bound[0]:.4f} ms)"
                       for cur, (bound, ms) in serving.items()))
+    per_round = {r["name"]: r["ms"] / r.pop("rounds") for r in rows
+                 if "rounds" in r}
+    step_ms = next(r["ms"] for r in rows if r["name"] == "dekrr_step")
+    solve = next(r for r in rows if r["name"] == "dekrr_solve")
+    print(f"time [{card}] per round: dekrr_step {step_ms:.4f} ms (one "
+          f"launch), {solve.pop('graph_round_ms'):.4f} ms ({CHUNK} launches "
+          f"replayed from a CUDA graph); " + "; ".join(
+              f"{name} {ms:.4f} ms" for name, ms in per_round.items())
+          + f" (dekrr_solve at R = {CHUNK}, "
+          f"{solve.pop('untraced_ms') / CHUNK:.4f} ms without its trace; "
+          f"dekrr_async_solve at R = {ASYNC_ROUNDS} with its flush; the "
+          f"Chebyshev chain at its path's rounds)")
     for row in rows:
         kernel = row.pop("kernel", row["name"])
         row["max_abs_err"] = errs[kernel]

@@ -6,11 +6,14 @@ version (sources in ``csrc/``).
 * dekrr_step.py    — one Eq. 19 round over all nodes, with the optional
                      activation mask of asynchronous gossip
                      (``csrc/dekrr_step.cu``)
-* dekrr_solve.py   — R Eq. 19 rounds in one cooperative launch
-                     (``csrc/dekrr_solve.cu``), the R-round asynchronous
-                     gossip chain (``csrc/dekrr_async_solve.cu``) and the
-                     R-round Chebyshev chain (``csrc/dekrr_cheb_solve.cu``);
-                     shared node body in ``csrc/dekrr_common.cuh``
+* dekrr_solve.py   — R Eq. 19 rounds in one persistent launch of one
+                     thread-block cluster per node (``csrc/dekrr_solve.cu``,
+                     sized by ``chain_plan``), the R-round asynchronous
+                     gossip chain on the same clusters
+                     (``csrc/dekrr_async_solve.cu``) and the R-round
+                     Chebyshev chain, one block per node
+                     (``csrc/dekrr_cheb_solve.cu``); shared node bodies in
+                     ``csrc/dekrr_common.cuh``
 * rff_features.py  — the serving tier's feature map Z = scale·cos(ΩX + b)
                      in f64/f32 and the bf16 arrangement of
                      ``rff_features_lowp`` (``csrc/rff_features.cu``)

@@ -43,16 +43,16 @@ SIGNATURES = {
         "dekrr_step_f32": [_P] * 10 + [_I] * 6 + [_P],
     },
     "dekrr_solve": {
-        "dekrr_solve_f64": [_P] * 11 + [_I] * 6 + [_P],
-        "dekrr_solve_f32": [_P] * 11 + [_I] * 6 + [_P],
-        "dekrr_solve_max_blocks_f64": [_I] * 3,
-        "dekrr_solve_max_blocks_f32": [_I] * 3,
+        "dekrr_solve_f64": [_P] * 11 + [_I] * 9 + [_P],
+        "dekrr_solve_f32": [_P] * 11 + [_I] * 9 + [_P],
+        "dekrr_solve_max_clusters_f64": [_I] * 4,
+        "dekrr_solve_max_clusters_f32": [_I] * 4,
     },
     "dekrr_async_solve": {
-        "dekrr_async_solve_f64": [_P] * 18 + [_I] * 8 + [_P],
-        "dekrr_async_solve_f32": [_P] * 18 + [_I] * 8 + [_P],
-        "dekrr_async_solve_max_blocks_f64": [_I] * 3,
-        "dekrr_async_solve_max_blocks_f32": [_I] * 3,
+        "dekrr_async_solve_f64": [_P] * 18 + [_I] * 11 + [_P],
+        "dekrr_async_solve_f32": [_P] * 18 + [_I] * 11 + [_P],
+        "dekrr_async_solve_max_clusters_f64": [_I] * 4,
+        "dekrr_async_solve_max_clusters_f32": [_I] * 4,
     },
     "dekrr_cheb_solve": {
         "dekrr_cheb_solve_f64": [_P] * 15 + [_I] * 6 + [_P],

@@ -5,8 +5,7 @@
 // the asynchronous-gossip chain (dekrr_async_solve.cu) and the Chebyshev
 // chain (dekrr_cheb_solve.cu). All compute each output row with the same two
 // per-row routines, so a fused chain equals the same number of per-round
-// launches bit for bit. The cooperative launch the three chains share is at
-// the end.
+// launches bit for bit.
 //
 // Layout (row-major, all contiguous):
 //   g, s   [J, D, D]        p [J, K, D, D]
@@ -25,11 +24,17 @@
 // contraction axis (S first, then the live P blocks in slot order), then
 // warp_sum's shuffle tree, then d + sum (`eq19_acc_row`, `eq19_out_row`).
 // The bits of a row therefore do not depend on which warp, block or
-// cluster computes it: the chains run a whole node in one block
-// (`eq19_node_rows`), the round kernel spreads a node's rows over a
-// thread-block cluster, and both give the same bits. Masked slots are
-// skipped: their P blocks are zero and are not read.
+// cluster computes it. Two node bodies run the rows:
+//   - `eq19_node_cluster`: a node's rows spread over a thread-block
+//     cluster, acc passed between the phases through distributed shared
+//     memory. The round kernel, the multi-round solve and the async chain
+//     run it.
+//   - `eq19_node_rows`: a whole node in one block of kThreads threads. The
+//     Chebyshev chain runs it, in the cooperative launch at the end.
+// Both give the same bits. Masked slots are skipped: their P blocks are
+// zero and are not read.
 #pragma once
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace dekrr {
@@ -37,6 +42,12 @@ namespace dekrr {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kDyChunk = 4;  // output columns accumulated per pass over a row
+// Warps of a cluster block (eq19_node_cluster). A row's bits do not depend on
+// which warp forms it; at the paper's D = 200 a cluster of 7 such blocks
+// gives every warp one row.
+constexpr int kClusterWarps = 32;
+constexpr int kClusterThreads = kClusterWarps * 32;
+constexpr int kMaxCluster = 8;  // blocks of a cluster at most (portable size)
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -232,6 +243,129 @@ __device__ T eq19_node(int j, const T* __restrict__ g, const T* __restrict__ d,
       nbr_mask, out_rows, smem, K, D, Dy);
 }
 
+// Node j's update by one thread-block cluster (every block of it calls
+// this with the same arguments). Block `rank` of the cluster forms rows
+// [rank·R, (rank+1)·R) ∩ [0, D) (R = rows_per_cta, at least D over the
+// cluster size) of acc and then of out:
+//
+//   1. every block stages the node's 1 + K live θ row blocks (a few KB);
+//   2. block c forms its acc rows into its own shared memory, one warp
+//      per row;
+//   3. cluster.sync(); each block copies the other blocks' acc rows out of
+//      their shared memory (map_shared_rank), then cluster.sync() again,
+//      so no block moves on while a peer still reads it;
+//   4. block c forms its out rows = G acc into out_rows.
+//
+// `smem` holds node_smem_elems(K, D, Dy) elements; on return its first
+// Dy*D elements still hold the staged own rows. Returns this thread's share
+// of max |out − θ_self| over the block's rows (reduce over the cluster,
+// `cluster_max`, for the node's residual). Ends with a block barrier, so
+// the caller may read the block's out rows and reuse smem at once; out
+// rows of other blocks need a cluster barrier first.
+template <typename T, typename NbrRows>
+__device__ T eq19_node_cluster(cooperative_groups::cluster_group& cluster,
+                               int j, const T* __restrict__ g,
+                               const T* __restrict__ d,
+                               const T* __restrict__ s,
+                               const T* __restrict__ p, const T* self_src,
+                               NbrRows nbr_rows,
+                               const int* __restrict__ nbr_mask, T* out_rows,
+                               T* smem, int K, int D, int Dy,
+                               int rows_per_cta) {
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t rows = static_cast<size_t>(Dy) * D;
+  const size_t dd = static_cast<size_t>(D) * D;
+  T* th = smem;                    // [(1 + K), Dy, D]
+  T* acc = smem + (K + 1) * rows;  // [Dy, D]
+  const int* mask_j = nbr_mask + static_cast<size_t>(j) * K;
+  stage_theta(th, self_src, nbr_rows, mask_j, K, rows, threadIdx.x,
+              blockDim.x);
+  __syncthreads();
+
+  const int a0 = rank * rows_per_cta;
+  const int a1 = min(D, a0 + rows_per_cta);
+  const T* s_j = s + j * dd;
+  const T* p_j = p + static_cast<size_t>(j) * K * dd;
+  const T* d_j = d + j * rows;
+  for (int a = a0 + warp; a < a1; a += kClusterWarps)
+    eq19_acc_row(a, s_j, p_j, d_j, mask_j, th, acc, K, D, Dy, lane);
+  cluster.sync();
+
+  for (int peer = 0; peer < C; ++peer) {
+    const int b0 = peer * rows_per_cta;
+    const int n = min(D, b0 + rows_per_cta) - b0;
+    if (peer == rank || n <= 0) continue;
+    const T* src = cluster.map_shared_rank(acc, peer);
+    for (int e = threadIdx.x; e < Dy * n; e += blockDim.x) {
+      const size_t at = static_cast<size_t>(e / n) * D + b0 + e % n;
+      acc[at] = src[at];
+    }
+  }
+  cluster.sync();
+
+  const T* g_j = g + j * dd;
+  T local = T(0);
+  for (int a = a0 + warp; a < a1; a += kClusterWarps)
+    local = eq19_out_row(a, g_j, acc, th, out_rows, local, D, Dy, lane);
+  __syncthreads();
+  return local;
+}
+
+// Shared memory of `cluster_max`: per-warp partials, and the partial of
+// each block of the cluster, pushed there by that block, in two sets used
+// in turn.
+template <typename T, int N>
+struct ClusterMax {
+  T warp[kClusterWarps][N];
+  T part[2][kMaxCluster][N];  // [set][rank]
+};
+
+// Cluster-wide max of each thread's v[i], i < N, returned in v to every
+// thread of every block of the cluster, so the cluster may branch on it as
+// one. Each block reduces its threads (shuffles, then warp 0 over the
+// warps' partials); lanes c < C of warp 0 push the block's partial into
+// block c's shared memory (map_shared_rank); after one cluster barrier
+// every thread reads the C partials from its own block's shared memory in
+// rank order (max is exact, so no order changes the bits). `calls` counts
+// this thread's calls (every thread of the cluster makes the same calls):
+// consecutive calls use the two sets of `part` in turn, so a block may
+// push the next call's partials while a peer still reads this call's.
+// Every thread of the cluster must call it (a block and a cluster barrier).
+template <typename T, int N>
+__device__ void cluster_max(cooperative_groups::cluster_group& cluster,
+                            T (&v)[N], ClusterMax<T, N>& red, int& calls) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int set = calls++ & 1;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    v[i] = warp_max(v[i]);
+    if (lane == 0) red.warp[warp][i] = v[i];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = (blockDim.x + 31) / 32;
+    T* dst = lane < C ? cluster.map_shared_rank(
+                            red.part[set][cluster.block_rank()], lane)
+                      : nullptr;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const T m = warp_max(lane < nw ? red.warp[lane][i] : red.warp[0][i]);
+      const T block = __shfl_sync(0xffffffffu, m, 0);
+      if (lane < C) dst[i] = block;
+    }
+  }
+  cluster.sync();
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    T m = red.part[set][0][i];
+    for (int c = 1; c < C; ++c) m = fmax(m, red.part[set][c][i]);
+    v[i] = m;
+  }
+}
+
 // Block-wide max of each thread's `v`, returned to every thread, so the
 // block may branch on it as one. `red` is kWarps elements of shared
 // memory. Every thread of the block must call it (two block barriers).
@@ -278,7 +412,8 @@ inline int coop_max_blocks(Kernel kernel, size_t smem) {
 
 // One cooperative launch of `kernel` over min(J, co-resident cap) blocks of
 // kThreads threads (each block loops over nodes j = blockIdx.x, + gridDim.x,
-// ...). Returns a CUDA error code, 0 on success.
+// ...): the Chebyshev chain's launch. Returns a CUDA error code, 0 on
+// success.
 template <typename Kernel>
 inline int coop_launch(Kernel kernel, int J, size_t smem, void** args,
                        void* stream) {

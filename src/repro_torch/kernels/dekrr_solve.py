@@ -11,25 +11,31 @@ res [R, J] = max|Δθ_j| per round from the same launch. self_idx rows must
 be distinct.
 
 The Pallas kernel relies on its (R, J) grid running in order. The CUDA
-kernel (`csrc/dekrr_solve.cu`) is one cooperative launch instead: a grid
-capped at the co-resident block count loops over nodes, and a grid-wide
-barrier separates the rounds. Its per-node body is the round kernel's, so
-R rounds in one launch equal R round launches bit for bit.
+kernel (`csrc/dekrr_solve.cu`) is one persistent cooperative launch
+instead: every node is a thread-block cluster running the round kernel's
+node body, clusters loop over nodes past the ones the card holds at once,
+and a grid-wide barrier separates the rounds. `chain_plan` sizes it. Its
+rows are the round kernel's, so R rounds in one launch equal R round
+launches bit for bit.
 
 The asynchronous-gossip chain (`dekrr_async_solve_*`, replacing
-`dekrr_async_solve_pallas` / `_dekrr_async_solve_kernel`) and the
-Chebyshev chain (`dekrr_cheb_solve_*`, replacing `dekrr_cheb_solve_pallas`
-/ `_dekrr_cheb_solve_kernel`) are built the same way
-(`csrc/dekrr_async_solve.cu`, `csrc/dekrr_cheb_solve.cu`); their raw
-contracts are in the plain versions' docstrings.
+`dekrr_async_solve_pallas` / `_dekrr_async_solve_kernel`,
+`csrc/dekrr_async_solve.cu`) is built the same way. The Chebyshev chain
+(`dekrr_cheb_solve_*`, replacing `dekrr_cheb_solve_pallas` /
+`_dekrr_cheb_solve_kernel`, `csrc/dekrr_cheb_solve.cu`) is still one
+cooperative launch of one block per node. Their raw contracts are in the
+plain versions' docstrings.
 """
 from __future__ import annotations
+
+import functools
+from typing import Callable
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dekrr_step import (dekrr_step_masked_reference,
-                                            dekrr_step_reference)
+                                            dekrr_step_reference, round_plan)
 
 
 def dekrr_solve_reference(g, d, s, p, theta, nbr_idx, self_idx, nbr_mask,
@@ -57,13 +63,63 @@ def dekrr_solve_reference(g, d, s, p, theta, nbr_idx, self_idx, nbr_mask,
                             device=theta.device)
 
 
+def chain_plan(j_nodes: int, d_feat: int,
+               max_clusters: Callable[[int], int]) -> tuple[int, int, int]:
+    """(blocks per node cluster C, rows per block, clusters) of a chain
+    kernel's persistent launch: grid (C, clusters), cluster q running
+    nodes q, q + clusters, ... (`csrc/dekrr_solve.cu`,
+    `csrc/dekrr_async_solve.cu`).
+
+    C and the rows per block are the round kernel's (`round_plan`), so a
+    node's rows split as one round launch splits them. ``max_clusters(C)``
+    is the number of clusters of C blocks the card holds at once (the
+    kernels' ``*_max_clusters_*`` exports, `chain_max_clusters`); the
+    launch takes min(J, that). Only where not even one cluster of C blocks
+    fits does C shrink, each block then forming more rows."""
+    blocks, rows = round_plan(d_feat)
+    cap = max_clusters(blocks)
+    while cap < 1 and blocks > 1:
+        rows = -(-max(1, d_feat) // (blocks - 1))
+        blocks = -(-max(1, d_feat) // rows)
+        cap = max_clusters(blocks)
+    if cap < 1:
+        raise RuntimeError(
+            f"no thread-block cluster of the chain kernel fits on this "
+            f"device at D={d_feat} (shared memory or cooperative-launch "
+            f"support)")
+    return blocks, rows, min(j_nodes, cap)
+
+
+def chain_max_clusters(name: str, k_slots: int, d_feat: int, dy: int,
+                       dtype: torch.dtype) -> Callable[[int], int]:
+    """Clusters of C blocks of the kernel of ``csrc/<name>.cu`` that the
+    current device holds at once at (K, D, Dy), as a function of C."""
+    device = torch.cuda.current_device()
+    return lambda blocks: _max_clusters(name, k_slots, d_feat, dy,
+                                        _suffix(dtype), blocks, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(name: str, k_slots: int, d_feat: int, dy: int,
+                  suffix: str, blocks: int, device: int) -> int:
+    fn = getattr(_build.library(name), f"{name}_max_clusters_{suffix}")
+    cap = fn(k_slots, d_feat, dy, blocks)
+    if cap < 0:
+        _build.check(-cap, f"{name} occupancy query")
+    return cap
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    return "f64" if dtype == torch.float64 else "f32"
+
+
 def _coop_cap(name: str, k_slots: int, d_feat: int, dy: int,
               dtype: torch.dtype) -> int:
     """Co-resident blocks the cooperative kernel of ``csrc/<name>.cu`` may
     use on the current device at (K, D, Dy); raises when none fits."""
     lib = _build.library(name)
-    suffix = "f64" if dtype == torch.float64 else "f32"
-    cap = getattr(lib, f"{name}_max_blocks_{suffix}")(k_slots, d_feat, dy)
+    cap = getattr(lib, f"{name}_max_blocks_{_suffix(dtype)}")(k_slots,
+                                                              d_feat, dy)
     if cap < 0:
         _build.check(-cap, f"{name} occupancy query")
     if cap == 0:
@@ -81,19 +137,20 @@ def _ptr(t: torch.Tensor | None):
 def dekrr_solve_cuda(g, d, s, p, theta, nbr_idx, self_idx, nbr_mask, out,
                      res, work, *, num_rounds: int, dy: int) -> None:
     """Launch the kernel on checked, contiguous CUDA tensors: out
-    [J·Dy, D], res [R, J] or None, work 2·[T·Dy, D] scratch."""
+    [J·Dy, D], res [R, J] or None, work 2·[T·Dy, D] scratch; sized by
+    `chain_plan` for the current device."""
     j_nodes, k_slots, d_feat = p.shape[0], p.shape[1], d.shape[1]
     t_rows = theta.shape[0] // dy
-    _coop_cap("dekrr_solve", k_slots, d_feat, dy, g.dtype)
-    lib = _build.library("dekrr_solve")
-    fn = lib.dekrr_solve_f64 if g.dtype == torch.float64 \
-        else lib.dekrr_solve_f32
+    plan = chain_plan(j_nodes, d_feat, chain_max_clusters(
+        "dekrr_solve", k_slots, d_feat, dy, g.dtype))
+    fn = getattr(_build.library("dekrr_solve"),
+                 f"dekrr_solve_{_suffix(g.dtype)}")
     stream = torch.cuda.current_stream(g.device).cuda_stream
     _build.check(fn(g.data_ptr(), d.data_ptr(), s.data_ptr(), p.data_ptr(),
                     theta.data_ptr(), nbr_idx.data_ptr(),
                     self_idx.data_ptr(), nbr_mask.data_ptr(), out.data_ptr(),
                     _ptr(res), work.data_ptr(), num_rounds, j_nodes, k_slots,
-                    d_feat, dy, t_rows, stream),
+                    d_feat, dy, t_rows, *plan, stream),
                  "dekrr_solve launch")
 
 
@@ -170,13 +227,13 @@ def dekrr_async_solve_cuda(g, d, s, p, theta, sent, buffers, nbr_idx,
     """Launch the kernel on checked, contiguous CUDA tensors (the plain
     version's raw contract): out_theta/out_sent [J·Dy, D], out_buf
     [J·K·Dy, D], res/bc [R + 1, J] or both None, work 2·[T·Dy, D] and
-    flags [2·J] int32 scratch."""
+    flags [2·J] int32 scratch; sized by `chain_plan`."""
     j_nodes, k_slots, d_feat = p.shape[0], p.shape[1], d.shape[1]
     t_rows = theta.shape[0] // dy
-    _coop_cap("dekrr_async_solve", k_slots, d_feat, dy, g.dtype)
-    lib = _build.library("dekrr_async_solve")
-    fn = lib.dekrr_async_solve_f64 if g.dtype == torch.float64 \
-        else lib.dekrr_async_solve_f32
+    plan = chain_plan(j_nodes, d_feat, chain_max_clusters(
+        "dekrr_async_solve", k_slots, d_feat, dy, g.dtype))
+    fn = getattr(_build.library("dekrr_async_solve"),
+                 f"dekrr_async_solve_{_suffix(g.dtype)}")
     stream = torch.cuda.current_stream(g.device).cuda_stream
     _build.check(fn(g.data_ptr(), d.data_ptr(), s.data_ptr(), p.data_ptr(),
                     theta.data_ptr(), sent.data_ptr(), buffers.data_ptr(),
@@ -186,7 +243,7 @@ def dekrr_async_solve_cuda(g, d, s, p, theta, sent, buffers, nbr_idx,
                     out_buf.data_ptr(), _ptr(res), _ptr(bc),
                     work.data_ptr(), flags.data_ptr(), active.shape[0],
                     j_nodes, k_slots, d_feat, dy, t_rows, int(censored),
-                    int(edge_gossip), stream),
+                    int(edge_gossip), *plan, stream),
                  "dekrr_async_solve launch")
 
 

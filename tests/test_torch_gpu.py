@@ -167,18 +167,22 @@ def test_gpu_rff_gram_matches_plain(cuda_device, dtype, rtol, b, f, dim, n):
     assert ops.LAUNCHES["rff_gram"] == 3
 
 
-# CASES plus D above the round kernel's 8 blocks × 32 warps of rows
+# CASES plus the paper's D = 200 (clusters of 7), D above the round
+# kernel's 8 blocks × 32 warps of rows (clusters of 8, 33 and 38 rows a
+# block), and J = 40 at D = 200: 280 blocks, more clusters than the card
+# holds at once, so a chain's clusters loop over nodes
 STEP_CASES = CASES + [(3, 2, 200, 1, 0), (3, 2, 150, 3, 2), (2, 0, 257, 1, 1),
-                      (2, 1, 300, 3, 0)]
+                      (2, 1, 300, 3, 0), (40, 4, 200, 1, 0)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("j,k,dfeat,dy,extra", STEP_CASES)
 def test_gpu_step_launches_equal_one_solve_launch(cuda_device, j, k, dfeat,
                                                   dy, extra):
-    """R = 7 round launches (each node's rows spread over a cluster) equal
-    one dekrr_solve launch of 7 rounds (each node in one block) bit for
-    bit, table rows owned by no node kept."""
+    """R = 7 round launches equal one dekrr_solve launch of 7 rounds bit
+    for bit (each node's rows spread over a cluster in both, the chain's
+    clusters looping over nodes where J is past what the card holds),
+    table rows owned by no node kept."""
     from repro_torch.kernels.dekrr_step import dekrr_step_cuda
 
     args = [a.to(cuda_device) for a in to_t(
@@ -223,7 +227,9 @@ def test_gpu_masked_round_matches_plain(cuda_device, dtype, rtol, j, k,
     assert ops.LAUNCHES["dekrr_step"] == 1
 
 
-ASYNC_CASES = [c for c in CASES if c[4] == 0] + [(4, 2, 9, 3, 2)]
+ASYNC_CASES = [c for c in CASES if c[4] == 0] + [
+    (4, 2, 9, 3, 2), (3, 2, 200, 1, 0), (2, 1, 257, 3, 0), (2, 2, 300, 1, 0),
+    (40, 4, 200, 1, 0)]
 
 
 @pytest.mark.gpu
@@ -265,6 +271,63 @@ def test_gpu_async_chain_matches_plain(cuda_device, dtype, rtol, j, k,
     assert torch.equal(got[1], state.sent)
     assert torch.equal(got[2], state.buffers)
     assert ops.LAUNCHES["dekrr_step_masked"] == active.shape[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["dekrr_solve", "dekrr_async_solve"])
+def test_gpu_chain_refuses_more_clusters_than_the_card_holds(cuda_device,
+                                                             kernel):
+    """A grid of more clusters than the card holds at once would wait at
+    its first grid barrier for clusters that cannot be scheduled: the C
+    entry point refuses it with an error code and nothing is written.
+    `chain_plan`'s grid then runs the same operands."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dekrr_solve import (chain_max_clusters,
+                                                 chain_plan,
+                                                 dekrr_async_solve_reference)
+
+    k, dfeat, rounds = 2, 200, 3
+    fits = chain_max_clusters(kernel, k, dfeat, 1, torch.float64)
+    blocks, rows, _ = chain_plan(1, dfeat, fits)
+    j = fits(blocks) + 1
+    kw = dict(dtype=torch.float64, device=cuda_device)
+    out = torch.full((j, dfeat), float("nan"), **kw)
+    if kernel == "dekrr_solve":
+        lay = ops._pad_dekrr_operands("t", *[a.to(cuda_device) for a in to_t(
+            dekrr_case(j, k, dfeat, 1, 0, seed=5))])[2]
+        tensors = lay + (out, None, torch.empty((2, j, dfeat), **kw))
+        sizes = (rounds, j, k, dfeat, 1, j)
+        want = dekrr_solve_reference(*lay, num_rounds=rounds, dy=1)
+    else:
+        g, d, s, p, theta, sent, bufs, nbr_idx, nbr_mask, act, thr = (
+            a.to(cuda_device) for a in to_t(
+                async_case(j, k, dfeat, 1, 0, rounds=rounds, seed=5)))
+        lay = ops._pad_dekrr_operands(
+            "t", g, d, s, p, theta, nbr_idx,
+            torch.arange(j, dtype=torch.int32, device=cuda_device),
+            nbr_mask)[2]
+        raw = lay[:5] + (sent, bufs.reshape(j * k, dfeat), lay[5], lay[7],
+                         act, thr)
+        tensors = raw + (out, torch.empty((j, dfeat), **kw),
+                         torch.empty((j * k, dfeat), **kw), None, None,
+                         torch.empty((2, j, dfeat), **kw),
+                         torch.empty((2 * j,), dtype=torch.int32,
+                                     device=cuda_device))
+        sizes = (rounds, j, k, dfeat, 1, j, 0, 0)   # not censored, bernoulli
+        want = dekrr_async_solve_reference(
+            *raw, censored=False, edge_gossip=False, dy=1)[0]
+    fn = getattr(_build.library(kernel), f"{kernel}_f64")
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    stream = torch.cuda.current_stream().cuda_stream
+    code = fn(*ptrs, *sizes, blocks, rows, j, stream)
+    with pytest.raises(RuntimeError, match="failed with CUDA error"):
+        _build.check(code, kernel)
+    torch.cuda.synchronize()
+    assert torch.isnan(out).all()
+    _build.check(fn(*ptrs, *sizes, *chain_plan(j, dfeat, fits), stream),
+                 kernel)
+    torch.cuda.synchronize()
+    assert_close(out, want.cpu())
 
 
 @pytest.mark.gpu

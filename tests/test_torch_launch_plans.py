@@ -1,8 +1,11 @@
 """The CUDA kernels' launch plans, which stay in Python so the CPU can
 check them: `rff_gram`'s clusters, slices and workspace (and its tiled
 route past the clusters' shared memory), the featurize kernel's tiles,
-and the round kernel's rows per cluster block."""
+the round kernel's rows per cluster block, and the chain kernels'
+clusters (`chain_plan`)."""
 import pytest
+
+from repro_torch.kernels.dekrr_solve import chain_plan
 
 from repro_torch.kernels.dekrr_step import (ROUND_CLUSTER, ROUND_WARPS,
                                              round_plan)
@@ -154,3 +157,69 @@ def test_round_plan_owns_every_row_once(d_feat):
     assert [a for span in spans for a in span] == list(range(d_feat))
     assert all(len(span) for span in spans)
 
+
+
+def _chain_owners(j_nodes, plan):
+    """Node → cluster and row → block maps of a chain launch, as
+    csrc/dekrr_solve.cu and csrc/dekrr_async_solve.cu assign them: cluster
+    q runs nodes q, q + n, ...; block c of a cluster forms rows
+    [c·rows, (c+1)·rows) ∩ [0, D)."""
+    blocks, rows, n_clusters = plan
+    nodes = [j for q in range(n_clusters) for j in range(q, j_nodes,
+                                                         n_clusters)]
+    return nodes, blocks, rows
+
+
+CHAIN_J = [1, 3, 10, 40, 130]
+CHAIN_D = [12, 150, 200, 257, 300]
+CHAIN_CAPS = [1, 4, 16, 132]
+
+
+@pytest.mark.parametrize("j_nodes", CHAIN_J)
+@pytest.mark.parametrize("d_feat", CHAIN_D)
+@pytest.mark.parametrize("cap", CHAIN_CAPS)
+def test_chain_plan_owns_every_node_and_row_once(j_nodes, d_feat, cap):
+    plan = chain_plan(j_nodes, d_feat, lambda _blocks: cap)
+    nodes, blocks, rows = _chain_owners(j_nodes, plan)
+    assert sorted(nodes) == list(range(j_nodes))     # one cluster per node
+    assert 1 <= plan[2] <= min(cap, j_nodes)
+    spans = [range(c * rows, min(d_feat, (c + 1) * rows))
+             for c in range(blocks)]
+    assert [a for span in spans for a in span] == list(range(d_feat))
+    assert 1 <= blocks <= ROUND_CLUSTER
+
+
+@pytest.mark.parametrize("j_nodes", CHAIN_J)
+@pytest.mark.parametrize("d_feat", CHAIN_D)
+@pytest.mark.parametrize("cap", CHAIN_CAPS)
+def test_chain_plan_keeps_the_round_plan_where_a_cluster_fits(j_nodes,
+                                                              d_feat, cap):
+    """A node's rows split over the cluster as one round launch splits
+    them, and the launch takes every cluster it may (up to one per
+    node)."""
+    assert chain_plan(j_nodes, d_feat, lambda _blocks: cap) == round_plan(
+        d_feat) + (min(j_nodes, cap),)
+
+
+@pytest.mark.parametrize("d_feat", CHAIN_D)
+@pytest.mark.parametrize("fits_below", [1, 2, 5])
+def test_chain_plan_shrinks_the_cluster_only_where_none_fits(d_feat,
+                                                             fits_below):
+    """Where no cluster of the round plan's size fits, C shrinks to the
+    largest size that does, its blocks forming more rows, and still owns
+    every row once."""
+    blocks0, _ = round_plan(d_feat)
+    fits = lambda blocks: 3 if blocks <= fits_below else 0   # noqa: E731
+    plan = chain_plan(10, d_feat, fits)
+    blocks, rows, n_clusters = plan
+    assert blocks <= min(blocks0, fits_below) and n_clusters == 3
+    assert -(-d_feat // rows) == blocks and blocks * rows >= d_feat
+    larger = [b for b in range(blocks + 1, blocks0 + 1)
+              if -(-d_feat // -(-d_feat // b)) == b]
+    assert all(b > fits_below for b in larger)      # the largest that fits
+    assert sorted(_chain_owners(10, plan)[0]) == list(range(10))
+
+
+def test_chain_plan_refuses_where_no_cluster_fits():
+    with pytest.raises(RuntimeError, match="no thread-block cluster"):
+        chain_plan(10, 200, lambda _blocks: 0)
