@@ -5,20 +5,24 @@
 1. Card: name and power limit (nvidia-smi), TF32 switched off.
 2. Build: the seven CUDA sources of ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel), with each ``-Xptxas -v`` report,
-   a summary of registers and spills of ``rff_gram``, the round kernel
-   and the two cluster chains (``dekrr_solve``, ``dekrr_async_solve``),
-   ``rff_gram``'s launch plans at the main path's shapes and the chains'
-   ``chain_plan`` at J = 10 and 40.
+   a summary of registers and spills of each kernel of ``rff_gram``
+   (both routes), the round kernel and the three cluster chains
+   (``dekrr_solve``, ``dekrr_async_solve``, ``dekrr_cheb_solve``),
+   ``rff_gram``'s launch plans at the main path's shapes and at F = 600
+   (the wide route) and the chains' ``chain_plan`` at J = 10 and 40.
 3. Kernel phases: each solve-path kernel against its plain PyTorch
    version on the card, at the main path's shapes, in float64 and
    float32, with the invariants that hold bit for bit (``rff_gram``,
-   F = 600 on its tiled route among the shapes: two launches give the
-   same bits and G == Gᵀ exactly; a solve launch
+   F ∈ {561, 600, 1,100} on its wide route in f64 and F ∈ {1,025, 1,100}
+   in f32 among the shapes, F = 600 at B = 10, N = 3,180 in three N
+   chunks: two launches give the same bits and G == Gᵀ exactly; a solve
+   launch
    == round launches; the masked round at all ones == the unmasked one;
    an async-chain launch == masked round launches plus the delivery
-   rule; chunked Chebyshev launches == one launch), and the two cluster
-   chains at J = 40, past the clusters the card holds at once, == round
-   launches bit for bit.
+   rule; chunked Chebyshev launches == one launch), and the three
+   cluster chains at J = 40, past the clusters the card holds at once,
+   == round launches bit for bit (the Chebyshev chain == the scan of
+   round launches with torch's elementwise update, `chebyshev_scan`).
 4. Main path at the paper's full width (Table 2, ``wave``): N = 63,600,
    d = 148, noniid_y over J = 10 nodes of circulant(10, (1, 2)), D_j = 200
    energy-selected DDRF features from D0 = 4,000 candidates per node,
@@ -31,8 +35,8 @@
    cuda_fused == cuda bit for bit, both == torch at rtol 1e-9, one
    edge-gossip run, one tol = 1e-10 run.
 6. Chebyshev acceleration on the same problem: the spectral interval on
-   cuda, then chebyshev_solve_packed on cuda_fused, == cuda at rtol
-   1e-9, and strictly fewer rounds than plain Jacobi to the same error.
+   cuda, then chebyshev_solve_packed on cuda_fused, == cuda bit for bit,
+   and strictly fewer rounds than plain Jacobi to the same error.
 7. The featurize kernel (``rff_features``) against its plain versions:
    f64 and f32 at D = 200, d = 148, N ∈ {8, 64, 512} and a ragged
    D = 37, d = 5, N = 13 (f64 at rtol 1e-9); bf16 (``rff_features_lowp``)
@@ -73,8 +77,10 @@
 12. Kernel times by CUDA events (timed on the device, behind a spin that
    lets the host queue the launches first) beside their plain versions,
    a PyTorch yardstick and the least time the card could take; the
-   featurize kernel at the wave and at one node, and ``rff_gram``'s
-   tiled route at D_j = 600. ``dekrr_solve`` and ``dekrr_async_solve``
+   featurize kernel at the wave and at one node, ``rff_gram``'s wide
+   route at D_j = 600 with its two phases apart (the profiler's device
+   time per kernel), and ``flash_decode`` at the serving cache beside the
+   fastest SDPA call there. ``dekrr_solve`` and ``dekrr_async_solve``
    are timed in turns with their yardsticks (CHAIN_PAIRS pairs, the
    median of each), and each chain's time per round is printed beside
    the round kernel's.
@@ -92,6 +98,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -113,12 +120,15 @@ PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12,
 TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
 # rff_gram's phase (B, F, d, N): the main path's two calls (own blocks,
 # slot blocks), N inside one column tile, ragged 16-row blocks, F past
-# one group of Gram blocks, and F = 600, past the clusters' shared memory
-# in f64 (the tiled route)
+# one group of Gram blocks; F = 561 and 600, past the clusters' shared
+# memory in f64 (the wide route), at B = 10, N = 3,180 in three N chunks
+# of the workspace; F = 1,025 and 1,100, the wide route in f32 too
 GRAM_SHAPES = ((10, 200, 148, 3180), (40, 200, 148, 3180), (2, 200, 148, 21),
-               (3, 70, 13, 300), (2, 330, 21, 700), (2, 600, 148, 700))
-# the tiled route timed at the main path's own-block call with D_j = 600
-GRAM_TILED_TIMING = (10, 600, 148, 3180)
+               (3, 70, 13, 300), (2, 330, 21, 700), (3, 561, 148, 333),
+               (2, 600, 148, 700), (10, 600, 148, 3180), (1, 1025, 148, 700),
+               (1, 1100, 148, 700))
+# the wide route timed at the main path's own-block call with D_j = 600
+GRAM_WIDE_TIMING = (10, 600, 148, 3180)
 SPIN_CYCLES = 20_000_000    # ~10 ms at the H100's ~1.98 GHz SM clock
 
 # The paper's Table 2 `wave` setting.
@@ -257,15 +267,29 @@ def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
                                  else "operations")
 
 
+def kernel_name(mangled: str) -> str:
+    """``name<f64>`` of a kernel template's mangled entry name
+    (``_ZN<len><namespace><len><name>I{d,f}E...``)."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled
+    name = rest[m.end():m.end() + int(m.group(1))]
+    kind = {"IdE": "f64", "IfE": "f32"}.get(
+        rest[m.end() + int(m.group(1)):][:3])
+    return f"{name}<{kind}>" if kind else name
+
+
 def ptxas_summary(report: str) -> list[str]:
     """Registers, spills and static shared memory of each kernel entry in
     an ``nvcc -Xptxas -v`` report, one line per entry."""
     out, name = [], None
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            name = line.split("'")[1]
-            name = "f64" if "IdE" in name else "f32" if "IfE" in name \
-                else name
+            name = kernel_name(line.split("'")[1])
         elif "spill stores" in line and name:
             spill = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -460,8 +484,7 @@ def chain_phases() -> dict[str, float]:
     T > J, Dy = 3 and K = 0, with their bit-for-bit invariants. Returns
     the largest f64 error per kernel."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.dekrr_solve import (dekrr_async_solve_reference,
-                                                 dekrr_cheb_solve_reference)
+    from repro_torch.kernels.dekrr_solve import dekrr_async_solve_reference
     from repro_torch.kernels.dekrr_step import dekrr_step_masked_reference
 
     errs = {"dekrr_step_masked": 0.0, "dekrr_async_solve": 0.0,
@@ -536,34 +559,12 @@ def chain_phases() -> dict[str, float]:
             betas = 0.3 * torch.rand((rounds,), **kw)
             c_args = (g, d, s, p, theta, delta, nbr_idx, self_idx, nbr_mask,
                       alphas, betas)
-            got = ops.dekrr_cheb_solve(*c_args, trace=True)
-            w = dekrr_cheb_solve_reference(
-                *lay[:5], ops._flatten_dy(delta), *lay[5:], alphas, betas,
-                dy=dy, trace=True)
-            want = (ops._unflatten_dy(w[0], dy, ndim),
-                    ops._unflatten_dy(w[1], dy, ndim), w[2])
-            torch.cuda.synchronize()
-            for what, a, b in zip(("θ", "p", "res"), got, want):
-                note("dekrr_cheb_solve",
-                     compare(f"dekrr_cheb_solve {what} {case}", a, b, dtype))
+            note("dekrr_cheb_solve", _check_cheb_chain(c_args, dy, case))
             if t_rows == J_NODES:
-                # chunked launches == one launch, bit for bit
                 ident = torch.arange(J_NODES, dtype=torch.int32,
                                      device="cuda")
-                c_args = c_args[:7] + (ident,) + c_args[8:]
-                whole = ops.dekrr_cheb_solve(*c_args, trace=True)
-                first = ops.dekrr_cheb_solve(*c_args[:9], alphas[:3],
-                                             betas[:3], trace=True)
-                rest = ops.dekrr_cheb_solve(*c_args[:4], first[0], first[1],
-                                            *c_args[6:9], alphas[3:],
-                                            betas[3:], trace=True)
-                torch.cuda.synchronize()
-                if not (torch.equal(rest[0], whole[0])
-                        and torch.equal(rest[1], whole[1])
-                        and torch.equal(torch.cat([first[2], rest[2]]),
-                                        whole[2])):
-                    raise PhaseError(f"dekrr_cheb_solve chunked ≠ unchunked "
-                                     f"bit for bit ({case})")
+                note("dekrr_cheb_solve", _check_cheb_chain(
+                    c_args[:7] + (ident,) + c_args[8:], dy, case))
         # the async chain at J past the clusters the card holds at once
         a_args = async_operands(J_LOOPED, 4, D_PER_NODE, 1, J_LOOPED, dtype,
                                 rounds, seed=J_LOOPED)
@@ -579,8 +580,62 @@ def chain_phases() -> dict[str, float]:
             raise PhaseError(f"dekrr_async_solve broadcast flags differ "
                              f"({case})")
         _check_async_scanned(got, a_args, "bernoulli", True, case)
+        # the Chebyshev chain at J past the clusters the card holds at once
+        g, d, s, p, theta, nbr_idx, _, nbr_mask = dekrr_operands(
+            J_LOOPED, 4, D_PER_NODE, 1, J_LOOPED, dtype, seed=J_LOOPED + 1)
+        gen = torch.Generator(device="cuda").manual_seed(J_LOOPED + 2)
+        kw = dict(dtype=dtype, device="cuda", generator=gen)
+        c_args = (g, d, s, p, theta, torch.randn(tuple(d.shape), **kw),
+                  nbr_idx, torch.arange(J_LOOPED, device="cuda",
+                                        dtype=torch.int32), nbr_mask,
+                  0.5 + torch.rand((rounds,), **kw),
+                  0.3 * torch.rand((rounds,), **kw))
+        note("dekrr_cheb_solve",
+             _check_cheb_chain(c_args, 1, f"J={J_LOOPED} {dtype}"))
         print(f"chain kernel phases {dtype}: pass", flush=True)
     return errs
+
+
+def _check_cheb_chain(c_args, dy: int, case: str) -> float:
+    """The Chebyshev chain against its plain version; where self_idx is
+    the identity over T = J rows, also chunked launches == one launch and
+    == `chebyshev_scan` over round launches (the per-round `cuda`
+    backend's arithmetic), bit for bit. Returns the largest error."""
+    from repro_torch.core.acceleration import chebyshev_scan
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dekrr_solve import dekrr_cheb_solve_reference
+
+    g, d, s, p, theta, delta, nbr_idx, self_idx, nbr_mask, al, be = c_args
+    dtype, ndim, j_nodes = d.dtype, d.ndim, d.shape[0]
+    lay = _raw_layout((g, d, s, p, theta, nbr_idx, self_idx, nbr_mask))
+    got = ops.dekrr_cheb_solve(*c_args, trace=True)
+    w = dekrr_cheb_solve_reference(*lay[:5], ops._flatten_dy(delta),
+                                   *lay[5:], al, be, dy=dy, trace=True)
+    want = (ops._unflatten_dy(w[0], dy, ndim),
+            ops._unflatten_dy(w[1], dy, ndim), w[2])
+    torch.cuda.synchronize()
+    err = max(compare(f"dekrr_cheb_solve {what} {case}", a, b, dtype)
+              for what, a, b in zip(("θ", "p", "res"), got, want))
+    ident = torch.arange(j_nodes, dtype=torch.int32, device="cuda")
+    if theta.shape[0] != j_nodes or not torch.equal(self_idx, ident):
+        return err
+    first = ops.dekrr_cheb_solve(*c_args[:9], al[:3], be[:3], trace=True)
+    rest = ops.dekrr_cheb_solve(*c_args[:4], first[0], first[1],
+                                *c_args[6:9], al[3:], be[3:], trace=True)
+    scanned = chebyshev_scan(
+        lambda th: ops.dekrr_step(g, d, s, p, th, nbr_idx, ident, nbr_mask),
+        theta, al, be, p0=delta, record_deltas=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(rest[0], got[0]) and torch.equal(rest[1], got[1])
+            and torch.equal(torch.cat([first[2], rest[2]]), got[2])):
+        raise PhaseError(f"dekrr_cheb_solve chunked ≠ unchunked bit for bit "
+                         f"({case})")
+    if not (torch.equal(scanned[0], got[0]) and torch.equal(scanned[1], got[1])
+            and torch.equal(scanned[3], got[2].amax(dim=1))):
+        raise PhaseError(f"dekrr_cheb_solve ≠ {al.shape[0]} dekrr_step "
+                         f"launches with chebyshev_scan's update bit for bit "
+                         f"({case})")
+    return err
 
 
 def _check_async_scanned(got, a_args, gossip: str, censored: bool,
@@ -873,8 +928,8 @@ def check_cheb_path(c: dict, run: dict, checks: dict) -> dict:
     theta, trace = c["fused"][0]
     if not torch.isfinite(theta).all():
         raise PhaseError("Chebyshev path produced non-finite values")
-    compare("Chebyshev cuda_fused vs cuda", theta, c["per_round"][0],
-            torch.float64)
+    if not torch.equal(theta, c["per_round"][0]):
+        raise PhaseError("Chebyshev cuda_fused ≠ cuda bit for bit")
     err = _exact_err(run, checks, theta)
     if not err <= checks["exact_bound"]:
         raise PhaseError(f"Chebyshev iterate is {err:.3e} from solve_exact, "
@@ -1603,16 +1658,42 @@ def feature_timings(run: dict) -> list[dict]:
     return [f64[0], lowp[0], f64[1], lowp[1]]
 
 
-def gram_tiled_timing() -> dict:
-    """rff_gram's tiled route (F past the clusters' shared memory) at
-    GRAM_TILED_TIMING in f64, by CUDA events, beside its plain version,
-    the `cos(baddbmm)` + `bmm` yardstick and its bound (the projection and
-    the upper triangle)."""
+def profiled_ms(fn, kernels, calls: int = 5) -> dict[str, float]:
+    """Device ms per call of fn of each kernel whose name holds one of
+    `kernels`, summed over its launches, by torch.profiler; empty where
+    the profiler records no device time."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except Exception as exc:                      # the profiler is optional
+        print(f"profiler: not recorded ({type(exc).__name__})")
+        return {}
+    out = {}
+    for e in events:
+        us = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        for kernel in kernels:
+            if kernel in e.key and us > 0:
+                out[kernel] = out.get(kernel, 0.0) + us / 1e3 / calls
+    return out
+
+
+def gram_wide_timing() -> dict:
+    """rff_gram's wide route (F past the clusters' shared memory) at
+    GRAM_WIDE_TIMING in f64, by CUDA events, beside its plain version, the
+    `cos(baddbmm)` + `bmm` yardstick and its bound (the projection and the
+    upper triangle); and its two phases apart, the Z launches and the Gram
+    launches of one call, by the profiler's device time per kernel."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.rff_gram import (gram_plan,
                                               rff_gram_batched_reference)
 
-    b, f, dim, n = GRAM_TILED_TIMING
+    b, f, dim, n = GRAM_WIDE_TIMING
     args = gram_operands(b, f, dim, n, torch.float64, seed=f)
     plan = gram_plan(b, f, dim, n, item=8)
     n_live = args[4].sum().item()
@@ -1624,12 +1705,14 @@ def gram_tiled_timing() -> dict:
         z = torch.cos(torch.baddbmm(bi[..., None], om, x)) * cm[:, None]
         return z @ z.transpose(1, 2), (z @ y[..., None])[..., 0]
 
-    return dict(shape=GRAM_TILED_TIMING, blocks=plan.ctas,
+    phases = profiled_ms(lambda: ops.rff_gram_batched(*args),
+                         ("rff_gram_z_kernel", "rff_gram_wide_kernel"))
+    return dict(shape=GRAM_WIDE_TIMING, plan=plan,
                 ms=cuda_ms(lambda: ops.rff_gram_batched(*args), reps=5),
                 plain_ms=cuda_ms(lambda: rff_gram_batched_reference(*args),
                                  reps=5),
                 library_ms=cuda_ms(lambda: library(*args), reps=5),
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by, phases=phases)
 
 
 # ------------------------------------------------------------ decode attention
@@ -1820,13 +1903,13 @@ def check_llm_path(llm: dict, cfg, on_card: bool) -> None:
     llm.update(tokens=n_tokens, rel=rel)
 
 
-def sdpa_yardsticks(q, k, v, want) -> dict:
+def sdpa_yardsticks(q, k, v, want, cur: int) -> dict:
     """PyTorch's scaled_dot_product_attention computing the kernel's
-    function at cur = S on the same cache views ([B, S, K, dh] transposed
-    to [B, K, S, dh], no copy): the call with the length mask and
-    enable_gqa, and the plain call (the mask is all true and H = K here),
+    function at cur on the same cache views ([B, S, K, dh] transposed to
+    [B, K, S, dh], no copy): the call with the length mask and
+    enable_gqa, and the plain call on the views up to cur (H = K here),
     each under every SDPA backend that takes it, beside the plain call on
-    contiguous [B, K, S, dh] copies (another layout, timed for reference
+    contiguous [B, K, cur, dh] copies (another layout, timed for reference
     only). Only calls within DECODE_TOL·(1 + |want|) of `want` count.
     Returns {"ms": fastest on the same inputs, "call": its label, "table":
     {label: {backend: ms}}, "default": {label: kernels the default
@@ -1837,12 +1920,13 @@ def sdpa_yardsticks(q, k, v, want) -> dict:
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     s = k.shape[1]
-    mask = (torch.arange(s, device="cuda") < s)[None, None, None, :]
+    mask = (torch.arange(s, device="cuda") < cur)[None, None, None, :]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    k_cur, v_cur = kt[:, :, :cur], vt[:, :, :cur]
     calls = {
         "views, mask, enable_gqa": lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True),
-        "views": lambda: F.scaled_dot_product_attention(qt, kt, vt),
+        "views": lambda: F.scaled_dot_product_attention(qt, k_cur, v_cur),
     }
     backends = [getattr(SDPBackend, n) for n in (
         "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
@@ -1888,7 +1972,7 @@ def sdpa_yardsticks(q, k, v, want) -> dict:
     default = {label: default_kernels(fn) for label, fn in calls.items()}
     best = min(((ms, f"{label} [{be}]") for label, row in same.items()
                 for be, ms in row.items()), default=(float("nan"), "none"))
-    qc, kc, vc = qt.contiguous(), kt.contiguous(), vt.contiguous()
+    qc, kc, vc = qt.contiguous(), k_cur.contiguous(), v_cur.contiguous()
     same.update(table({"contiguous copies": lambda: (
         F.scaled_dot_product_attention(qc, kc, vc))}))
     return dict(ms=best[0], call=best[1], table=same, default=default)
@@ -1898,8 +1982,8 @@ def decode_timings() -> list[dict]:
     """The decode-attention kernel by CUDA events at DECODE_TIMING (the
     registry's decode_32k length, cur = S), beside its plain version and
     the fastest scaled_dot_product_attention call on the same inputs
-    (`sdpa_yardsticks`); and the kernel alone at the serving cache
-    (S = LLM_MAX_SEQ)."""
+    (`sdpa_yardsticks`); and at the serving cache (S = LLM_MAX_SEQ, cur a
+    quarter of it and all of it) beside the fastest SDPA call there."""
     from repro_torch.kernels.decode_attention import (flash_decode_cuda,
                                                       flash_decode_reference)
 
@@ -1918,10 +2002,14 @@ def decode_timings() -> list[dict]:
     q, k, v, lens, out, (bms, by), ms = kernel_ms(b, h, kh, dh, s, s)
     plain_ms = cuda_ms(lambda: flash_decode_reference(q, k, v, lens),
                        reps=5, warmup=1)
-    sdpa = sdpa_yardsticks(q, k, v, out)
+    sdpa = sdpa_yardsticks(q, k, v, out, s)
     del q, k, v, out
-    serving = {cur: kernel_ms(LLM_BATCH, 16, 16, 64, LLM_MAX_SEQ, cur)[-2:]
-               for cur in (LLM_MAX_SEQ // 4, LLM_MAX_SEQ)}
+    serving = {}
+    for cur in (LLM_MAX_SEQ // 4, LLM_MAX_SEQ):
+        sq, sk, sv, _, s_out, s_bound, s_ms = kernel_ms(
+            LLM_BATCH, 16, 16, 64, LLM_MAX_SEQ, cur)
+        serving[cur] = (s_bound, s_ms,
+                        sdpa_yardsticks(sq, sk, sv, s_out, cur))
     return [dict(name="flash_decode", route="cuda",
                  source="src/repro_torch/kernels/csrc/flash_decode.cu",
                  replaces="src/repro/kernels/decode_attention.py:73",
@@ -2001,15 +2089,17 @@ def run_on_card() -> int:
           f"(sources {_build.source_hash()})")
     for src, text in reports.items():
         print(f"--- ptxas {src} ---\n{text.strip()}")
-    for src in ("rff_gram", "dekrr_step", "dekrr_solve", "dekrr_async_solve"):
+    for src in ("rff_gram", "dekrr_step", "dekrr_solve", "dekrr_async_solve",
+                "dekrr_cheb_solve"):
         for line in ptxas_summary(reports[src]):
             print(f"ptxas {src}: {line}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"rff_gram plan at B = {J_NODES}, {4 * J_NODES}: " + "; ".join(
-        str(gram_plan(b, D_PER_NODE, 148, 3180,
-                      sms=torch.cuda.get_device_properties(0)
-                      .multi_processor_count))
+        str(gram_plan(b, D_PER_NODE, 148, 3180, sms=sms))
         for b in (J_NODES, 4 * J_NODES)))
-    for src in ("dekrr_solve", "dekrr_async_solve"):
+    print(f"rff_gram plan at (B, F, d, N) = {GRAM_WIDE_TIMING}: "
+          f"{gram_plan(*GRAM_WIDE_TIMING, sms=sms)}")
+    for src in ("dekrr_solve", "dekrr_async_solve", "dekrr_cheb_solve"):
         fits = chain_max_clusters(src, 4, D_PER_NODE, 1, torch.float64)
         print(f"chain_plan {src} f64 (C, rows per block, clusters) at K = 4, "
               f"D = {D_PER_NODE}: " + "; ".join(
@@ -2130,12 +2220,18 @@ def run_on_card() -> int:
         flash_decode=llm["launches"]["flash_decode"], **serve_launches)
     rows = timings(run["packed"], run) + chain_timings(run, a, c) \
         + feature_timings(run) + decode_timings()
-    tiled = gram_tiled_timing()
-    print(f"time [{card}] rff_gram tiled route at (B, F, d, N)="
-          f"{tiled['shape']} f64 ({tiled['blocks']} blocks): "
-          f"{tiled['ms']:.4f} ms, plain {tiled['plain_ms']:.4f} ms, torch "
-          f"yardstick {tiled['library_ms']:.4f} ms, bound "
-          f"{tiled['bound_ms']:.4f} ms ({tiled['bound_by']})")
+    wide = gram_wide_timing()
+    plan = wide["plan"]
+    print(f"time [{card}] rff_gram wide route at (B, F, d, N)="
+          f"{wide['shape']} f64 ({-(-wide['shape'][0] // plan.batch)} "
+          f"passes × {plan.chunks} N chunks of {plan.cols} columns, "
+          f"{plan.ctas} Gram blocks a launch): {wide['ms']:.4f} ms, plain "
+          f"{wide['plain_ms']:.4f} ms, torch yardstick "
+          f"{wide['library_ms']:.4f} ms, bound {wide['bound_ms']:.4f} ms "
+          f"({wide['bound_by']}); phases by the profiler's device time per "
+          f"call: " + (", ".join(f"{k} {v:.4f} ms"
+                                 for k, v in wide["phases"].items())
+                       or "not recorded"))
     for r in rows:
         if "per_node_ms" in r:
             print(f"time [{card}] {r['name']} (J={J_NODES}, D={D_PER_NODE}, "
@@ -2149,9 +2245,11 @@ def run_on_card() -> int:
           f"backend that agreed (ms): {json.dumps(sdpa['table'])}; kernels "
           f"of the default dispatch: {json.dumps(sdpa['default'])}")
     print(f"time [{card}] flash_decode at the serving cache (B={LLM_BATCH}, "
-          f"H=K=16, dh=64, S={LLM_MAX_SEQ}): "
-          + ", ".join(f"cur={cur}: {ms:.4f} ms (bound {bound[0]:.4f} ms)"
-                      for cur, (bound, ms) in serving.items()))
+          f"H=K=16, dh=64, S={LLM_MAX_SEQ}): " + "; ".join(
+              f"cur={cur}: {ms:.4f} ms (bound {bound[0]:.4f} ms; the "
+              f"fastest SDPA call {yard['call']} {yard['ms']:.4f} ms, every "
+              f"backend that agreed (ms): {json.dumps(yard['table'])})"
+              for cur, (bound, ms, yard) in serving.items()))
     per_round = {r["name"]: r["ms"] / r.pop("rounds") for r in rows
                  if "rounds" in r}
     step_ms = next(r["ms"] for r in rows if r["name"] == "dekrr_step")

@@ -55,18 +55,20 @@ SIGNATURES = {
         "dekrr_async_solve_max_clusters_f32": [_I] * 4,
     },
     "dekrr_cheb_solve": {
-        "dekrr_cheb_solve_f64": [_P] * 15 + [_I] * 6 + [_P],
-        "dekrr_cheb_solve_f32": [_P] * 15 + [_I] * 6 + [_P],
-        "dekrr_cheb_solve_max_blocks_f64": [_I] * 3,
-        "dekrr_cheb_solve_max_blocks_f32": [_I] * 3,
+        "dekrr_cheb_solve_f64": [_P] * 15 + [_I] * 9 + [_P],
+        "dekrr_cheb_solve_f32": [_P] * 15 + [_I] * 9 + [_P],
+        "dekrr_cheb_solve_max_clusters_f64": [_I] * 4,
+        "dekrr_cheb_solve_max_clusters_f32": [_I] * 4,
     },
     "rff_gram": {
         "rff_gram_f64": [_P] * 9 + [_I] * 4 + [ctypes.c_double]
         + [_I] * 7 + [_P],
         "rff_gram_f32": [_P] * 9 + [_I] * 4 + [ctypes.c_double]
         + [_I] * 7 + [_P],
-        "rff_gram_tiled_f64": [_P] * 7 + [_I] * 4 + [ctypes.c_double, _P],
-        "rff_gram_tiled_f32": [_P] * 7 + [_I] * 4 + [ctypes.c_double, _P],
+        "rff_gram_wide_f64": [_P] * 8 + [_I] * 4 + [ctypes.c_double]
+        + [_I] * 2 + [_P],
+        "rff_gram_wide_f32": [_P] * 8 + [_I] * 4 + [ctypes.c_double]
+        + [_I] * 2 + [_P],
     },
     "rff_features": {
         "rff_features_f64": [_P] * 6 + [_I] * 8 + [_P],

@@ -24,23 +24,16 @@
 // contraction axis (S first, then the live P blocks in slot order), then
 // warp_sum's shuffle tree, then d + sum (`eq19_acc_row`, `eq19_out_row`).
 // The bits of a row therefore do not depend on which warp, block or
-// cluster computes it. Two node bodies run the rows:
-//   - `eq19_node_cluster`: a node's rows spread over a thread-block
-//     cluster, acc passed between the phases through distributed shared
-//     memory. The round kernel, the multi-round solve and the async chain
-//     run it.
-//   - `eq19_node_rows`: a whole node in one block of kThreads threads. The
-//     Chebyshev chain runs it, in the cooperative launch at the end.
-// Both give the same bits. Masked slots are skipped: their P blocks are
-// zero and are not read.
+// cluster computes it. `eq19_node_cluster` spreads a node's rows over a
+// thread-block cluster, acc passed between the phases through distributed
+// shared memory; every kernel above runs it. Masked slots are skipped:
+// their P blocks are zero and are not read.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace dekrr {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kDyChunk = 4;  // output columns accumulated per pass over a row
 // Warps of a cluster block (eq19_node_cluster). A row's bits do not depend on
 // which warp forms it; at the paper's D = 200 a cluster of 7 such blocks
@@ -183,66 +176,6 @@ __device__ __forceinline__ T eq19_out_row(int a, const T* __restrict__ g_j,
   return local;
 }
 
-// Node j's update by one block, from an explicit own row block and
-// neighbour row blocks. `smem` holds node_smem_elems(K, D, Dy) elements; on
-// return its first Dy*D elements still hold the staged own rows
-// θ_self(j). Returns this thread's share of max |out_j - θ_self(j)| (reduce
-// over the block for the node's residual). Ends with a block barrier, so
-// the caller may read out_rows and the staged own rows at once; it must
-// barrier again before the next call reuses smem.
-//
-// The arithmetic after staging does not depend on where the rows came
-// from, so every kernel that calls this with the same row values gets the
-// same bits.
-template <typename T, typename NbrRows>
-__device__ T eq19_node_rows(int j, const T* __restrict__ g,
-                            const T* __restrict__ d, const T* __restrict__ s,
-                            const T* __restrict__ p, const T* self_src,
-                            NbrRows nbr_rows, const int* __restrict__ nbr_mask,
-                            T* out_rows, T* smem, int K, int D, int Dy) {
-  const size_t rows = static_cast<size_t>(Dy) * D;
-  const size_t dd = static_cast<size_t>(D) * D;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  T* th = smem;                          // [(1 + K), Dy, D]
-  T* acc = smem + (K + 1) * rows;        // [Dy, D]
-  const int* mask_j = nbr_mask + static_cast<size_t>(j) * K;
-
-  stage_theta(th, self_src, nbr_rows, mask_j, K, rows, threadIdx.x,
-              blockDim.x);
-  __syncthreads();
-
-  const T* s_j = s + j * dd;
-  const T* p_j = p + static_cast<size_t>(j) * K * dd;
-  const T* d_j = d + j * rows;
-  for (int a = warp; a < D; a += kWarps)
-    eq19_acc_row(a, s_j, p_j, d_j, mask_j, th, acc, K, D, Dy, lane);
-  __syncthreads();
-
-  const T* g_j = g + j * dd;
-  T local = T(0);
-  for (int a = warp; a < D; a += kWarps)
-    local = eq19_out_row(a, g_j, acc, th, out_rows, local, D, Dy, lane);
-  __syncthreads();
-  return local;
-}
-
-// Node j's update with its rows read from the θ table through the slot
-// tables (layout at the top of this file).
-template <typename T>
-__device__ T eq19_node(int j, const T* __restrict__ g, const T* __restrict__ d,
-                       const T* __restrict__ s, const T* __restrict__ p,
-                       const T* table, const int* __restrict__ nbr_idx,
-                       const int* __restrict__ self_idx,
-                       const int* __restrict__ nbr_mask, T* out_rows, T* smem,
-                       int K, int D, int Dy) {
-  const size_t rows = static_cast<size_t>(Dy) * D;
-  return eq19_node_rows<T>(
-      j, g, d, s, p, table + static_cast<size_t>(self_idx[j]) * rows,
-      TableRows<T>{table, nbr_idx + static_cast<size_t>(j) * K, rows},
-      nbr_mask, out_rows, smem, K, D, Dy);
-}
-
 // Node j's update by one thread-block cluster (every block of it calls
 // this with the same arguments). Block `rank` of the cluster forms rows
 // [rank·R, (rank+1)·R) ∩ [0, D) (R = rows_per_cta, at least D over the
@@ -364,68 +297,6 @@ __device__ void cluster_max(cooperative_groups::cluster_group& cluster,
     for (int c = 1; c < C; ++c) m = fmax(m, red.part[set][c][i]);
     v[i] = m;
   }
-}
-
-// Block-wide max of each thread's `v`, returned to every thread, so the
-// block may branch on it as one. `red` is kWarps elements of shared
-// memory. Every thread of the block must call it (two block barriers).
-template <typename T>
-__device__ T block_max(T v, T* red) {
-  v = warp_max(v);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  T m = red[0];
-  for (int w = 1; w < kWarps; ++w) m = fmax(m, red[w]);
-  __syncthreads();
-  return m;
-}
-
-// Dynamic shared memory above 48 KB must be opted into per kernel.
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// Co-resident blocks of a cooperative kernel on this device with `smem`
-// bytes of dynamic shared memory, 0 when the device cannot launch
-// cooperatively, or a negative CUDA error code.
-template <typename Kernel>
-inline int coop_max_blocks(Kernel kernel, size_t smem) {
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return -static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) !=
-      cudaSuccess)
-    return -static_cast<int>(err);
-  if (!coop) return 0;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return -static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                      smem);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return per_sm * sms;
-}
-
-// One cooperative launch of `kernel` over min(J, co-resident cap) blocks of
-// kThreads threads (each block loops over nodes j = blockIdx.x, + gridDim.x,
-// ...): the Chebyshev chain's launch. Returns a CUDA error code, 0 on
-// success.
-template <typename Kernel>
-inline int coop_launch(Kernel kernel, int J, size_t smem, void** args,
-                       void* stream) {
-  const int cap = coop_max_blocks(kernel, smem);
-  if (cap < 0) return -cap;
-  if (cap == 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  dim3 grid(J < cap ? J : cap);
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(kernel), grid, dim3(kThreads), args, smem,
-      static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace dekrr

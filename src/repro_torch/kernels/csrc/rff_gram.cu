@@ -51,18 +51,29 @@
 // triangle into Q groups whose clusters each recompute Z. f32 runs the
 // same tiling with the products on the FP32 units (FMA, no TF32).
 //
-// A second, plainer route takes F past what a cluster's shared memory
-// holds (560 features in f64, 1,024 in f32; gram_plan picks it there):
-// rff_gram_tiled_kernel, one 256-thread block per 32×32 tile (I ≤ J) of
-// G's upper triangle and problem. It walks all N in 32-column steps,
-// forms the Z rows of tiles I and J (Ω and X streamed through shared
-// memory in 32-deep chunks, the projection by FMA on the vector units,
-// the accurate cos: every cosine is recomputed once per tile of its row),
-// and sums their products in registers in column order; diagonal blocks
-// also form zy. Each entry of G is summed by one block and written to
-// G[i][j] and G[j][i] from one value: no atomics, no workspace, G == Gᵀ
-// exactly and the same bits from run to run. Its cost grows with F²·d·N
-// on the vector units; it exists so that no F is refused.
+// A second route takes F past what a cluster's shared memory holds (560
+// features in f64, 1,024 in f32; kernels/rff_gram.py::gram_plan picks it
+// there, as a WideGramPlan). It stores Z instead of re-forming it: per
+// pass of `batch` problems and chunk of `cols` columns of N (the plan
+// keeps the workspace [batch, F_pad, cols] within its cap), two launches:
+//
+// * rff_gram_z_kernel forms each Z entry of the chunk ONCE: one 256-thread
+//   block per 64×64 tile of Z, Ω and X streamed through shared memory in
+//   32-deep chunks by cp.async (two in a ring), the projection on the FP64
+//   tensor cores (mma.sync m16n8k16 .f64, a 32×16 tile a warp, fragments
+//   reused across its 2×2 mma tiles), then scale·cos(P + b)·mask with the
+//   accurate cos into the workspace (zero past F and the chunk's columns).
+// * rff_gram_wide_kernel takes one 256-thread block per 64×64 tile (I ≤ J)
+//   of G's upper triangle and problem, streams the Z panels of its two row
+//   ranges (one on the diagonal) through a ring of three 32-column stages
+//   by cp.async, accumulates Z_I Z_Jᵀ on the FP64 tensor cores, and forms
+//   zy on the diagonal tiles. Each entry of G is summed by one block and
+//   written to G[i][j] and G[j][i] from one value; a later chunk adds its
+//   sum to what the earlier chunks left (in chunk order).
+//
+// No atomics and no float reduction across blocks: G == Gᵀ exactly and
+// the same bits from run to run. f32 runs the same tiling with the
+// products on the FP32 units (mma16x8x16's FMA twin, no TF32).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -115,11 +126,26 @@ __host__ __device__ inline size_t gram_smem_bytes(int F, int dim, int C,
          elem;
 }
 
-// c += A·B for a 16×8 (m×n) tile over k = 16 on the FP64 tensor cores:
-// A(m, k) = a[m·am + k·ak], B(k, n) = b[k·bk + n·bn]. c is the lane's share
-// in the mma layout: rows g, g, g+8, g+8 and columns 2t, 2t+1, 2t, 2t+1
-// (g = lane/4, t = lane%4); the lane holds A at rows g + 8·(i % 2), columns
-// t + 4·(i / 2), and B at rows t + 4·i, column g.
+// c += A·B for a 16×8 (m×n) tile over k = 16 on the FP64 tensor cores. c
+// is the lane's share in the mma layout: rows g, g, g+8, g+8 and columns
+// 2t, 2t+1, 2t, 2t+1 (g = lane/4, t = lane%4); the lane holds A at rows
+// g + 8·(i % 2), columns t + 4·(i / 2) (av[i]), and B at rows t + 4·i,
+// column g (bv[i]).
+__device__ __forceinline__ void dmma16x8x16(double (&c)[4],
+                                            const double (&av)[8],
+                                            const double (&bv)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(av[0]), "d"(av[1]), "d"(av[2]), "d"(av[3]), "d"(av[4]),
+        "d"(av[5]), "d"(av[6]), "d"(av[7]), "d"(bv[0]), "d"(bv[1]),
+        "d"(bv[2]), "d"(bv[3]));
+}
+
+// The same with A(m, k) = a[m·am + k·ak] and B(k, n) = b[k·bk + n·bn]
+// loaded from memory.
 __device__ __forceinline__ void mma16x8x16(double (&c)[4], const double* a,
                                            int am, int ak, const double* b,
                                            int bk, int bn, int lane) {
@@ -130,14 +156,7 @@ __device__ __forceinline__ void mma16x8x16(double (&c)[4], const double* a,
     av[i] = a[(g + 8 * (i % 2)) * am + (t + 4 * (i / 2)) * ak];
 #pragma unroll
   for (int i = 0; i < 4; ++i) bv[i] = b[(t + 4 * i) * bk + g * bn];
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
-      "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
-      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-      : "d"(av[0]), "d"(av[1]), "d"(av[2]), "d"(av[3]), "d"(av[4]),
-        "d"(av[5]), "d"(av[6]), "d"(av[7]), "d"(bv[0]), "d"(bv[1]),
-        "d"(bv[2]), "d"(bv[3]));
+  dmma16x8x16(c, av, bv);
 }
 
 // The same product in f32 on the FP32 units, k in order.
@@ -213,9 +232,15 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// Wait until at most kStages − 2 committed groups are pending.
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+// Wait until at most N committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 16-byte copies where every row starts on a 16-byte boundary.
+__device__ __forceinline__ bool aligned16(const void* ptr, size_t row_bytes) {
+  return reinterpret_cast<size_t>(ptr) % 16 == 0 && row_bytes % 16 == 0;
 }
 
 // (bi, bj) of upper-triangle block `idx` (row-major, bi ≤ bj < nb).
@@ -303,14 +328,11 @@ rff_gram_kernel(const T* __restrict__ omega, const T* __restrict__ bias,
       for (int e = 0; e < 4; ++e) gacc[i][h][e] = T(0);
   T zy_acc = T(0);
 
-  // 16-byte copies where every row starts on a 16-byte boundary.
-  auto aligned = [](const void* ptr, size_t row_bytes) {
-    return reinterpret_cast<size_t>(ptr) % 16 == 0 && row_bytes % 16 == 0;
-  };
-  const bool xvec = aligned(x, N * sizeof(T)) && aligned(y, N * sizeof(T)) &&
-                    aligned(mask, N * sizeof(T));
-  const bool ovec = aligned(omega, dim * sizeof(T));
-  const bool bvec = aligned(bias, F * sizeof(T));
+  const bool xvec = aligned16(x, N * sizeof(T)) &&
+                    aligned16(y, N * sizeof(T)) &&
+                    aligned16(mask, N * sizeof(T));
+  const bool ovec = aligned16(omega, dim * sizeof(T));
+  const bool bvec = aligned16(bias, F * sizeof(T));
 
   // Each thread's share of a stage's X chunk [kKc][kNc] and of a tile's
   // y and mask, fixed for the launch: chunk e = tid + j·kThreads is row
@@ -384,7 +406,7 @@ rff_gram_kernel(const T* __restrict__ omega, const T* __restrict__ bias,
   int tile = 0, kc = 0;
   for (int st = 0; st < stages; ++st, next(tile, kc)) {
     const int buf = st % kStages;
-    cp_async_wait_ring();
+    cp_async_wait<kStages - 2>();
     __syncthreads();  // chunk st visible; every warp is done with st − 1
     if (st + kStages - 1 < stages) {
       load_stage(ld_tile, ld_kc, (st + kStages - 1) % kStages);
@@ -586,125 +608,277 @@ int launch(const void* omega, const void* bias, const void* x, const void* y,
       static_cast<T>(scale), slices, slice_cols, group_blocks, resident);
 }
 
-// ------------------------------------------------------------ tiled route
-constexpr int kT = 32;  // G tile rows and columns, columns and d per step
+// ------------------------------------------------------------- wide route
+constexpr int kWT = 64;        // Z and G tile rows and columns
+constexpr int kWK = 32;        // depth of a staged chunk (d, or N columns)
+constexpr int kWStages = 3;    // the Gram phase's cp.async ring
+// Row strides ≡ 4 (mod 8) words, as kZs: k-contiguous panels [rows][kWAs]
+// and the X panel [k][kWXs].
+constexpr int kWAs = kWK + 4;
+constexpr int kWXs = kWT + 4;
 
-// Z rows [r0, r0 + kT) of problem b for columns [c0, c0 + kT) into
-// zt[kT][kT + 1]: scale·cos(Ω X + b)·mask, zero past F and N. Thread
-// (ty, tx) of a 16 × 16 layout forms rows ty + 16a, columns tx + 16c,
-// summing d in order.
-template <typename T>
-__device__ void tile_features(T (*zt)[kT + 1], T (*os)[kT + 1],
-                              T (*xs)[kT + 1], const T* om, const T* bi,
-                              const T* xb, const T* ym, int r0, int c0, int F,
-                              int dim, int N, T scale) {
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int lr = tid / kT, lc = tid % kT;
-  T p[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
-  for (int k0 = 0; k0 < dim; k0 += kT) {
-    __syncthreads();  // the previous chunk is no longer read
-#pragma unroll
-    for (int i = 0; i < kT * kT / 256; ++i) {
-      const int r = lr + i * (256 / kT), row = r0 + r, k = k0 + lc;
-      os[r][lc] = row < F && k < dim ? om[static_cast<size_t>(row) * dim + k]
-                                     : T(0);
-      const int kk = k0 + r, col = c0 + lc;
-      xs[r][lc] = kk < dim && col < N ? xb[static_cast<size_t>(kk) * N + col]
-                                      : T(0);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kT; ++k)
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          p[a][c] += os[ty + 16 * a][k] * xs[k][tx + 16 * c];
-  }
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int row = r0 + ty + 16 * a, col = tx + 16 * c;
-      zt[ty + 16 * a][col] =
-          row < F && c0 + col < N ? scale * cos(p[a][c] + bi[row]) * ym[kT + col]
-                                  : T(0);
-    }
+__host__ __device__ constexpr size_t z_smem_bytes(size_t elem) {
+  return (2 * kWT * kWAs + 2 * kWK * kWXs) * elem;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-rff_gram_tiled_kernel(const T* __restrict__ omega, const T* __restrict__ bias,
-                      const T* __restrict__ x, const T* __restrict__ y,
-                      const T* __restrict__ mask, T* __restrict__ gram,
-                      T* __restrict__ zy, int F, int dim, int N, T scale) {
-  __shared__ T zi[kT][kT + 1], zj[kT][kT + 1], os[kT][kT + 1], xs[kT][kT + 1];
-  __shared__ T ym[2 * kT];  // y, mask of the step's columns
-  const int nt = (F + kT - 1) / kT, b = blockIdx.y;
-  int ti, tj;
-  tri_block(blockIdx.x, nt, ti, tj);
-  const bool diag = ti == tj;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const T* om = omega + static_cast<size_t>(b) * F * dim;
-  const T* bi = bias + static_cast<size_t>(b) * F;
-  const T* xb = x + static_cast<size_t>(b) * dim * N;
-  const T* yb = y + static_cast<size_t>(b) * N;
-  const T* mb = mask + static_cast<size_t>(b) * N;
+__host__ __device__ constexpr size_t wide_smem_bytes(size_t elem) {
+  return kWStages * (2 * kWT * kWAs + kWK) * elem;
+}
 
-  T acc[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
-  T zy_acc = T(0);
-  for (int c0 = 0; c0 < N; c0 += kT) {
-    __syncthreads();  // the previous step's tiles are no longer read
-    if (tid < 2 * kT) {
-      const int col = c0 + tid % kT;
-      ym[tid] = col < N ? (tid < kT ? yb : mb)[col] : T(0);
-    }
-    tile_features(zi, os, xs, om, bi, xb, ym, ti * kT, c0, F, dim, N, scale);
+// c[m][n] += A·B over k = 16 for a warp's 2×2 grid of 16×8 tiles:
+// A(row, k) = a[row·am + k·ak] (tile m at rows m·16), B(k, col) =
+// b[k·bk + col·bn] (tile n at columns n·8). In f64 each fragment is
+// loaded once and feeds the tensor cores twice.
+template <int MT, int NT>
+__device__ __forceinline__ void warp_mma(double (&c)[MT][NT][4],
+                                         const double* a, int am, int ak,
+                                         const double* b, int bk, int bn,
+                                         int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  double av[MT][8], bv[NT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      av[m][i] = a[(m * 16 + g + 8 * (i % 2)) * am + (t + 4 * (i / 2)) * ak];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      bv[n][i] = b[(t + 4 * i) * bk + (n * 8 + g) * bn];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) dmma16x8x16(c[m][n], av[m], bv[n]);
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void warp_mma(float (&c)[MT][NT][4],
+                                         const float* a, int am, int ak,
+                                         const float* b, int bk, int bn,
+                                         int lane) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      mma16x8x16(c[m][n], a + m * 16 * am, am, ak, b + n * 8 * bn, bk, bn,
+                 lane);
+}
+
+// Phase 1: Z[b, F_pad, cols] of columns [c_base, c_base + width) of N,
+// one block per 64×64 tile (grid (⌈width/64⌉, F_pad/64, batch)). Warp w
+// forms rows (w / 4)·32 … + 31, columns (w % 4)·16 … + 15 of the tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+rff_gram_z_kernel(const T* __restrict__ omega, const T* __restrict__ bias,
+                  const T* __restrict__ x, const T* __restrict__ mask,
+                  T* __restrict__ z, int F, int dim, int N, int c_base,
+                  int width, int f_pad, int cols, T scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* os = reinterpret_cast<T*>(smem_raw);  // [2][kWT][kWAs]  Ω rows
+  T* xs = os + 2 * kWT * kWAs;             // [2][kWK][kWXs]  X columns
+  const int b = blockIdx.z, r0 = blockIdx.y * kWT, c0 = blockIdx.x * kWT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, wr = warp >> 2, wc = warp & 3;
+  const T* om = omega + static_cast<size_t>(b) * F * dim;
+  const T* xb = x + static_cast<size_t>(b) * dim * N + c_base + c0;
+  const bool ovec = aligned16(om, dim * sizeof(T));
+  const bool xvec = aligned16(xb, N * sizeof(T));
+  const int kchunks = (dim + kWK - 1) / kWK;
+
+  // chunk kc of Ω's rows [r0, r0 + 64) and X's columns [c0, c0 + 64),
+  // zero past F, d and the chunk's width
+  auto load = [&](int kc, int buf) {
+    const int k0 = kc * kWK;
+    copy_rows(os + buf * kWT * kWAs, kWAs,
+              om + static_cast<size_t>(r0) * dim + k0, dim, kWT, F - r0, kWK,
+              dim - k0, ovec);
+    copy_rows(xs + buf * kWK * kWXs, kWXs, xb + static_cast<size_t>(k0) * N,
+              N, kWK, dim - k0, kWT, width - c0, xvec);
+  };
+
+  T acc[2][2][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = T(0);
+  load(0, 0);
+  cp_async_commit();
+  for (int kc = 0; kc < kchunks; ++kc) {
+    if (kc + 1 < kchunks) load(kc + 1, (kc + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // chunk kc visible to every warp
+    const T* oa = os + (kc & 1) * kWT * kWAs + wr * 32 * kWAs;
+    const T* xa = xs + (kc & 1) * kWK * kWXs + wc * 16;
+#pragma unroll
+    for (int ks = 0; ks < kWK / 16; ++ks)
+      warp_mma(acc, oa + ks * 16, kWAs, 1, xa + ks * 16 * kWXs, kWXs, 1,
+               lane);
+    __syncthreads();  // every warp is done with the slot refilled next
+  }
+
+  T* zb = z + static_cast<size_t>(b) * f_pad * cols;
+  const T* bi = bias + static_cast<size_t>(b) * F;
+  const T* mb = mask + static_cast<size_t>(b) * N + c_base;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + wr * 32 + m * 16 + g + (e >= 2 ? 8 : 0);
+        const int col = c0 + wc * 16 + n * 8 + 2 * t + (e & 1);
+        T v = T(0);
+        if (row < F && col < width)
+          v = scale * cos(acc[m][n][e] + bi[row]) * mb[col];
+        zb[static_cast<size_t>(row) * cols + col] = v;
+      }
+}
+
+// Phase 2: G (and zy) of the chunk, one block per 64×64 tile (I ≤ J) of
+// the upper triangle and problem (grid (tiles, batch)); warp w sums rows
+// (w / 4)·32 … + 31 of tile I against rows (w % 4)·16 … + 15 of tile J.
+// `accumulate`: add to the G and zy the earlier chunks wrote.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+rff_gram_wide_kernel(const T* __restrict__ z, const T* __restrict__ y,
+                     T* __restrict__ gram, T* __restrict__ zy, int F, int N,
+                     int c_base, int width, int f_pad, int cols,
+                     int accumulate) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* panels = reinterpret_cast<T*>(smem_raw);  // [kWStages][2][kWT][kWAs]
+  T* ys = panels + kWStages * 2 * kWT * kWAs;   // [kWStages][kWK]
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3, wr = warp >> 2, wc = warp & 3;
+  int ti, tj;
+  tri_block(blockIdx.x, f_pad / kWT, ti, tj);
+  const bool diag = ti == tj;
+  const T* zb = z + static_cast<size_t>(b) * f_pad * cols;
+  const T* zi = zb + static_cast<size_t>(ti) * kWT * cols;
+  const T* zj = zb + static_cast<size_t>(tj) * kWT * cols;
+  const T* yb = y + static_cast<size_t>(b) * N + c_base;
+  const int ksteps = (width + kWK - 1) / kWK;
+
+  // columns [k0, k0 + 32) of both panels (Z is zero past the width) and,
+  // on the diagonal, of y
+  auto load = [&](int kc, int buf) {
+    const int k0 = kc * kWK;
+    T* pa = panels + buf * 2 * kWT * kWAs;
+    copy_rows(pa, kWAs, zi + k0, cols, kWT, kWT, kWK, kWK, true);
     if (!diag)
-      tile_features(zj, os, xs, om, bi, xb, ym, tj * kT, c0, F, dim, N,
-                    scale);
-    __syncthreads();
-    T (*zb)[kT + 1] = diag ? zi : zj;
+      copy_rows(pa + kWT * kWAs, kWAs, zj + k0, cols, kWT, kWT, kWK, kWK,
+                true);
+    else if (tid < kWK)
+      ys[buf * kWK + tid] = k0 + tid < width ? yb[k0 + tid] : T(0);
+  };
+
+  T acc[2][2][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = T(0);
+  T zy_acc = T(0);
+  for (int st = 0; st < kWStages - 1; ++st) {
+    if (st < ksteps) load(st, st);
+    cp_async_commit();
+  }
+  for (int kc = 0; kc < ksteps; ++kc) {
+    const int buf = kc % kWStages;
+    cp_async_wait<kWStages - 2>();
+    __syncthreads();  // stage kc visible; every warp is done with kc − 1
+    if (kc + kWStages - 1 < ksteps)
+      load(kc + kWStages - 1, (kc + kWStages - 1) % kWStages);
+    cp_async_commit();
+    const T* pa = panels + buf * 2 * kWT * kWAs;
+    const T* pb = diag ? pa : pa + kWT * kWAs;
+#pragma unroll
+    for (int ks = 0; ks < kWK / 16; ++ks)
+      warp_mma(acc, pa + wr * 32 * kWAs + ks * 16, kWAs, 1,
+               pb + wc * 16 * kWAs + ks * 16, 1, kWAs, lane);
+    if (diag && tid < kWT) {
+      const T* zr = pa + tid * kWAs;
+      const T* yy = ys + buf * kWK;
 #pragma unroll 8
-    for (int c = 0; c < kT; ++c)
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          acc[a][e] += zi[ty + 16 * a][c] * zb[tx + 16 * e][c];
-    if (diag && tid < kT)
-      for (int c = 0; c < kT; ++c) zy_acc += zi[tid][c] * ym[c];
+      for (int c = 0; c < kWK; ++c) zy_acc += zr[c] * yy[c];
+    }
   }
 
   T* gb = gram + static_cast<size_t>(b) * F * F;
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int i = ti * kT + ty + 16 * a, jj = tj * kT + tx + 16 * e;
-      if (i >= F || jj >= F || (diag && i > jj)) continue;
-      gb[static_cast<size_t>(i) * F + jj] = acc[a][e];
-      gb[static_cast<size_t>(jj) * F + i] = acc[a][e];
-    }
-  if (diag && tid < kT && ti * kT + tid < F)
-    zy[static_cast<size_t>(b) * F + ti * kT + tid] = zy_acc;
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = ti * kWT + wr * 32 + m * 16 + g + (e >= 2 ? 8 : 0);
+        const int j = tj * kWT + wc * 16 + n * 8 + 2 * t + (e & 1);
+        if (i >= F || j >= F || (diag && i > j)) continue;
+        T v = acc[m][n][e];
+        if (accumulate) v = gb[static_cast<size_t>(i) * F + j] + v;
+        gb[static_cast<size_t>(i) * F + j] = v;
+        gb[static_cast<size_t>(j) * F + i] = v;
+      }
+  const int row = ti * kWT + tid;
+  if (diag && tid < kWT && row < F) {
+    T* out = zy + static_cast<size_t>(b) * F + row;
+    *out = accumulate ? *out + zy_acc : zy_acc;
+  }
 }
 
+// Every pass of `batch` problems walks N in chunks of `cols` columns: the
+// Z launch, then the Gram launch, on one stream (chunk order).
 template <typename T>
-int launch_tiled(const void* omega, const void* bias, const void* x,
-                 const void* y, const void* mask, void* gram, void* zy, int B,
-                 int F, int dim, int N, double scale, void* stream) {
-  const long long nt = (F + kT - 1) / kT;
-  if (B < 1 || F < 1 || dim < 1 || N < 1 || nt * (nt + 1) / 2 > 0x7fffffff ||
-      B > 65535)
+int launch_wide(const void* omega, const void* bias, const void* x,
+                const void* y, const void* mask, void* gram, void* zy,
+                void* work, int B, int F, int dim, int N, double scale,
+                int batch, int cols, void* stream) {
+  const long long f_pad = (F + kWT - 1) / kWT * kWT, nt = f_pad / kWT;
+  if (B < 1 || F < 1 || dim < 1 || N < 1 || batch < 1 || batch > 65535 ||
+      cols < kWT || cols % kWT != 0 || nt > 65535 ||
+      nt * (nt + 1) / 2 > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  rff_gram_tiled_kernel<T><<<dim3(static_cast<unsigned>(nt * (nt + 1) / 2), B),
-                             256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(omega), static_cast<const T*>(bias),
-      static_cast<const T*>(x), static_cast<const T*>(y),
-      static_cast<const T*>(mask), static_cast<T*>(gram), static_cast<T*>(zy),
-      F, dim, N, static_cast<T>(scale));
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaFuncSetAttribute(
+      rff_gram_z_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(z_smem_bytes(sizeof(T))));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        rff_gram_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(wide_smem_bytes(sizeof(T))));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned tiles = static_cast<unsigned>(nt * (nt + 1) / 2);
+  for (int b0 = 0; b0 < B; b0 += batch) {
+    const int nb = B - b0 < batch ? B - b0 : batch;
+    const size_t bf = static_cast<size_t>(b0) * F, bn = static_cast<size_t>(b0) * N;
+    for (int c_base = 0; c_base < N; c_base += cols) {
+      const int width = N - c_base < cols ? N - c_base : cols;
+      rff_gram_z_kernel<T><<<dim3((width + kWT - 1) / kWT,
+                                  static_cast<unsigned>(nt), nb),
+                             kThreads, z_smem_bytes(sizeof(T)), st>>>(
+          static_cast<const T*>(omega) + bf * dim,
+          static_cast<const T*>(bias) + bf,
+          static_cast<const T*>(x) + static_cast<size_t>(b0) * dim * N,
+          static_cast<const T*>(mask) + bn, static_cast<T*>(work), F, dim, N,
+          c_base, width, static_cast<int>(f_pad), cols,
+          static_cast<T>(scale));
+      if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+      rff_gram_wide_kernel<T><<<dim3(tiles, nb), kThreads,
+                                wide_smem_bytes(sizeof(T)), st>>>(
+          static_cast<const T*>(work), static_cast<const T*>(y) + bn,
+          static_cast<T*>(gram) + bf * F, static_cast<T*>(zy) + bf, F, N,
+          c_base, width, static_cast<int>(f_pad), cols, c_base > 0);
+      if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+    }
+  }
+  return 0;
 }
 
 }  // namespace
@@ -737,21 +911,22 @@ int rff_gram_f32(const void* omega, const void* bias, const void* x,
                        group_blocks, resident, smem_bytes, stream);
 }
 
-// The tiled route (no workspace, no counters): gram [B, F, F], zy [B, F].
-int rff_gram_tiled_f64(const void* omega, const void* bias, const void* x,
-                       const void* y, const void* mask, void* gram, void* zy,
-                       int B, int F, int dim, int N, double scale,
-                       void* stream) {
-  return launch_tiled<double>(omega, bias, x, y, mask, gram, zy, B, F, dim, N,
-                              scale, stream);
+// The wide route: work holds batch·F_pad·cols elements (F_pad = F rounded
+// up to 64; cols a multiple of 64); no counters. gram [B, F, F], zy [B, F].
+int rff_gram_wide_f64(const void* omega, const void* bias, const void* x,
+                      const void* y, const void* mask, void* gram, void* zy,
+                      void* work, int B, int F, int dim, int N, double scale,
+                      int batch, int cols, void* stream) {
+  return launch_wide<double>(omega, bias, x, y, mask, gram, zy, work, B, F,
+                             dim, N, scale, batch, cols, stream);
 }
 
-int rff_gram_tiled_f32(const void* omega, const void* bias, const void* x,
-                       const void* y, const void* mask, void* gram, void* zy,
-                       int B, int F, int dim, int N, double scale,
-                       void* stream) {
-  return launch_tiled<float>(omega, bias, x, y, mask, gram, zy, B, F, dim, N,
-                             scale, stream);
+int rff_gram_wide_f32(const void* omega, const void* bias, const void* x,
+                      const void* y, const void* mask, void* gram, void* zy,
+                      void* work, int B, int F, int dim, int N, double scale,
+                      int batch, int cols, void* stream) {
+  return launch_wide<float>(omega, bias, x, y, mask, gram, zy, work, B, F,
+                            dim, N, scale, batch, cols, stream);
 }
 
 }  // extern "C"

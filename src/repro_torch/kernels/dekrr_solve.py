@@ -20,11 +20,10 @@ launches bit for bit.
 
 The asynchronous-gossip chain (`dekrr_async_solve_*`, replacing
 `dekrr_async_solve_pallas` / `_dekrr_async_solve_kernel`,
-`csrc/dekrr_async_solve.cu`) is built the same way. The Chebyshev chain
+`csrc/dekrr_async_solve.cu`) and the Chebyshev chain
 (`dekrr_cheb_solve_*`, replacing `dekrr_cheb_solve_pallas` /
-`_dekrr_cheb_solve_kernel`, `csrc/dekrr_cheb_solve.cu`) is still one
-cooperative launch of one block per node. Their raw contracts are in the
-plain versions' docstrings.
+`_dekrr_cheb_solve_kernel`, `csrc/dekrr_cheb_solve.cu`) are built the
+same way. Their raw contracts are in the plain versions' docstrings.
 """
 from __future__ import annotations
 
@@ -68,7 +67,7 @@ def chain_plan(j_nodes: int, d_feat: int,
     """(blocks per node cluster C, rows per block, clusters) of a chain
     kernel's persistent launch: grid (C, clusters), cluster q running
     nodes q, q + clusters, ... (`csrc/dekrr_solve.cu`,
-    `csrc/dekrr_async_solve.cu`).
+    `csrc/dekrr_async_solve.cu`, `csrc/dekrr_cheb_solve.cu`).
 
     C and the rows per block are the round kernel's (`round_plan`), so a
     node's rows split as one round launch splits them. ``max_clusters(C)``
@@ -111,23 +110,6 @@ def _max_clusters(name: str, k_slots: int, d_feat: int, dy: int,
 
 def _suffix(dtype: torch.dtype) -> str:
     return "f64" if dtype == torch.float64 else "f32"
-
-
-def _coop_cap(name: str, k_slots: int, d_feat: int, dy: int,
-              dtype: torch.dtype) -> int:
-    """Co-resident blocks the cooperative kernel of ``csrc/<name>.cu`` may
-    use on the current device at (K, D, Dy); raises when none fits."""
-    lib = _build.library(name)
-    cap = getattr(lib, f"{name}_max_blocks_{_suffix(dtype)}")(k_slots,
-                                                              d_feat, dy)
-    if cap < 0:
-        _build.check(-cap, f"{name} occupancy query")
-    if cap == 0:
-        raise RuntimeError(
-            f"{name}: no block of the cooperative kernel fits on this "
-            f"device at K={k_slots}, D={d_feat}, Dy={dy} (shared memory "
-            f"or cooperative-launch support)")
-    return cap
 
 
 def _ptr(t: torch.Tensor | None):
@@ -283,13 +265,14 @@ def dekrr_cheb_solve_cuda(g, d, s, p, theta, delta, nbr_idx, self_idx,
                           nbr_mask, alphas, betas, out_theta, out_p, res,
                           work, *, dy: int) -> None:
     """Launch the kernel on checked, contiguous CUDA tensors: out_theta /
-    out_p [J·Dy, D], res [R, J] or None, work 2·[T·Dy, D] scratch."""
+    out_p [J·Dy, D], res [R, J] or None, work 2·[T·Dy, D] scratch; sized
+    by `chain_plan`."""
     j_nodes, k_slots, d_feat = p.shape[0], p.shape[1], d.shape[1]
     t_rows = theta.shape[0] // dy
-    _coop_cap("dekrr_cheb_solve", k_slots, d_feat, dy, g.dtype)
-    lib = _build.library("dekrr_cheb_solve")
-    fn = lib.dekrr_cheb_solve_f64 if g.dtype == torch.float64 \
-        else lib.dekrr_cheb_solve_f32
+    plan = chain_plan(j_nodes, d_feat, chain_max_clusters(
+        "dekrr_cheb_solve", k_slots, d_feat, dy, g.dtype))
+    fn = getattr(_build.library("dekrr_cheb_solve"),
+                 f"dekrr_cheb_solve_{_suffix(g.dtype)}")
     stream = torch.cuda.current_stream(g.device).cuda_stream
     _build.check(fn(g.data_ptr(), d.data_ptr(), s.data_ptr(), p.data_ptr(),
                     theta.data_ptr(), delta.data_ptr(), nbr_idx.data_ptr(),
@@ -297,5 +280,5 @@ def dekrr_cheb_solve_cuda(g, d, s, p, theta, delta, nbr_idx, self_idx,
                     alphas.data_ptr(), betas.data_ptr(),
                     out_theta.data_ptr(), out_p.data_ptr(), _ptr(res),
                     work.data_ptr(), alphas.shape[0], j_nodes, k_slots,
-                    d_feat, dy, t_rows, stream),
+                    d_feat, dy, t_rows, *plan, stream),
                  "dekrr_cheb_solve launch")

@@ -23,7 +23,10 @@ serving replicas launch from several threads. The round kernel with an
 activation mask counts as ``dekrr_step_masked``, apart from the unmasked
 round; the featurize kernel counts as ``rff_features`` in f64/f32 and as
 ``rff_features_lowp`` in bf16, once a launch whether it covers one node
-or a whole wave; the decode-attention kernel as ``flash_decode``.
+or a whole wave; the decode-attention kernel as ``flash_decode``; the
+Gram kernel as ``rff_gram``, once a call on either route (the wide route
+makes two kernel launches per pass and N chunk, `kernels.rff_gram.
+WideGramPlan`).
 """
 from __future__ import annotations
 
@@ -322,8 +325,8 @@ def rff_gram_batched(omega: torch.Tensor, bias: torch.Tensor,
 
     On CUDA tensors any F: up to 560 in f64 and 1,024 in f32 the
     kernel's cluster route (every block holds all F rows of a Z tile in
-    shared memory), beyond that its tiled route
-    (`kernels.rff_gram.gram_plan`)."""
+    shared memory), beyond that its wide route, which forms each Z
+    entry once into a workspace (`kernels.rff_gram.gram_plan`)."""
     name = "rff_gram_batched"
     b, f, dim = omega.shape
     n = x.shape[2]

@@ -22,10 +22,13 @@ in slice order, so G is exactly symmetric and the same from run to run.
 dispatches is `repro_torch.kernels.ops.rff_gram_batched`.
 
 Past what a cluster's shared memory holds (F > 560 in f64, 1,024 in
-f32), `gram_plan` picks the kernel's second, plainer route (a
-`TiledGramPlan`): one block per 32×32 tile of G's upper triangle,
-cosines recomputed per tile, the sums on the vector units, each entry
-written to G[i][j] and G[j][i] from one value. Every F gets a plan.
+f32), `gram_plan` picks the kernel's wide route (a `WideGramPlan`),
+which stores Z: per pass of problems and chunk of N columns, one launch
+forms each Z entry once into a workspace (the projection on the FP64
+tensor cores), and a second takes one block per 64×64 tile of G's upper
+triangle, accumulates Z_I Z_Jᵀ on the tensor cores and writes each
+entry to G[i][j] and G[j][i] from one value, adding a later chunk's sums
+to the earlier chunks' in chunk order. Every F gets a plan.
 """
 from __future__ import annotations
 
@@ -52,8 +55,10 @@ GRAM_CLUSTERS = (2, 4, 8)
 GRAM_SMEM_LIMIT = 232_448 - 1_024
 # Largest workspace a launch may take, in bytes.
 GRAM_WORKSPACE_CAP = 64 << 20
-# The tiled route's G tile (rows and columns).
-GRAM_TILE = 32
+# The wide route's Z and G tile (rows and columns), and the Gram blocks a
+# pass aims for (four per SM) before its N chunks grow.
+GRAM_WIDE_TILE = 64
+GRAM_WIDE_BLOCKS_PER_SM = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,11 +77,39 @@ class GramPlan:
 
 
 @dataclasses.dataclass(frozen=True)
-class TiledGramPlan:
-    """One `rff_gram` launch on the tiled route: grid (tiles, problems),
-    a block per 32×32 tile of G's upper triangle, with no workspace."""
-    tiles: int            # 32×32 tiles of G's upper triangle
-    ctas: int             # blocks in the grid
+class WideGramPlan:
+    """The wide route: for each pass of `batch` problems and each chunk of
+    `cols` columns of N, one launch forms the chunk's Z [batch, f_pad,
+    cols] in the workspace (a block per 64×64 tile of Z), then one takes a
+    block per 64×64 tile of G's upper triangle and problem."""
+    f_pad: int            # Z rows, F rounded up to GRAM_WIDE_TILE
+    tiles: int            # 64×64 tiles of G's upper triangle, per problem
+    batch: int            # problems per pass
+    cols: int             # columns per N chunk (a multiple of the tile)
+    chunks: int           # N chunks per pass
+    workspace: int        # workspace elements, batch·f_pad·cols
+    ctas: int             # Gram blocks per launch, tiles·batch
+
+
+def _wide_plan(b: int, f: int, n: int, item: int, sms: int) -> WideGramPlan:
+    """Problems per pass: enough for GRAM_WIDE_BLOCKS_PER_SM Gram blocks
+    an SM (or all B), within the workspace cap at one 64-column block
+    each; then the widest N chunk the cap allows, the chunks evened out.
+    The cap holds wherever one problem's 64-column panel fits in it
+    (F ≤ 131,072 in f64)."""
+    t = GRAM_WIDE_TILE
+    f_pad = -(-f // t) * t
+    nt = f_pad // t
+    tiles = nt * (nt + 1) // 2
+    panel = f_pad * t * item
+    batch = min(b, -(-GRAM_WIDE_BLOCKS_PER_SM * sms // tiles),
+                max(1, GRAM_WORKSPACE_CAP // panel))
+    widest = max(t, GRAM_WORKSPACE_CAP // (batch * f_pad * item) // t * t)
+    chunks = -(-n // widest)
+    cols = -(-(-(-n // chunks)) // t) * t
+    return WideGramPlan(f_pad=f_pad, tiles=tiles, batch=batch, cols=cols,
+                        chunks=chunks, workspace=batch * f_pad * cols,
+                        ctas=tiles * batch)
 
 
 def _smem_bytes(f: int, dim: int, cluster: int, resident: bool,
@@ -93,7 +126,7 @@ def _smem_bytes(f: int, dim: int, cluster: int, resident: bool,
 
 
 def gram_plan(b: int, f: int, dim: int, n: int, *, item: int = 8,
-              sms: int = 132) -> GramPlan | TiledGramPlan:
+              sms: int = 132) -> GramPlan | WideGramPlan:
     """Launch plan of `rff_gram` for B problems of F features, d inputs
     and N columns in elements of ``item`` bytes on a card of ``sms`` SMs.
 
@@ -102,8 +135,8 @@ def gram_plan(b: int, f: int, dim: int, n: int, *, item: int = 8,
     failing that, the smallest that holds them with Ω streamed in chunks.
     S minimises the waves times the tiles a slice walks (one block per SM,
     sms // C clusters at a time; ties to fewer slices), within the
-    workspace cap. Where F is too large for any cluster, the tiled
-    route."""
+    workspace cap. Where F is too large for any cluster, the wide
+    route (`_wide_plan`)."""
     nb = -(-f // 16)
     fits = [(cluster, resident) for resident in (True, False)
             for cluster in GRAM_CLUSTERS
@@ -111,9 +144,7 @@ def gram_plan(b: int, f: int, dim: int, n: int, *, item: int = 8,
             and _smem_bytes(f, dim, cluster, resident, item)
             <= GRAM_SMEM_LIMIT]
     if not fits:
-        tiles = -(-f // GRAM_TILE)
-        pairs = tiles * (tiles + 1) // 2
-        return TiledGramPlan(tiles=pairs, ctas=pairs * b)
+        return _wide_plan(b, f, n, item, sms)
     cluster, resident = fits[0]
     total = nb * (nb + 1) // 2
     group_blocks = min(total, GRAM_BLOCKS_PER_CTA * cluster)
@@ -165,8 +196,8 @@ def rff_gram_cuda(omega: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
                   zy: torch.Tensor, *, scale: float) -> None:
     """Launch the kernel on checked, contiguous CUDA tensors of one dtype,
     writing gram [B, F, F] and zy [B, F] on the current stream (the
-    workspace and zeroed counters of the cluster route are allocated
-    here, for this launch)."""
+    workspace, and the cluster route's zeroed counters, are allocated
+    here, for this call)."""
     b, f, dim = omega.shape
     n = x.shape[2]
     plan = gram_plan(b, f, dim, n, item=omega.element_size(),
@@ -174,15 +205,16 @@ def rff_gram_cuda(omega: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
     lib = _build.library("rff_gram")
     f64 = omega.dtype == torch.float64
     stream = torch.cuda.current_stream(omega.device).cuda_stream
-    if isinstance(plan, TiledGramPlan):
-        fn = lib.rff_gram_tiled_f64 if f64 else lib.rff_gram_tiled_f32
-        _build.check(fn(omega.data_ptr(), bias.data_ptr(), x.data_ptr(),
-                        y.data_ptr(), col_mask.data_ptr(), gram.data_ptr(),
-                        zy.data_ptr(), b, f, dim, n, float(scale), stream),
-                     "rff_gram launch (tiled route)")
-        return
     work = torch.empty((plan.workspace,), dtype=omega.dtype,
                        device=omega.device)
+    if isinstance(plan, WideGramPlan):
+        fn = lib.rff_gram_wide_f64 if f64 else lib.rff_gram_wide_f32
+        _build.check(fn(omega.data_ptr(), bias.data_ptr(), x.data_ptr(),
+                        y.data_ptr(), col_mask.data_ptr(), gram.data_ptr(),
+                        zy.data_ptr(), work.data_ptr(), b, f, dim, n,
+                        float(scale), plan.batch, plan.cols, stream),
+                     "rff_gram launch (wide route)")
+        return
     counters = torch.zeros((b * plan.groups * plan.cluster,),
                            dtype=torch.int32, device=omega.device)
     fn = lib.rff_gram_f64 if f64 else lib.rff_gram_f32

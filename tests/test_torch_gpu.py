@@ -121,12 +121,13 @@ def test_gpu_dekrr_kernels_match_plain(cuda_device, dtype, rtol, j, k,
 # (B, F, d, N): ragged 16-row blocks; the main path's two calls (own
 # blocks, slot blocks); N inside one 32-column tile; F past one group of
 # Gram blocks (Z recomputed per group, cluster of 4); Ω streamed through
-# shared memory (cluster of 8); F = 600, past the clusters' shared memory
-# in f64 (the tiled route; f32 still on a cluster); F = 1,100, the tiled
-# route in both dtypes
+# shared memory (cluster of 8); F = 561 and 600, past the clusters' shared
+# memory in f64 (the wide route; f32 still on a cluster); F = 1,025 and
+# 1,100, the wide route in both dtypes
 GRAM_SHAPES = [(3, 70, 13, 300), (10, 200, 148, 3180), (40, 200, 148, 3180),
                (2, 200, 148, 21), (2, 330, 21, 700), (1, 512, 148, 300),
-               (1, 600, 148, 300), (2, 1100, 21, 100)]
+               (3, 561, 148, 333), (1, 600, 148, 300), (1, 1025, 30, 200),
+               (2, 1100, 21, 100)]
 
 
 def gram_case(b, f, dim, n, seed):
@@ -165,6 +166,40 @@ def test_gpu_rff_gram_matches_plain(cuda_device, dtype, rtol, b, f, dim, n):
     for a, w in zip(one, plain):
         assert_close(a, w[0].cpu(), rtol=rtol)
     assert ops.LAUNCHES["rff_gram"] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol,b,f,dim,n,cap_panels", [
+    (torch.float64, 1e-9, 3, 600, 148, 700, 2),
+    (torch.float32, 1e-4, 2, 1100, 21, 300, 1)])
+def test_gpu_rff_gram_wide_route_passes_and_chunks(cuda_device, monkeypatch,
+                                                   dtype, rtol, b, f, dim, n,
+                                                   cap_panels):
+    """The wide route with the workspace cap cut to `cap_panels` of one
+    problem's 64-column Z panels: passes of fewer problems than B and
+    many N chunks, each chunk's sums added in chunk order, still against
+    the plain version, G == Gᵀ exactly and the same bits twice."""
+    import importlib
+
+    rg = importlib.import_module("repro_torch.kernels.rff_gram")
+    item = torch.finfo(dtype).bits // 8
+    f_pad = -(-f // rg.GRAM_WIDE_TILE) * rg.GRAM_WIDE_TILE
+    monkeypatch.setattr(rg, "GRAM_WORKSPACE_CAP",
+                        cap_panels * f_pad * rg.GRAM_WIDE_TILE * item)
+    plan = rg.gram_plan(b, f, dim, n, item=item)
+    assert isinstance(plan, rg.WideGramPlan)
+    assert plan.batch < b and plan.chunks > 1
+    args = [a.to(cuda_device, dtype) for a in to_t(gram_case(b, f, dim, n,
+                                                             seed=f + n))]
+    got = ops.rff_gram_batched(*args)
+    want = rff_gram_batched_reference(*args)
+    again = ops.rff_gram_batched(*args)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert_close(a, w.cpu(), rtol=rtol)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    assert torch.equal(got[0], got[0].transpose(1, 2))
+    assert ops.LAUNCHES["rff_gram"] == 2
 
 
 # CASES plus the paper's D = 200 (clusters of 7), D above the round
@@ -274,7 +309,8 @@ def test_gpu_async_chain_matches_plain(cuda_device, dtype, rtol, j, k,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["dekrr_solve", "dekrr_async_solve"])
+@pytest.mark.parametrize("kernel", ["dekrr_solve", "dekrr_async_solve",
+                                    "dekrr_cheb_solve"])
 def test_gpu_chain_refuses_more_clusters_than_the_card_holds(cuda_device,
                                                              kernel):
     """A grid of more clusters than the card holds at once would wait at
@@ -284,7 +320,8 @@ def test_gpu_chain_refuses_more_clusters_than_the_card_holds(cuda_device,
     from repro_torch.kernels import _build
     from repro_torch.kernels.dekrr_solve import (chain_max_clusters,
                                                  chain_plan,
-                                                 dekrr_async_solve_reference)
+                                                 dekrr_async_solve_reference,
+                                                 dekrr_cheb_solve_reference)
 
     k, dfeat, rounds = 2, 200, 3
     fits = chain_max_clusters(kernel, k, dfeat, 1, torch.float64)
@@ -298,6 +335,18 @@ def test_gpu_chain_refuses_more_clusters_than_the_card_holds(cuda_device,
         tensors = lay + (out, None, torch.empty((2, j, dfeat), **kw))
         sizes = (rounds, j, k, dfeat, 1, j)
         want = dekrr_solve_reference(*lay, num_rounds=rounds, dy=1)
+    elif kernel == "dekrr_cheb_solve":
+        lay = ops._pad_dekrr_operands("t", *[a.to(cuda_device) for a in to_t(
+            dekrr_case(j, k, dfeat, 1, 0, seed=5))])[2]
+        rng = np.random.default_rng(5)
+        raw = lay[:5] + (torch.as_tensor(rng.normal(size=(j, dfeat)),
+                                         **kw),) + lay[5:] + (
+            torch.as_tensor(rng.uniform(0.5, 1.5, rounds), **kw),
+            torch.as_tensor(rng.uniform(0.0, 0.3, rounds), **kw))
+        tensors = raw + (out, torch.empty((j, dfeat), **kw), None,
+                         torch.empty((2, j, dfeat), **kw))
+        sizes = (rounds, j, k, dfeat, 1, j)
+        want = dekrr_cheb_solve_reference(*raw, dy=1)[0]
     else:
         g, d, s, p, theta, sent, bufs, nbr_idx, nbr_mask, act, thr = (
             a.to(cuda_device) for a in to_t(
@@ -330,14 +379,24 @@ def test_gpu_chain_refuses_more_clusters_than_the_card_holds(cuda_device,
     assert_close(out, want.cpu())
 
 
+# CASES plus the paper's D = 200 (clusters of 7), D = 257 at Dy = 3
+# (clusters of 8), and J = 40 at D = 200, past the clusters the card holds
+# at once, so the chain's clusters loop over nodes
+CHEB_CASES = CASES + [(3, 2, 200, 1, 0), (2, 1, 257, 3, 0), (40, 4, 200, 1, 0)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-9),
                                         (torch.float32, 1e-4)])
-@pytest.mark.parametrize("j,k,dfeat,dy,extra", CASES)
+@pytest.mark.parametrize("j,k,dfeat,dy,extra", CHEB_CASES)
 def test_gpu_cheb_chain_matches_plain(cuda_device, dtype, rtol, j, k, dfeat,
                                       dy, extra):
     """The Chebyshev-chain kernel against its plain version; chunked
-    launches equal one launch bit for bit."""
+    launches equal one launch bit for bit, and (T = J) so does the scan
+    of round launches with the update in torch's elementwise operations,
+    the per-round `cuda` backend's `chebyshev_scan`."""
+    from repro_torch.core.acceleration import chebyshev_scan
+
     cpu = [a.to(dtype) if a.is_floating_point() else a for a in to_t(
         dekrr_case(j, k, dfeat, dy, extra, seed=j * 10 + k + dy))]
     rng = np.random.default_rng(j + k)
@@ -364,6 +423,14 @@ def test_gpu_cheb_chain_matches_plain(cuda_device, dtype, rtol, j, k, dfeat,
     torch.cuda.synchronize()
     assert torch.equal(rest[0], whole[0]) and torch.equal(rest[1], whole[1])
     assert torch.equal(torch.cat([first[2], rest[2]]), whole[2])
+    ident = dev[7]
+    scanned = chebyshev_scan(
+        lambda th: ops.dekrr_step(*dev[:4], th, dev[6], ident, dev[8]),
+        dev[4], dev[9], dev[10], p0=dev[5], record_deltas=True)
+    torch.cuda.synchronize()
+    assert torch.equal(scanned[0], whole[0])
+    assert torch.equal(scanned[1], whole[1])
+    assert torch.equal(scanned[3], whole[2].amax(dim=1))
 
 
 FEATURE_SHAPES = [(200, 148, 8), (200, 148, 64), (200, 148, 512),
@@ -431,14 +498,14 @@ def test_gpu_rff_features_lowp_within_model_bound(cuda_device, d_feat, dim,
 @pytest.mark.gpu
 def test_gpu_pack_problem_packs_600_features(cuda_device):
     """pack_problem on the card with 600 features a node (the rff_gram
-    kernel's tiled route in f64) against the same pack with the torch
+    kernel's wide route in f64) against the same pack with the torch
     Gram blocks."""
     from repro_torch.core import (DeKRRConfig, DeKRRSolver, circulant,
                                   sample_rff)
     from repro_torch.data.synthetic import (make_dataset, partition,
                                             train_test_split_nodes)
     from repro_torch.dist import pack_problem
-    from repro_torch.kernels.rff_gram import TiledGramPlan, gram_plan
+    from repro_torch.kernels.rff_gram import WideGramPlan, gram_plan
 
     ds = make_dataset("wave", seed=0, subsample=2400)
     train, _ = train_test_split_nodes(
@@ -450,7 +517,7 @@ def test_gpu_pack_problem_packs_600_features(cuda_device):
     solver = DeKRRSolver(circulant(3, (1,)), fmaps, train,
                          DeKRRConfig(lam=0.1, c_nei=0.05 * n),
                          build_aux=False, device=cuda_device)
-    assert isinstance(gram_plan(3, 600, ds.dim, n, item=8), TiledGramPlan)
+    assert isinstance(gram_plan(3, 600, ds.dim, n, item=8), WideGramPlan)
     got = pack_problem(solver, gram_backend="cuda", device=cuda_device)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["rff_gram"] == 2     # own blocks, slot blocks

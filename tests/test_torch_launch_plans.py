@@ -1,8 +1,8 @@
 """The CUDA kernels' launch plans, which stay in Python so the CPU can
-check them: `rff_gram`'s clusters, slices and workspace (and its tiled
-route past the clusters' shared memory), the featurize kernel's tiles,
-the round kernel's rows per cluster block, and the chain kernels'
-clusters (`chain_plan`)."""
+check them: `rff_gram`'s clusters, slices and workspace (and its wide
+route past the clusters' shared memory: passes of problems, N chunks and
+64×64 tiles), the featurize kernel's tiles, the round kernel's rows per
+cluster block, and the chain kernels' clusters (`chain_plan`)."""
 import pytest
 
 from repro_torch.kernels.dekrr_solve import chain_plan
@@ -13,9 +13,9 @@ from repro_torch.kernels.rff_features import (FEAT_DEPTH, FEAT_STAGES,
                                               FEAT_TILES, FEAT_WARP_ROWS,
                                               features_plan)
 from repro_torch.kernels.rff_gram import (GRAM_COLS, GRAM_MAX_RANK_ROWS,
-                                          GRAM_SMEM_LIMIT, GRAM_TILE,
+                                          GRAM_SMEM_LIMIT, GRAM_WIDE_TILE,
                                           GRAM_WORKSPACE_CAP, GramPlan,
-                                          TiledGramPlan, gram_plan)
+                                          WideGramPlan, gram_plan)
 
 MAIN_PATH = [(10, 200, 148, 3180), (40, 200, 148, 3180)]
 GRAM_SHAPES = MAIN_PATH + [(3, 70, 13, 300), (2, 200, 148, 21),
@@ -60,10 +60,13 @@ def test_gram_plan_fills_the_card_on_the_main_path(b, f, dim, n):
 
 def test_gram_plan_refuses_features_beyond_shared_memory():
     """The cluster route refuses F = 2,048, which no cluster's shared
-    memory holds: the plan is the tiled route's, one block per 32×32
-    tile of G's upper triangle (64 tiles a side)."""
+    memory holds: the plan is the wide route's, one Gram block per 64×64
+    tile of G's upper triangle (32 tiles a side), one problem, one
+    64-column chunk."""
     plan = gram_plan(1, 2048, 8, 64)
-    assert plan == TiledGramPlan(tiles=64 * 65 // 2, ctas=64 * 65 // 2)
+    assert plan == WideGramPlan(f_pad=2048, tiles=32 * 33 // 2, batch=1,
+                                cols=64, chunks=1, workspace=2048 * 64,
+                                ctas=32 * 33 // 2)
 
 
 @pytest.mark.parametrize("b,f,dim,n", GRAM_SHAPES)
@@ -72,33 +75,99 @@ def test_gram_plan_keeps_the_cluster_route_where_it_fits(b, f, dim, n, item):
     assert isinstance(gram_plan(b, f, dim, n, item=item), GramPlan)
 
 
-# (B, F, d, N, item): past 560 features in f64 and 1,024 in f32 (at d = 148)
+# (B, F, d, N, item): past 560 features in f64 and 1,024 in f32 (at d =
+# 148); the timing shape and its slot-block call, where the workspace cap
+# splits N; many problems (passes); F and N large enough that one
+# problem's Z takes many chunks
 TILED_SHAPES = [(1, 600, 148, 3180, 8), (10, 600, 148, 3180, 8),
                 (2, 1200, 21, 700, 8), (1, 1100, 148, 300, 4),
-                (3, 561, 148, 33, 8), (1, 1025, 784, 64, 4)]
+                (3, 561, 148, 33, 8), (1, 1025, 784, 64, 4),
+                (40, 600, 148, 3180, 8), (400, 600, 148, 3180, 8),
+                (1, 4000, 148, 100_000, 8), (7, 2500, 5, 33_333, 4)]
+
+
+def _wide_owners(f, plan):
+    """Upper-triangle entry → Gram block of one problem, as
+    csrc/rff_gram.cu assigns them: block `idx` takes tile (I, J) of the
+    row-major upper triangle (tri_block) and sums rows [I·64, (I+1)·64) ×
+    [J·64, (J+1)·64) ∩ [0, F)², keeping r ≤ c on the diagonal."""
+    t, nt = GRAM_WIDE_TILE, plan.f_pad // GRAM_WIDE_TILE
+    tiles = [(i, j) for i in range(nt) for j in range(i, nt)]
+    owners = {}
+    for idx, (i, j) in enumerate(tiles):
+        for r in range(i * t, min(f, (i + 1) * t)):
+            for c in range(max(r, j * t), min(f, (j + 1) * t)):
+                owners.setdefault((r, c), []).append(idx)
+    return tiles, owners
 
 
 @pytest.mark.parametrize("b,f,dim,n,item", TILED_SHAPES)
 def test_gram_plan_takes_the_tiled_route_past_the_clusters(b, f, dim, n,
                                                           item):
+    """Past the clusters the plan is the wide route's: one Gram block per
+    64×64 tile (I ≤ J) of G's upper triangle, for every problem of a
+    pass, and every upper-triangle entry owned by exactly one block."""
     plan = gram_plan(b, f, dim, n, item=item)
-    tiles = -(-f // GRAM_TILE)
-    assert isinstance(plan, TiledGramPlan)
-    # one block per tile (I ≤ J) of G's upper triangle, for every problem
-    pairs = [(i, j) for i in range(tiles) for j in range(i, tiles)]
-    assert plan.tiles == len(pairs) and plan.ctas == b * len(pairs)
-    covered = {(r, c) for i, j in pairs
-               for r in range(i * GRAM_TILE, min(f, (i + 1) * GRAM_TILE))
-               for c in range(j * GRAM_TILE, min(f, (j + 1) * GRAM_TILE))}
-    assert {(r, c) for r, c in covered if r <= c} == {
-        (r, c) for r in range(f) for c in range(r, f)}
+    assert isinstance(plan, WideGramPlan)
+    assert plan.f_pad % GRAM_WIDE_TILE == 0
+    assert plan.f_pad - GRAM_WIDE_TILE < f <= plan.f_pad
+    f_seen = min(f, 1100)       # the first 1,100 rows (the check is O(F²))
+    tiles, owners = _wide_owners(f_seen, plan)
+    assert plan.tiles == len(tiles) and plan.ctas == plan.batch * len(tiles)
+    assert set(owners) == {(r, c) for r in range(f_seen)
+                           for c in range(r, f_seen)}
+    assert all(len(blocks) == 1 for blocks in owners.values())
+
+
+@pytest.mark.parametrize("b,f,dim,n,item", TILED_SHAPES)
+def test_wide_gram_plan_reads_every_column_once_per_chunk(b, f, dim, n,
+                                                          item):
+    """Passes of `batch` problems cover every problem once; the N chunks
+    [c·cols, (c+1)·cols) ∩ [0, N) cover every column once; within a
+    chunk the Z launch's 64-column blocks and the Gram launch's
+    32-column stages each read every column of the chunk once."""
+    plan = gram_plan(b, f, dim, n, item=item)
+    passes = [range(p, min(b, p + plan.batch))
+              for p in range(0, b, plan.batch)]
+    assert [q for ps in passes for q in ps] == list(range(b))
+    chunks = [range(c * plan.cols, min(n, (c + 1) * plan.cols))
+              for c in range(plan.chunks)]
+    assert [col for ch in chunks for col in ch] == list(range(n))
+    assert all(len(ch) for ch in chunks)
+    assert plan.cols % GRAM_WIDE_TILE == 0
+    for ch in chunks:
+        width = len(ch)
+        z_cols = [c for blk in range(-(-width // GRAM_WIDE_TILE))
+                  for c in range(blk * GRAM_WIDE_TILE,
+                                 (blk + 1) * GRAM_WIDE_TILE)]
+        stages = [c for k in range(-(-width // 32))
+                  for c in range(k * 32, (k + 1) * 32)]
+        assert z_cols[:width] == stages[:width] == list(range(width))
+        assert len(stages) <= len(z_cols) <= plan.cols   # zero-filled tail
+
+
+@pytest.mark.parametrize("b,f,dim,n,item", TILED_SHAPES)
+def test_wide_gram_plan_stays_within_the_workspace_cap(b, f, dim, n, item):
+    """The workspace holds one pass's Z chunk [batch, F_pad, cols] and
+    stays within GRAM_WORKSPACE_CAP; a pass takes all B problems where
+    they fill four Gram blocks an SM, and N is split only where the cap
+    binds."""
+    plan = gram_plan(b, f, dim, n, item=item)
+    assert plan.workspace == plan.batch * plan.f_pad * plan.cols
+    assert plan.workspace * item <= GRAM_WORKSPACE_CAP
+    assert plan.batch == b or plan.ctas >= 4 * 132
+    n_pad = -(-n // GRAM_WIDE_TILE) * GRAM_WIDE_TILE
+    if plan.chunks > 1:           # one more chunk's width would not fit
+        assert plan.batch * plan.f_pad * n_pad * item > GRAM_WORKSPACE_CAP
+    else:
+        assert plan.cols == n_pad
 
 
 def test_gram_plan_route_switches_exactly_past_the_limit():
     assert isinstance(gram_plan(1, 560, 148, 3180, item=8), GramPlan)
-    assert isinstance(gram_plan(1, 561, 148, 3180, item=8), TiledGramPlan)
+    assert isinstance(gram_plan(1, 561, 148, 3180, item=8), WideGramPlan)
     assert isinstance(gram_plan(1, 1024, 148, 3180, item=4), GramPlan)
-    assert isinstance(gram_plan(1, 1025, 148, 3180, item=4), TiledGramPlan)
+    assert isinstance(gram_plan(1, 1025, 148, 3180, item=4), WideGramPlan)
 
 
 # (J, D_max, N): the serving wave's node and wave shapes at each column
@@ -223,3 +292,24 @@ def test_chain_plan_shrinks_the_cluster_only_where_none_fits(d_feat,
 def test_chain_plan_refuses_where_no_cluster_fits():
     with pytest.raises(RuntimeError, match="no thread-block cluster"):
         chain_plan(10, 200, lambda _blocks: 0)
+
+
+@pytest.mark.parametrize("j_nodes,clusters", [(10, 10), (40, 15)])
+@pytest.mark.parametrize("dy", [1, 3])
+def test_chain_plan_sizes_the_chebyshev_chain(j_nodes, clusters, dy):
+    """The Chebyshev chain at the main path's K 4, D 200, with the card
+    holding 15 clusters of 7 blocks at once (its shared memory per block
+    is the sync chain's, node_smem_elems): round_plan's 7 blocks of 29
+    rows, one cluster per node at J 10, and 15 clusters looping over the
+    nodes at J 40."""
+    d_feat = 200
+    fits = lambda blocks: 15 if blocks <= 7 else 0     # noqa: E731
+    plan = chain_plan(j_nodes, d_feat, fits)
+    assert plan == round_plan(d_feat) + (clusters,) == (7, 29, clusters)
+    nodes, blocks, rows = _chain_owners(j_nodes, plan)
+    assert sorted(nodes) == list(range(j_nodes))
+    # block c updates p and θ at rows [c·29, (c+1)·29) ∩ [0, D) of each of
+    # the Dy output columns: every element of a node's [Dy, D] block once
+    owned = [o * d_feat + a for c in range(blocks) for o in range(dy)
+             for a in range(c * rows, min(d_feat, (c + 1) * rows))]
+    assert sorted(owned) == list(range(dy * d_feat))
