@@ -59,9 +59,12 @@
    nodes (plus one calibration-stripe launch on the low-precision
    paths); p50, p99 and qps per precision, and at full precision on 1
    replica.
-9. The decode-attention kernel (``flash_decode``) against its plain
-   version at DECODE_SHAPES (2e-5), and unchanged bit for bit by ±999 in
-   the cache beyond cur_index.
+9. The decode-attention kernel (``flash_decode``) against its split plain
+   version (the kernel's chunks, combined in chunk order) and its one-pass
+   plain version at DECODE_SHAPES (2e-5), one long request (B 1, S 32,768)
+   among them; two calls give the same bits, the cache beyond cur_index
+   set to ±999 changes no bit, and a CUDA-graph replay gives the eager
+   call's bits.
 10. LLM serving at qwen1.5-0.5b's full width and depth (24 layers,
    d_model 1024, 16 heads, vocab 151,936; the port's seeded weights, no
    checkpoint): ServeEngine(batch 8, max_seq 512, backend cuda) serves
@@ -71,7 +74,9 @@
    teacher-forced through decode_step give logits on backend torch
    within LLM_LOGIT_TOL of backend cuda and with the int8 cache within
    5%, and flash_decode launches 24 times per decode step; tokens/s,
-   p50/p99 per request and ms per decode step.
+   p50/p99 per request and ms per decode step; one decode step's device
+   time at the serving cache and at one long request (B 1, S 32,768, the
+   last position: a 6.4 GB f32 cache) by CUDA-graph replay.
 11. Launch counts of each path and run, zeroed just before it, and
    ``pack_problem`` repeated warm.
 12. Kernel times by CUDA events (timed on the device, behind a spin that
@@ -79,8 +84,11 @@
    a PyTorch yardstick and the least time the card could take; the
    featurize kernel at the wave and at one node, ``rff_gram``'s wide
    route at D_j = 600 with its two phases apart (the profiler's device
-   time per kernel), and ``flash_decode`` at the serving cache beside the
-   fastest SDPA call there. ``dekrr_solve`` and ``dekrr_async_solve``
+   time per kernel), and ``flash_decode`` at S 32,768 for B 8 and B 1 and
+   at the serving cache (cur 128 and 512), there both warm (one cache
+   launched again) and cold (24 distinct caches launched in turn, the 805
+   MB a decode step's layers pass through L2), beside the fastest SDPA
+   call. ``dekrr_solve`` and ``dekrr_async_solve``
    are timed in turns with their yardsticks (CHAIN_PAIRS pairs, the
    median of each), and each chain's time per round is printed beside
    the round kernel's.
@@ -89,12 +97,16 @@ The last line is ``{"ok": true, "device": {...}}``; any failed phase
 exits non-zero before it. Without a CUDA device the script exits
 non-zero. ``--cpu-rehearsal`` runs steps 4–6, 8 and 10 on the CPU at a
 small size (the kernels' plain versions; the LLM path on the reduced
-qwen1.5-0.5b), for the tests.
+qwen1.5-0.5b), for the tests. ``--decode-timings [--src DIR]`` runs only
+the ``flash_decode`` timings and the two decode steps of step 10 on the
+card, with the ``repro_torch`` package of DIR/.. (``src`` by default), so
+one call can time an earlier tree's kernel beside this one's.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -172,9 +184,11 @@ BIT_EQUAL_SHARE = 0.99   # bf16 kernel vs its plain version (sum order)
 # Decode attention: (B, H, K, dh, S, cur) of the kernel's phase — the
 # five cases of tests/test_kernels_decode.py, then the heads of
 # qwen1.5-0.5b (MHA), smollm-135m (GQA 3:1) and granite-3-8b (GQA 4:1,
-# dh 128) at the serving batch and cache length — and its timing shape
-# (B, H, K, dh, S): the registry's decode_32k length with the batch cut
-# from 128 to 8 so the f32 cache (2.15 GB) fits beside the rest.
+# dh 128) at the serving batch and cache length, and one long request of
+# qwen1.5-0.5b (B 1, S 32,768: 64 chunks of 512 positions) at its whole
+# length and one past a chunk edge — and its timing shapes (B, H, K, dh,
+# S): the registry's decode_32k length with the batch cut from 128 to 8 so
+# the f32 cache (2.15 GB) fits beside the rest, and one long request.
 DECODE_SHAPES = (
     (2, 8, 8, 64, 256, 200), (2, 8, 2, 64, 512, 512),
     (1, 16, 16, 128, 1024, 37), (4, 4, 1, 80, 300, 123),
@@ -182,9 +196,15 @@ DECODE_SHAPES = (
     (8, 16, 16, 64, 512, 1), (8, 16, 16, 64, 512, 37),
     (8, 16, 16, 64, 512, 512),
     (8, 9, 3, 64, 512, 37), (8, 9, 3, 64, 512, 512),
-    (8, 32, 8, 128, 512, 37), (8, 32, 8, 128, 512, 512))
+    (8, 32, 8, 128, 512, 37), (8, 32, 8, 128, 512, 512),
+    (1, 16, 16, 64, 32768, 32768), (1, 16, 16, 64, 32768, 513))
 DECODE_TOL = 2e-5     # the reference kernel's own tolerance (sum order)
 DECODE_TIMING = (8, 16, 16, 64, 32768)
+DECODE_LONG = (1, 16, 16, 64, 32768)
+# distinct serving caches launched in turn for the cold timing: one per
+# layer of qwen1.5-0.5b, 805 MB at B 8, S 512, so each launch finds its
+# cache evicted from the 50 MB L2 by the others, as a decode step does
+DECODE_COLD_CACHES = 24
 
 # LLM serving at qwen1.5-0.5b's full width and depth (seeded weights):
 # 16 requests, prompts of 16–128 tokens, 32 new tokens each, 8 slots over
@@ -1725,12 +1745,16 @@ def _decode_operands(b, h, kh, dh, s, seed):
 
 
 def flash_decode_phase() -> dict[str, float]:
-    """The decode-attention kernel against its plain version on the card
-    at DECODE_SHAPES, |got − plain| ≤ DECODE_TOL·(1 + |plain|); and at
-    each shape with a stale tail, the cache set to ±999 beyond cur_index
-    gives the same output bit for bit. Returns the largest error."""
+    """The decode-attention kernel against its split plain version (the
+    kernel's chunks, merged in chunk order) and its one-pass plain version
+    on the card at DECODE_SHAPES, |got − plain| ≤ DECODE_TOL·(1 + |plain|);
+    at each shape a second call gives the same bits and, with a stale tail,
+    the cache set to ±999 beyond cur_index gives the same output bit for
+    bit; at one long request a CUDA-graph replay gives the eager call's
+    bits. Returns the largest error."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.decode_attention import flash_decode_reference
+    from repro_torch.kernels.decode_attention import (
+        flash_decode_reference, flash_decode_split_reference)
 
     worst = 0.0
     for b, h, kh, dh, s, cur in DECODE_SHAPES:
@@ -1738,24 +1762,46 @@ def flash_decode_phase() -> dict[str, float]:
         q, k, v = _decode_operands(b, h, kh, dh, s, seed=s + cur)
         got = ops.flash_decode(q, k, v, cur)
         lens = torch.full((b * kh,), cur, dtype=torch.int32, device="cuda")
-        want = flash_decode_reference(q, k, v, lens)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        if not (torch.isfinite(got).all()
-                and (err <= DECODE_TOL * (1 + want.abs())).all()):
-            raise PhaseError(f"flash_decode {case}: disagrees with the "
-                             f"plain version beyond {DECODE_TOL:g} (max abs "
-                             f"err {err.max().item():.3e})")
-        worst = max(worst, err.max().item())
+        for plain in (flash_decode_split_reference, flash_decode_reference):
+            want = plain(q, k, v, lens)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            if not (torch.isfinite(got).all()
+                    and (err <= DECODE_TOL * (1 + want.abs())).all()):
+                raise PhaseError(f"flash_decode {case}: disagrees with "
+                                 f"{plain.__name__} beyond {DECODE_TOL:g} "
+                                 f"(max abs err {err.max().item():.3e})")
+            worst = max(worst, err.max().item())
+        if not torch.equal(ops.flash_decode(q, k, v, cur), got):
+            raise PhaseError(f"flash_decode {case}: two calls gave other bits")
         if cur < s:
             k[:, cur:] = 999.0
             v[:, cur:] = -999.0
             if not torch.equal(ops.flash_decode(q, k, v, cur), got):
                 raise PhaseError(f"flash_decode {case}: the cache beyond "
                                  f"cur_index changed the output")
+    b, h, kh, dh, s = DECODE_LONG
+    q, k, v = _decode_operands(b, h, kh, dh, s, seed=3)
+    eager = ops.flash_decode(q, k, v, s)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.flash_decode(q, k, v, s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ops.flash_decode(q, k, v, s)
+    for _ in range(2):
+        replayed.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(replayed, eager):
+            raise PhaseError("flash_decode: a CUDA-graph replay gave other "
+                             "bits than the eager call")
     print(f"flash_decode phase: pass ({len(DECODE_SHAPES)} shapes, max abs "
-          f"err {worst:.3e} against the plain version, stale tail bit for "
-          f"bit)", flush=True)
+          f"err {worst:.3e} against the split and one-pass plain versions, "
+          f"two calls, the stale tail and graph replays bit for bit)",
+          flush=True)
     return {"flash_decode": worst}
 
 
@@ -1978,43 +2024,125 @@ def sdpa_yardsticks(q, k, v, want, cur: int) -> dict:
     return dict(ms=best[0], call=best[1], table=same, default=default)
 
 
-def decode_timings() -> list[dict]:
+def decode_kernel_ms(b, h, kh, dh, s, cur, *, caches: int = 1) -> dict:
+    """flash_decode_cuda by CUDA events at (B, H, K, dh, S) and cur over
+    `caches` distinct caches launched in turn (1: the same cache again,
+    warm in L2 where it fits; DECODE_COLD_CACHES: each launch finds its
+    cache evicted by the others'), beside the least time the card could
+    take: K and V up to cur read once, q and lens read, out written, the
+    two products (softmax arithmetic not counted)."""
+    from repro_torch.kernels.decode_attention import flash_decode_cuda
+
+    sets = [_decode_operands(b, h, kh, dh, s, seed=1 + i)
+            for i in range(caches)]
+    q = sets[0][0]
+    lens = torch.full((b * kh,), cur, dtype=torch.int32, device="cuda")
+    out = torch.empty_like(q)
+    turn = itertools.cycle(sets)
+
+    def launch():
+        qi, ki, vi = next(turn)
+        flash_decode_cuda(qi, ki, vi, lens, out)
+
+    bms, by = bound_ms(2 * b * cur * kh * dh * 4 + nbytes(q, lens, out),
+                       4 * b * h * cur * dh, torch.float32)
+    ms = cuda_ms(launch, reps=max(20, 2 * caches))
+    return dict(ms=ms, bound_ms=bms, bound_by=by, operands=sets[0],
+                lens=lens, out=out)
+
+
+def decode_timings(*, yardsticks: bool = True) -> list[dict]:
     """The decode-attention kernel by CUDA events at DECODE_TIMING (the
-    registry's decode_32k length, cur = S), beside its plain version and
-    the fastest scaled_dot_product_attention call on the same inputs
-    (`sdpa_yardsticks`); and at the serving cache (S = LLM_MAX_SEQ, cur a
-    quarter of it and all of it) beside the fastest SDPA call there."""
-    from repro_torch.kernels.decode_attention import (flash_decode_cuda,
-                                                      flash_decode_reference)
-
-    def kernel_ms(b, h, kh, dh, s, cur):
-        q, k, v = _decode_operands(b, h, kh, dh, s, seed=1)
-        lens = torch.full((b * kh,), cur, dtype=torch.int32, device="cuda")
-        out = torch.empty_like(q)
-        # K and V up to cur read once, q and lens read, out written; the
-        # two products (softmax arithmetic not counted)
-        bound = bound_ms(2 * b * cur * kh * dh * 4 + nbytes(q, lens, out),
-                         4 * b * h * cur * dh, torch.float32)
-        return (q, k, v, lens, out, bound,
-                cuda_ms(lambda: flash_decode_cuda(q, k, v, lens, out)))
-
-    b, h, kh, dh, s = DECODE_TIMING
-    q, k, v, lens, out, (bms, by), ms = kernel_ms(b, h, kh, dh, s, s)
-    plain_ms = cuda_ms(lambda: flash_decode_reference(q, k, v, lens),
-                       reps=5, warmup=1)
-    sdpa = sdpa_yardsticks(q, k, v, out, s)
-    del q, k, v, out
+    registry's decode_32k length, cur = S) and DECODE_LONG (one long
+    request), each beside its plain version (the split one, the kernel's
+    chunks) and the fastest scaled_dot_product_attention call on the same
+    inputs (`sdpa_yardsticks`); and at the serving cache (S = LLM_MAX_SEQ,
+    cur a quarter of it and all of it) warm and cold beside the fastest
+    SDPA call there (warm). Without `yardsticks`, the kernel's times
+    only."""
+    rows = []
+    for name, (b, h, kh, dh, s) in (("flash_decode", DECODE_TIMING),
+                                    ("flash_decode@long", DECODE_LONG)):
+        t = decode_kernel_ms(b, h, kh, dh, s, s)
+        row = dict(name=name, kernel="flash_decode", route="cuda",
+                   source="src/repro_torch/kernels/csrc/flash_decode.cu",
+                   replaces="src/repro/kernels/decode_attention.py:89",
+                   shape=[b, h, kh, dh, s, s], ms=t["ms"],
+                   bound_ms=t["bound_ms"], bound_by=t["bound_by"])
+        if yardsticks:
+            from repro_torch.kernels.decode_attention import (
+                flash_decode_split_reference)
+            q, k, v = t["operands"]
+            row["plain_ms"] = cuda_ms(
+                lambda: flash_decode_split_reference(q, k, v, t["lens"]),
+                reps=5, warmup=1)
+            row["sdpa"] = sdpa_yardsticks(q, k, v, t["out"], s)
+            row["library_ms"] = row["sdpa"]["ms"]
+        rows.append(row)
+        del t
     serving = {}
     for cur in (LLM_MAX_SEQ // 4, LLM_MAX_SEQ):
-        sq, sk, sv, _, s_out, s_bound, s_ms = kernel_ms(
-            LLM_BATCH, 16, 16, 64, LLM_MAX_SEQ, cur)
-        serving[cur] = (s_bound, s_ms,
-                        sdpa_yardsticks(sq, sk, sv, s_out, cur))
-    return [dict(name="flash_decode", route="cuda",
-                 source="src/repro_torch/kernels/csrc/flash_decode.cu",
-                 replaces="src/repro/kernels/decode_attention.py:73",
-                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                 library_ms=sdpa["ms"], serving_ms=serving, sdpa=sdpa)]
+        shape = (LLM_BATCH, 16, 16, 64, LLM_MAX_SEQ, cur)
+        warm = decode_kernel_ms(*shape)
+        cold = decode_kernel_ms(*shape, caches=DECODE_COLD_CACHES)
+        serving[cur] = dict(warm_ms=warm["ms"], cold_ms=cold["ms"],
+                            bound_ms=warm["bound_ms"])
+        if yardsticks:
+            q, k, v = warm["operands"]
+            serving[cur]["sdpa"] = sdpa_yardsticks(q, k, v, warm["out"], cur)
+        del warm, cold
+    rows[0]["serving"] = serving
+    return rows
+
+
+def _decode_model(device: str = "cuda"):
+    """qwen1.5-0.5b at full width and depth with the engine's seeded
+    weights (ServeEngine(seed=0))."""
+    from repro_torch.models.model import Model, init_params
+
+    cfg = _llm_config()
+    return Model(cfg, init_params(
+        cfg, torch.Generator(device).manual_seed(0)))
+
+
+def long_step_ms(model) -> float:
+    """One decode step's device time at one long request: B 1 over a
+    DECODE_LONG-length cache at its last position (CUDA-graph replay)."""
+    s = DECODE_LONG[-1]
+    ms = graph_step_ms(model, 1, s, s - 1)
+    torch.cuda.empty_cache()
+    return ms
+
+
+def decode_timings_only(src: str | None) -> int:
+    """``--decode-timings``: the kernel's times of `decode_timings` and two
+    decode steps by graph replay (the serving cache at cur 128 and one
+    long request), with ``repro_torch`` imported from `src`, as one JSON
+    line after the card's line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if src is not None:
+        sys.path.insert(0, os.path.abspath(src))
+    import repro_torch
+
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = decode_timings(yardsticks=False)
+    model = _decode_model()
+    step_ms = graph_step_ms(model, LLM_BATCH, LLM_MAX_SEQ,
+                            LLM_MAX_SEQ // 4 - 1)
+    long_ms = long_step_ms(model)
+    print(card)
+    print(json.dumps({
+        "package": os.path.dirname(repro_torch.__file__),
+        "kernel_ms": {r["name"]: r["ms"] for r in rows},
+        "bound_ms": {r["name"]: r["bound_ms"] for r in rows},
+        "serving": {str(cur): {k: v for k, v in d.items()}
+                    for cur, d in rows[0]["serving"].items()},
+        "step_ms": {"serving cache (B 8, S 512, cur 128)": step_ms,
+                    "long request (B 1, S 32768, cur 32768)": long_ms}}))
+    return 0
 
 
 def check_launches(run: dict) -> None:
@@ -2193,6 +2321,7 @@ def run_on_card() -> int:
     step_pos = LLM_MAX_SEQ // 4 - 1
     device_ms = graph_step_ms(llm["engine"].model, LLM_BATCH, LLM_MAX_SEQ,
                               step_pos)
+    long_ms = long_step_ms(llm["engine"].model)
     rep = llm["report"]
     print(f"LLM serving [{card}] {cfg.name} (full width, {cfg.num_layers} "
           f"layers, seeded weights): {rep.count} requests in "
@@ -2206,7 +2335,9 @@ def run_on_card() -> int:
     print(f"LLM decode step on the device [{card}]: {device_ms:.3f} ms at "
           f"cur={step_pos + 1} (CUDA graph replay of the eager step), "
           f"{device_ms / (llm['secs'] / llm['steps'] * 1e3):.3f} of the "
-          f"eager step's wall time", flush=True)
+          f"eager step's wall time; at one long request (B=1, S=cur="
+          f"{DECODE_LONG[-1]}, CUDA graph replay) {long_ms:.3f} ms",
+          flush=True)
     print(f"LLM serving checks: pass (repeat run equal, one request == "
           f"sequential decode_step, {llm['replay_steps']} teacher-forced "
           f"steps: cuda vs torch max |Δlogit| {llm['rel']['torch']:.3e} of "
@@ -2238,18 +2369,25 @@ def run_on_card() -> int:
                   f"d=148, N={SERVE_N}): one launch {r['ms']:.4f} ms; the "
                   f"same wave as {J_NODES} single-node launches: "
                   f"{r.pop('per_node_ms'):.4f} ms")
-    serving = rows[-1].pop("serving_ms")
-    sdpa = rows[-1].pop("sdpa")
-    print(f"time [{card}] flash_decode yardstick: the fastest SDPA call on "
-          f"the same inputs is {sdpa['call']} at {sdpa['ms']:.4f} ms; every "
-          f"backend that agreed (ms): {json.dumps(sdpa['table'])}; kernels "
-          f"of the default dispatch: {json.dumps(sdpa['default'])}")
+    decode = [r for r in rows if r.get("kernel") == "flash_decode"]
+    serving = decode[0].pop("serving")
+    for r in decode:
+        sdpa = r.pop("sdpa")
+        print(f"time [{card}] {r['name']} yardstick at (B, H, K, dh, S, "
+              f"cur)={tuple(r['shape'])}: the fastest SDPA call on the same "
+              f"inputs is {sdpa['call']} at {sdpa['ms']:.4f} ms; every "
+              f"backend that agreed (ms): {json.dumps(sdpa['table'])}; "
+              f"kernels of the default dispatch: "
+              f"{json.dumps(sdpa['default'])}")
     print(f"time [{card}] flash_decode at the serving cache (B={LLM_BATCH}, "
-          f"H=K=16, dh=64, S={LLM_MAX_SEQ}): " + "; ".join(
-              f"cur={cur}: {ms:.4f} ms (bound {bound[0]:.4f} ms; the "
-              f"fastest SDPA call {yard['call']} {yard['ms']:.4f} ms, every "
-              f"backend that agreed (ms): {json.dumps(yard['table'])})"
-              for cur, (bound, ms, yard) in serving.items()))
+          f"H=K=16, dh=64, S={LLM_MAX_SEQ}; warm: one cache launched again, "
+          f"cold: {DECODE_COLD_CACHES} caches launched in turn): " + "; ".join(
+              f"cur={cur}: warm {d['warm_ms']:.4f} ms, cold "
+              f"{d['cold_ms']:.4f} ms (bound {d['bound_ms']:.4f} ms; the "
+              f"fastest SDPA call, warm, {d['sdpa']['call']} "
+              f"{d['sdpa']['ms']:.4f} ms, every backend that agreed (ms): "
+              f"{json.dumps(d['sdpa']['table'])})"
+              for cur, d in serving.items()))
     per_round = {r["name"]: r["ms"] / r.pop("rounds") for r in rows
                  if "rounds" in r}
     step_ms = next(r["ms"] for r in rows if r["name"] == "dekrr_step")
@@ -2285,8 +2423,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the main path on the CPU at a small size")
+    ap.add_argument("--decode-timings", action="store_true",
+                    help="time only flash_decode and two decode steps on "
+                         "the card")
+    ap.add_argument("--src", help="with --decode-timings: the directory "
+                    "that holds the repro_torch package to time")
     args = ap.parse_args(argv)
     try:
+        if args.decode_timings:
+            return decode_timings_only(args.src)
         return rehearse_on_cpu() if args.cpu_rehearsal else run_on_card()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

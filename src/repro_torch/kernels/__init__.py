@@ -18,8 +18,9 @@ version (sources in ``csrc/``).
                      in f64/f32 and the bf16 arrangement of
                      ``rff_features_lowp`` (``csrc/rff_features.cu``)
 * decode_attention.py — single-token GQA decode attention of the LLM
-                     serving path, reading the KV cache in place
-                     (``csrc/flash_decode.cu``)
+                     serving path, reading the KV cache in place, each
+                     row's positions split across blocks in chunks of
+                     ``decode_plan`` (``csrc/flash_decode.cu``)
 * ref.py           — plain featurize / Gram / decode-attention versions
 * ops.py           — the public wrappers (layout, checks, device dispatch,
                      launch counts)

@@ -76,7 +76,7 @@ SIGNATURES = {
         "rff_features_bf16": [_P] * 6 + [_I] * 8 + [_P],
     },
     "flash_decode": {
-        "flash_decode_f32": [_P] * 5 + [_L] * 4 + [_I] * 4
+        "flash_decode_f32": [_P] * 7 + [_L] * 4 + [_I] * 9
         + [ctypes.c_double, _P],
     },
 }

@@ -24,7 +24,8 @@ from _hypothesis_compat import given, settings, strategies as st
 from repro.kernels import ops as ref_ops
 from repro.models import layers as ref_layers
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import flash_decode_reference
+from repro_torch.kernels.decode_attention import (
+    decode_plan, flash_decode_reference, flash_decode_split_reference)
 from repro_torch.kernels.ref import chunked_decode_attention_ref
 from repro_torch.models import layers as L
 
@@ -38,6 +39,15 @@ CASES = [
     (1, 16, 16, 128, 1024, 37),     # qwen-ish heads, short valid prefix
     (4, 4, 1, 80, 300, 123),        # MQA, unaligned dh & S
     (3, 6, 3, 32, 96, 50),          # small everything
+]
+
+
+# the five cases, then len = 1 and len on the first chunk edge (512
+# positions at dh 64, `decode_plan`) and one past it
+SPLIT_CASES = CASES + [
+    (1, 4, 4, 64, 1024, 1),
+    (1, 4, 4, 64, 1024, 512),
+    (2, 4, 2, 64, 1100, 513),
 ]
 
 
@@ -83,6 +93,57 @@ def test_flash_decode_plain_version_matches_oracle(b, h, kh, dh, s, cur):
         scale=dh ** -0.5, mask=mask)[:, None]
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=DECODE_TOL,
                                atol=DECODE_TOL)
+
+
+_REF_DECODE = {}
+
+
+def _cached_ref_decode(case):
+    """The reference's interpret-mode kernel on a case's inputs, run once
+    per case."""
+    if case not in _REF_DECODE:
+        b, h, kh, dh, s, cur = case
+        q, k, v = decode_inputs(b, h, kh, dh, s, seed=7 * s + cur)
+        _REF_DECODE[case] = (q, k, v, ref_decode(q, k, v, cur))
+    return _REF_DECODE[case]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+@pytest.mark.parametrize("chunk", [None, 32], ids=["plan_chunk", "chunk32"])
+def test_flash_decode_split_reference_matches_reference(case, chunk):
+    """The kernel's split (each chunk's partial, merged in chunk order),
+    with decode_plan's chunk and with chunks of one 32-position tile,
+    against the one-pass plain version and the reference's Pallas kernel
+    in interpret mode, at the reference kernel's tolerance: the sums run
+    in another order."""
+    b, h, kh, dh, s, cur = case
+    q, k, v, want = _cached_ref_decode(case)
+    lens = torch.full((b * kh,), cur, dtype=torch.int32)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = flash_decode_split_reference(tq, tk, tv, lens, chunk=chunk)
+    assert got.shape == (b, 1, h, dh) and got.dtype == torch.float32
+    np.testing.assert_allclose(
+        got.numpy(), flash_decode_reference(tq, tk, tv, lens).numpy(),
+        rtol=DECODE_TOL, atol=DECODE_TOL)
+    np.testing.assert_allclose(got.numpy(), want, rtol=DECODE_TOL,
+                               atol=DECODE_TOL)
+
+
+def test_flash_decode_split_reference_takes_the_plan_chunk():
+    """By default the split cuts decode_plan's chunk, and a length past
+    one chunk merges more than one partial: the result moves with the
+    chunk only within the sum-order tolerance."""
+    q, k, v = (torch.from_numpy(a)
+               for a in decode_inputs(1, 4, 4, 64, 1100, seed=9))
+    lens = torch.full((4,), 1100, dtype=torch.int32)
+    assert decode_plan(4, 1, 64).chunk == 512
+    default = flash_decode_split_reference(q, k, v, lens)
+    assert torch.equal(default,
+                       flash_decode_split_reference(q, k, v, lens, chunk=512))
+    np.testing.assert_allclose(
+        default.numpy(),
+        flash_decode_split_reference(q, k, v, lens, chunk=1100 + 60).numpy(),
+        rtol=DECODE_TOL, atol=DECODE_TOL)
 
 
 @given(b=st.integers(1, 3), kh=st.integers(1, 4), g=st.integers(1, 4),

@@ -670,6 +670,11 @@ DECODE_SHAPES = [
     (8, 9, 3, 64, 512, 37), (8, 9, 3, 64, 512, 512),
     (8, 32, 8, 128, 512, 37), (8, 32, 8, 128, 512, 512),
 ]
+# one long request at qwen1.5-0.5b's heads (chunks of 512 positions), cur
+# of one position, on a chunk edge, one past it and the whole cache; GQA
+# 8:1 (two head blocks) and 3:1 at dh 128 over several chunks
+SPLIT_SHAPES = [(1, 16, 16, 64, 4096, cur) for cur in (1, 512, 513, 4096)] + [
+    (2, 16, 2, 64, 1100, 1000), (1, 12, 4, 128, 700, 700)]
 DECODE_TOL = 2e-5     # the reference kernel's tolerance (sum order)
 
 
@@ -682,18 +687,58 @@ def decode_case(b, h, kh, dh, s, seed, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h,kh,dh,s,cur", DECODE_SHAPES)
+@pytest.mark.parametrize("b,h,kh,dh,s,cur", DECODE_SHAPES + SPLIT_SHAPES)
 def test_gpu_flash_decode_matches_plain(cuda_device, b, h, kh, dh, s, cur):
-    from repro_torch.kernels.decode_attention import flash_decode_reference
+    """The kernel against its split plain version (the same chunks,
+    combined in chunk order) and the one-pass plain version."""
+    from repro_torch.kernels.decode_attention import (
+        flash_decode_reference, flash_decode_split_reference)
 
     q, k, v = decode_case(b, h, kh, dh, s, s + cur, cuda_device)
     got = ops.flash_decode(q, k, v, cur)
     lens = torch.full((b * kh,), cur, dtype=torch.int32, device=cuda_device)
+    split = flash_decode_split_reference(q, k, v, lens)
     want = flash_decode_reference(q, k, v, lens)
     torch.cuda.synchronize()
     assert got.shape == q.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, split, rtol=DECODE_TOL, atol=DECODE_TOL)
     torch.testing.assert_close(got, want, rtol=DECODE_TOL, atol=DECODE_TOL)
     assert ops.LAUNCHES["flash_decode"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kh,dh,s,cur", [DECODE_SHAPES[7]] + SPLIT_SHAPES)
+def test_gpu_flash_decode_gives_the_same_bits_every_call(cuda_device, b, h,
+                                                         kh, dh, s, cur):
+    """The chunks' partials are merged in chunk order whichever block
+    merges them, so two calls give the same bits."""
+    q, k, v = decode_case(b, h, kh, dh, s, 11, cuda_device)
+    first = ops.flash_decode(q, k, v, cur)
+    assert torch.equal(ops.flash_decode(q, k, v, cur), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cur", [513, 4096])
+def test_gpu_flash_decode_graph_replay_equals_eager(cuda_device, cur):
+    """ops.flash_decode captured in a CUDA graph and replayed three times
+    gives the eager call's bits every time: each launch leaves its row
+    counters at 0 for the next."""
+    q, k, v = decode_case(1, 16, 16, 64, 4096, 13, cuda_device)
+    eager = ops.flash_decode(q, k, v, cur)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.flash_decode(q, k, v, cur)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ops.flash_decode(q, k, v, cur)
+    for _ in range(3):
+        replayed.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
+    assert torch.equal(ops.flash_decode(q, k, v, cur), eager)
 
 
 @pytest.mark.gpu

@@ -2,9 +2,14 @@
 check them: `rff_gram`'s clusters, slices and workspace (and its wide
 route past the clusters' shared memory: passes of problems, N chunks and
 64×64 tiles), the featurize kernel's tiles, the round kernel's rows per
-cluster block, and the chain kernels' clusters (`chain_plan`)."""
+cluster block, the chain kernels' clusters (`chain_plan`), and the decode
+kernel's chunks, head blocks and workspace (`decode_plan`)."""
 import pytest
 
+from repro_torch.kernels.decode_attention import (DECODE_HEAD_BLOCKS,
+                                                  DECODE_LANE_GROUPS,
+                                                  DECODE_SMEM_LIMIT,
+                                                  DECODE_THREADS, decode_plan)
 from repro_torch.kernels.dekrr_solve import chain_plan
 
 from repro_torch.kernels.dekrr_step import (ROUND_CLUSTER, ROUND_WARPS,
@@ -313,3 +318,120 @@ def test_chain_plan_sizes_the_chebyshev_chain(j_nodes, clusters, dy):
     owned = [o * d_feat + a for c in range(blocks) for o in range(dy)
              for a in range(c * rows, min(d_feat, (c + 1) * rows))]
     assert sorted(owned) == list(range(dy * d_feat))
+
+
+# ------------------------------------------------------------------ decode
+# (rows = B·K, G, dh): qwen1.5-0.5b at one request and at the serving
+# batch, smollm-135m (G 3), granite-3-8b (G 4, dh 128), hubert-xlarge's dh
+# 80, jamba's G 8 (two head blocks), a dh-256 and a dh-4 edge
+DECODE_HEADS = [(16, 1, 64), (128, 1, 64), (24, 3, 64), (64, 4, 128),
+                (16, 1, 80), (8, 8, 128), (2, 4, 256), (3, 2, 4)]
+DECODE_CACHE = 32_768
+
+
+def _decode_lengths(chunk):
+    """Row lengths: 1, either side of the first chunk edge, on it, on the
+    second edge and the whole cache."""
+    return (1, chunk - 1, chunk, chunk + 1, 2 * chunk, DECODE_CACHE)
+
+
+def _chunk_positions(plan, length):
+    return [[p for p in range(c * plan.chunk,
+                              min((c + 1) * plan.chunk, length))]
+            for c in plan.active_chunks(length)]
+
+
+@pytest.mark.parametrize("rows,groups,dh", DECODE_HEADS)
+def test_decode_plan_active_chunks_cover_each_position_once(rows, groups,
+                                                            dh):
+    """The chunks a row of len positions runs cover [0, len) exactly once,
+    each holds at least one valid position, and all lie inside the grid
+    of a launch over any cache that holds len."""
+    plan = decode_plan(rows, groups, dh)
+    for length in _decode_lengths(plan.chunk):
+        cut = _chunk_positions(plan, length)
+        assert [p for ps in cut for p in ps] == list(range(length))
+        assert all(cut)
+        for s in (length, length + 4, DECODE_CACHE):
+            assert len(cut) <= plan.grid(s)[1] == -(-s // plan.chunk)
+
+
+@pytest.mark.parametrize("rows,groups,dh", DECODE_HEADS)
+def test_decode_plan_is_the_same_for_every_cache_and_length(rows, groups,
+                                                            dh):
+    """The plan is a function of (rows, G, dh): the chunk does not move
+    with the batch either, and a length cuts the same chunks out of a view
+    of any cache length (a strided view of cur + 4 positions, the int8
+    path's slice to cur, a graph replayed at new lengths)."""
+    plan = decode_plan(rows, groups, dh)
+    assert decode_plan(rows, groups, dh) == plan
+    assert {decode_plan(r, groups, dh).chunk for r in (1, 7, rows, 512)} \
+        == {plan.chunk}
+    assert plan.chunk % plan.tile == 0
+    assert plan.tile == plan.ppg * DECODE_LANE_GROUPS
+    assert plan.chunk * dh * 8 <= 256 << 10 or plan.chunk == plan.tile
+    for length in _decode_lengths(plan.chunk):
+        assert _chunk_positions(plan, length) == [
+            list(range(c * plan.chunk, min((c + 1) * plan.chunk, length)))
+            for c in range(-(-length // plan.chunk))]
+
+
+@pytest.mark.parametrize("rows,groups,dh", DECODE_HEADS)
+@pytest.mark.parametrize("s", [1, 512, 513, 4096, DECODE_CACHE])
+def test_decode_plan_workspace_holds_every_partial_once(rows, groups, dh,
+                                                       s):
+    """One (m, l, acc[dh]) record per (row, chunk, query head), packed
+    without gaps or overlaps into `workspace(s)` floats; one ticket per
+    (row, head block)."""
+    plan = decode_plan(rows, groups, dh)
+    chunks = plan.chunks(s)
+    assert plan.workspace(s) == rows * chunks * groups * (2 + dh)
+    offsets = sorted(plan.record(r, c, g, s) for r in range(rows)
+                     for c in range(chunks) for g in range(groups))
+    assert offsets == list(range(0, plan.workspace(s), 2 + dh))
+    assert plan.counters == rows * plan.head_blocks
+    assert plan.blocks(s) == rows * plan.head_blocks * chunks
+
+
+@pytest.mark.parametrize("groups", range(1, 10))
+def test_decode_plan_head_blocks_take_every_query_head_once(groups):
+    plan = decode_plan(4, groups, 64)
+    assert plan.head_block in DECODE_HEAD_BLOCKS
+    heads = [h for x in range(plan.head_blocks)
+             for h in range(x * plan.head_block,
+                            min(groups, (x + 1) * plan.head_block))]
+    assert heads == list(range(groups))
+    assert plan.head_blocks == 1 or plan.head_block == DECODE_HEAD_BLOCKS[-1]
+
+
+@pytest.mark.parametrize("rows,groups,dh", DECODE_HEADS)
+def test_decode_plan_ring_fits_shared_memory(rows, groups, dh):
+    """At least three ring stages of 32 or 64 positions of K and V (two a
+    lane group where such a stage is at most 32 KB), within what a block
+    may take; the idle ring holds the merge of the 8 warps' states (m, l,
+    acc[dh] per head) and the combine's (m, l, acc) per thread."""
+    plan = decode_plan(rows, groups, dh)
+    ring = plan.stages * 2 * plan.tile * dh
+    assert plan.stages in (3, 4) and plan.threads == DECODE_THREADS
+    assert plan.ppg == (2 if 2 * 64 * dh * 4 <= 32 << 10 else 1)
+    assert plan.smem_bytes == (ring + plan.head_block * dh) * 4
+    assert plan.smem_bytes <= DECODE_SMEM_LIMIT
+    assert ring >= DECODE_THREADS // 32 * plan.head_block * (2 + dh)
+    assert ring >= 3 * DECODE_THREADS
+    assert plan.blocks_per_sm >= 1
+
+
+def test_decode_plan_fills_the_card_at_one_long_request():
+    """qwen1.5-0.5b at B 1, S 32,768: 16 rows in chunks of 512 positions
+    give 1,024 blocks, at least two full waves of 132 SMs holding as many
+    blocks as their shared memory takes."""
+    plan = decode_plan(16, 1, 64)
+    assert plan.chunk == 512 and plan.blocks(DECODE_CACHE) == 1024
+    assert plan.blocks(DECODE_CACHE) >= 2 * 132 * plan.blocks_per_sm
+    assert plan.waves(DECODE_CACHE, sms=132) >= 2
+
+
+@pytest.mark.parametrize("dh", [0, 6, 66])
+def test_decode_plan_refuses_a_head_dim_off_the_float4_grid(dh):
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_plan(16, 1, dh)
