@@ -77,13 +77,27 @@
    p50/p99 per request and ms per decode step; one decode step's device
    time at the serving cache and at one long request (B 1, S 32,768, the
    last position: a 6.4 GB f32 cache) by CUDA-graph replay.
-11. Launch counts of each path and run, zeroed just before it, and
+11. The paper's experiments (``repro_torch.paper``) at the synthetic
+   stand-ins' full N: (a) Table 2's wave setting built with
+   ``gram_fn=ops.gram_fn_for_solver`` (40 ``rff_gram`` launches at B 1,
+   F 200, f32), θ from solve_exact within 2e-4 of the default solver's,
+   one Gram block against its plain version, and one DKLA run timed;
+   (b) Table 2 (DKLA, DKLA-DDRF, DeKRR-DDRF on the six stand-ins, three
+   seeds, the mean improvement beside the paper's 25.5%); (c) its houses
+   row for seed 0 from one set of CPU draws on the card and on the CPU,
+   the RSEs at rtol 1e-9 and the same c; (d) the iteration cost
+   (``pack_problem`` through ``rff_gram``, then ``solve_batched`` on
+   ``cuda_fused``), µs and bytes a round; (e) CentralizedKRR on wave's
+   31,800 pooled training columns (test RSE, time, peak memory), and at
+   1,000 columns against the CPU.
+12. Launch counts of each path and run, zeroed just before it, and
    ``pack_problem`` repeated warm.
-12. Kernel times by CUDA events (timed on the device, behind a spin that
+13. Kernel times by CUDA events (timed on the device, behind a spin that
    lets the host queue the launches first) beside their plain versions,
    a PyTorch yardstick and the least time the card could take; the
-   featurize kernel at the wave and at one node, ``rff_gram``'s wide
-   route at D_j = 600 with its two phases apart (the profiler's device
+   featurize kernel at the wave and at one node, ``rff_gram`` at the
+   shape ``gram_fn_for_solver`` gives it (row ``rff_gram@gram_fn``),
+   ``rff_gram``'s wide route at D_j = 600 with its two phases apart (the profiler's device
    time per kernel), and ``flash_decode`` at S 32,768 for B 8 and B 1 and
    at the serving cache (cur 128 and 512), there both warm (one cache
    launched again) and cold (24 distinct caches launched in turn, the 805
@@ -95,9 +109,9 @@
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase
 exits non-zero before it. Without a CUDA device the script exits
-non-zero. ``--cpu-rehearsal`` runs steps 4–6, 8 and 10 on the CPU at a
-small size (the kernels' plain versions; the LLM path on the reduced
-qwen1.5-0.5b), for the tests. ``--decode-timings [--src DIR]`` runs only
+non-zero. ``--cpu-rehearsal`` runs steps 4–6, 8, 10 and 11 on the CPU at
+a small size (the kernels' plain versions; the LLM path on the reduced
+qwen1.5-0.5b; Table 2 on two stand-ins at 600 samples), for the tests. ``--decode-timings [--src DIR]`` runs only
 the ``flash_decode`` timings and the two decode steps of step 10 on the
 card, with the ``repro_torch`` package of DIR/.. (``src`` by default), so
 one call can time an earlier tree's kernel beside this one's.
@@ -220,6 +234,15 @@ LLM_NEW_TOKENS = 32
 LLM_LOGIT_TOL = 1e-3
 # int8 vs f32 cache, the bound of test_int8_kv_cache_decode_close_to_bf16
 INT8_LOGIT_TOL = 0.05
+
+# the paper's experiments (repro_torch.paper): θ of a gram_fn solver
+# against the default one, the reference's tolerance for this pairing
+# (tests/test_kernels_rff.py::test_gram_fn_for_solver_integration)
+GRAM_FN_TOL = 2e-4
+PAPER_DBAR_WAVE = 200           # Table 2's D̄ for wave (paper.common)
+PAPER_PAIR = ("houses", 0)      # the Table 2 row run on the card and the CPU
+PAPER_RTOL = 1e-9               # card against CPU, float64
+KRR_CHECK_SUBSAMPLE = 2000      # CentralizedKRR card against CPU
 
 
 class PhaseError(RuntimeError):
@@ -2145,6 +2168,253 @@ def decode_timings_only(src: str | None) -> int:
     return 0
 
 
+# ------------------------------------------------------ the paper's experiments
+def _paper_rse_close(name: str, got: float, want: float) -> float:
+    if not (math.isfinite(got) and abs(got - want) <= PAPER_RTOL * abs(want)):
+        raise PhaseError(f"{name}: RSE {got!r} against {want!r} beyond rtol "
+                         f"{PAPER_RTOL:g}")
+    return abs(got - want)
+
+
+def paper_gram_fn(device: str, subsample: int | None, d_feat: int) -> dict:
+    """(a) Table 2's wave setting (D_j = 200 on the card, energy DDRF from
+    the generator, c = 0.01·N): the solver with `gram_fn_for_solver` (its 40
+    neighbour Gram blocks through `rff_gram` in f32) against the default
+    solver, θ from solve_exact within GRAM_FN_TOL; one Gram block against
+    the plain version in f32 on the same device (rtol 1e-4); and one
+    DKLA run (400 iterations) at the same setting, timed."""
+    from repro_torch.core import DeKRRConfig, DeKRRSolver, select_features
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rff_gram_ref
+    from repro_torch.paper import common as C
+
+    ds, train, test = C.load_split("wave", subsample=subsample,
+                                   device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    fmaps = [select_features(gen, ds.dim, d_feat, C.SIGMA, nd.x, nd.y,
+                             method="energy") for nd in train]
+    n = sum(nd.num_samples for nd in train)
+    cfg = DeKRRConfig(lam=C.LAM, c_nei=0.01 * n)
+    plain = DeKRRSolver(C.TOPOLOGY, fmaps, train, cfg, device=device)
+    fused, secs, launches = _launched(lambda: DeKRRSolver(
+        C.TOPOLOGY, fmaps, train, cfg, gram_fn=ops.gram_fn_for_solver,
+        device=device))
+    want = {"rff_gram": sum(C.TOPOLOGY.degree(j) for j in range(C.J))} \
+        if device == "cuda" else {}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise PhaseError(f"gram_fn aux build launch counts {got}, "
+                         f"expected {want}")
+    th_plain = plain.solve_exact().theta
+    th_fused = fused.solve_exact().theta
+    err = max((a - b).abs().max().item() for a, b in zip(th_fused, th_plain))
+    bad = any(((a - b).abs() > GRAM_FN_TOL + GRAM_FN_TOL * b.abs()).any()
+              for a, b in zip(th_fused, th_plain))
+    if bad or not all(torch.isfinite(a).all() for a in th_fused):
+        raise PhaseError(f"gram_fn solver θ differs from the default "
+                         f"solver's beyond rtol/atol {GRAM_FN_TOL:g} (max "
+                         f"abs err {err:.3e})")
+    fm, x = fused.feature_maps[0], fused.data[1].x
+    f32 = torch.float32
+    operands = (fm.omega.to(f32), fm.bias.to(f32), x.to(f32),
+                torch.zeros(x.shape[1], dtype=f32, device=x.device))
+    scale = math.sqrt(2.0 / fm.num_frequencies)
+    gram_err = compare("rff_gram@gram_fn",
+                       ops.gram_fn_for_solver(fm, x).to(f32),
+                       rff_gram_ref(*operands, scale=scale)[0], f32)
+    dkla = C.run_dkla(ds, train, test, d_feat, seed=50)
+    return dict(launches=launches, secs=secs, theta_err=err, dkla=dkla,
+                theta_scale=max(b.abs().max().item() for b in th_plain),
+                gram_err=gram_err, operands=operands, scale=scale,
+                shape=dict(B=1, F=fm.num_frequencies, d=ds.dim,
+                           N=x.shape[1]))
+
+
+def gram_fn_timing(g: dict) -> dict:
+    """`rff_gram` at the shape `gram_fn_for_solver` gives it (B 1, F 200,
+    f32), by CUDA events, beside its plain version, the `cos(addmm)` +
+    matmul yardstick and its bound (the projection and the upper
+    triangle)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rff_gram_ref
+
+    om, bi, x, y = g["operands"]
+    f, dim = om.shape
+    n = x.shape[1]
+    flops = 2 * f * dim * n + f * (f + 1) * n
+    bms, by = bound_ms(nbytes(om, bi, x, y) + (f * f + f) * 4, flops,
+                       torch.float32)
+
+    def library():
+        z = torch.cos(torch.addmm(bi[:, None], om, x)) * g["scale"]
+        return z @ z.T, z @ y
+
+    return dict(name="rff_gram@gram_fn", route="cuda",
+                source="src/repro_torch/kernels/csrc/rff_gram.cu",
+                replaces="src/repro/kernels/rff_gram.py:70",
+                shape=g["shape"],
+                ms=cuda_ms(lambda: ops.rff_gram(om, bi, x, y,
+                                                scale=g["scale"])),
+                plain_ms=cuda_ms(lambda: rff_gram_ref(om, bi, x, y,
+                                                      scale=g["scale"])),
+                bound_ms=bms, bound_by=by, library_ms=cuda_ms(library))
+
+
+def paper_pair(devices: tuple, subsample: int | None) -> dict:
+    """(c) One Table 2 row (houses, seed 0) from the same draws (a CPU
+    generator's, moved to each device) on each device: the three methods'
+    RSEs agree at rtol 1e-9 and the same c is chosen."""
+    from repro_torch.core import sample_rff
+    from repro_torch.paper import common as C
+
+    name, seed = PAPER_PAIR
+    dbar = C.PAPER_DBAR[name]
+    splits = {dev: C.load_split(name, subsample=subsample, device=dev)
+              for dev in devices}
+    dim = splits[devices[0]][0].dim
+    gen = torch.Generator().manual_seed(seed)
+    pools = [sample_rff(gen, dim, 20 * dbar, C.SIGMA) for _ in range(C.J)]
+    fmap = sample_rff(gen, dim, dbar, C.SIGMA)
+    dd_pool = sample_rff(gen, dim, 20 * dbar, C.SIGMA)
+    out = {}
+    for dev, (ds, train, test) in splits.items():
+        out[dev] = dict(
+            dkla=C.run_dkla(ds, train, test, dbar, seed=50 + seed,
+                            fmap=fmap),
+            dkla_ddrf=C.run_dkla(ds, train, test, dbar, ddrf=True,
+                                 seed=50 + seed, candidates=dd_pool),
+            ours=C.run_dekrr_ddrf(ds, train, test, dbar, seed=seed,
+                                  candidates=pools))
+    first, second = (out[d] for d in devices)
+    errs = {k: _paper_rse_close(f"{name} seed {seed} {k}", first[k].rse,
+                                second[k].rse) for k in first}
+    if first["ours"].c != second["ours"].c:
+        raise PhaseError(f"{name} seed {seed}: c {first['ours'].c} chosen "
+                         f"on {devices[0]}, {second['ours'].c} on "
+                         f"{devices[1]}")
+    return dict(runs=out, errs=errs, c=first["ours"].c)
+
+
+def paper_krr(device: str, subsample: int | None) -> dict:
+    """(e) CentralizedKRR on wave's pooled training split (31,800 columns
+    at full N): test RSE, wall time and peak device memory; the same fit
+    at KRR_CHECK_SUBSAMPLE held against the CPU (rtol 1e-9, atol
+    1e-11·max|f|: K + λN I is conditioned near 1e6 at that size)."""
+    from repro_torch.core import CentralizedKRR, rse
+    from repro_torch.data.synthetic import pooled
+    from repro_torch.paper import common as C
+
+    def fit(dev, sub):
+        _, train, test = C.load_split("wave", subsample=sub, device=dev)
+        tr, te = pooled(train), pooled(test)
+        model = CentralizedKRR(C.SIGMA, C.LAM).fit(tr.x, tr.y)
+        return model.predict(te.x), te.y, tr.x.shape[1]
+
+    small = min(KRR_CHECK_SUBSAMPLE, subsample or KRR_CHECK_SUBSAMPLE)
+    got, _, small_cols = fit(device, small)
+    want, _, _ = fit("cpu", small)
+    err = (got.cpu() - want).abs()
+    scale = want.abs().max().item()
+    if (err > PAPER_RTOL * want.abs() + 1e-11 * scale).any():
+        raise PhaseError(f"CentralizedKRR on {device} differs from the CPU "
+                         f"(max abs err {err.max().item():.3e})")
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pred, y, cols = fit(device, subsample)
+    r = rse(pred, y)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    if not (math.isfinite(r) and pred.shape == y.shape):
+        raise PhaseError(f"CentralizedKRR: RSE {r}, prediction shape "
+                         f"{tuple(pred.shape)} for {tuple(y.shape)}")
+    del pred
+    return dict(rse=r, secs=secs, peak_gib=peak, cols=cols,
+                check_err=err.max().item(), check_cols=small_cols)
+
+
+def paper_phase(device: str, *, subsample: int | None, fast: bool,
+                gram: tuple[int | None, int]) -> dict:
+    """The paper's experiments through `repro_torch.paper`: (a) gram_fn
+    through `rff_gram`, (b) Table 2, (c) one row on the card and the CPU,
+    (d) the iteration cost, (e) CentralizedKRR. ``gram`` is (a)'s
+    (subsample, D_j). Each part runs with the launch counts zeroed just
+    before it and read just after."""
+    from repro_torch.paper import comm_costs, table2
+
+    t0 = time.perf_counter()
+    g = paper_gram_fn(device, *gram)
+    rows, t_table, table_launches = _launched(
+        lambda: table2.run(fast=fast, subsample=subsample, device=device))
+    pair = paper_pair((device, "cpu"), subsample)
+    cost, _, cost_launches = _launched(
+        lambda: comm_costs.iteration_cost(subsample=subsample,
+                                          device=device))
+    if device == "cuda" and not (cost_launches["rff_gram"]
+                                 and cost_launches["dekrr_solve"]):
+        raise PhaseError(f"iteration_cost launched {cost_launches}: "
+                         f"rff_gram and dekrr_solve expected")
+    krr = paper_krr(device, subsample)
+    for r in rows:
+        if not all(math.isfinite(v) for v in r[2:]):
+            raise PhaseError(f"Table 2 row {r} is not finite")
+    return dict(gram=g, rows=rows, t_table=t_table, subsample=subsample,
+                table_launches={k: v for k, v in table_launches.items()
+                                if v},
+                pair=pair, cost=cost,
+                cost_launches={k: v for k, v in cost_launches.items() if v},
+                krr=krr, secs=time.perf_counter() - t0)
+
+
+def print_paper_phase(pp: dict, card: str) -> None:
+    g, krr, pair = pp["gram"], pp["krr"], pp["pair"]
+    rows = pp["rows"]
+    print(f"paper (a) gram_fn [{card}]: wave aux build with "
+          f"gram_fn_for_solver {g['secs'] * 1e3:.1f} ms, launches "
+          f"{json.dumps({k: v for k, v in g['launches'].items() if v})}; "
+          f"θ against the default solver max abs err {g['theta_err']:.3e} "
+          f"(max |θ| {g['theta_scale']:.3e}, tolerance {GRAM_FN_TOL:g}); "
+          f"one Gram block against rff_gram_ref in f32 max abs err "
+          f"{g['gram_err']:.3e}; one DKLA run (400 iterations, D "
+          f"{g['shape']['F']}) {g['dkla'].seconds * 1e3:.1f} ms, RSE "
+          f"{g['dkla'].rse:.6f}")
+    for name, dbar, r_dkla, r_dd, r_ours, imp in rows:
+        print(f"paper (b) Table 2 [{card}] {name} D={dbar}: DKLA "
+              f"{r_dkla:.6f}, DKLA-DDRF {r_dd:.6f}, DeKRR-DDRF {r_ours:.6f}, "
+              f"improvement {imp:.2f}%")
+    mean_imp = sum(r[5] for r in rows) / len(rows)
+    print(f"paper (b) Table 2 [{card}]: mean improvement over DKLA "
+          f"{mean_imp:.2f}% (paper_claims=25.5%), {len(rows)} datasets at "
+          + ("full N" if pp["subsample"] is None
+             else f"N ≤ {pp['subsample']}")
+          + f", wall {pp['t_table']:.1f} s, kernel launches "
+          f"{json.dumps(pp['table_launches'])}")
+    runs = pair["runs"]
+    print(f"paper (c) {PAPER_PAIR[0]} seed {PAPER_PAIR[1]} [{card}] vs CPU "
+          f"(same draws): " + "; ".join(
+              f"{k} {r.rse:.12f} ({r.seconds:.2f} s, CPU "
+              f"{runs['cpu'][k].seconds:.2f} s, |Δ| {pair['errs'][k]:.2e})"
+              for k, r in runs[next(iter(runs))].items())
+          + f"; c = {pair['c']} on both")
+    cost = pp["cost"]
+    print(f"paper (d) iteration cost [{card}]: {cost['us_per_round']:.2f} "
+          f"µs a round (solve_batched cuda_fused, host clock), "
+          f"ppermute {cost['ppermute_bytes']} B and allgather "
+          f"{cost['allgather_bytes']} B a round; launches "
+          f"{json.dumps(pp['cost_launches'])}")
+    wave = next((r[4] for r in rows if r[0] == "wave"), float("nan"))
+    print(f"paper (e) CentralizedKRR [{card}] on wave's pooled training "
+          f"split ({krr['cols']} columns): test RSE {krr['rse']:.6f} beside "
+          f"DeKRR-DDRF {wave:.6f}, {krr['secs']:.2f} s, peak device memory "
+          + ("not measured" if krr["peak_gib"] is None
+             else f"{krr['peak_gib']:.1f} GiB")
+          + f"; against the CPU at {krr['check_cols']} columns max abs err "
+          f"{krr['check_err']:.3e}")
+    print(f"paper phase [{card}]: {pp['secs']:.1f} s")
+
+
 def check_launches(run: dict) -> None:
     got = {k: v for k, v in run["launches"].items() if v}
     rounds = run["rounds"]
@@ -2161,9 +2431,10 @@ def _llm_config():
 
 
 def rehearse_on_cpu() -> int:
-    """The main, async, Chebyshev, serving and LLM serving paths on the
-    CPU at a small size (plain kernel versions; the LLM path on
-    qwen1.5-0.5b's reduced configuration)."""
+    """The main, async, Chebyshev, serving, LLM serving and paper paths
+    on the CPU at a small size (plain kernel versions; the LLM path on
+    qwen1.5-0.5b's reduced configuration; the paper's Table 2 on its
+    first two datasets)."""
     run = main_path("cpu", subsample=2000, d_per_node=12, num_iters=200)
     checks = check_main_path(run)
     a = async_path(run, rounds=300)
@@ -2176,6 +2447,8 @@ def rehearse_on_cpu() -> int:
     llm = llm_path("cpu", llm_cfg, requests=6, batch=4, max_seq=64,
                    prompt=(4, 16), new_tokens=8)
     check_llm_path(llm, llm_cfg, on_card=False)
+    pp = paper_phase("cpu", subsample=600, fast=True, gram=(2000, 12))
+    print_paper_phase(pp, "cpu")
     summary = dict(rounds=run["rounds"], rse=run["rse"],
                    launches=run["launches"], exact_err=checks["exact_err"],
                    rho=checks["rho"], async_err=a_checks["err"],
@@ -2187,7 +2460,9 @@ def rehearse_on_cpu() -> int:
                    serve_waves={str(p): r["waves"]
                                 for p, r in sv["runs"].items()},
                    llm_steps=llm["steps"], llm_tokens=llm["tokens"],
-                   llm_logit_rel=llm["rel"])
+                   llm_logit_rel=llm["rel"],
+                   paper_rows=[r[:5] for r in pp["rows"]],
+                   paper_krr_rse=pp["krr"]["rse"])
     print(json.dumps({"cpu_rehearsal": summary}))
     return 0
 
@@ -2345,12 +2620,19 @@ def run_on_card() -> int:
           f"int8 cache {llm['rel']['int8']:.3e} (tolerance "
           f"{INT8_LOGIT_TOL:g}))")
 
+    pp = paper_phase("cuda", subsample=None, fast=False,
+                     gram=(None, PAPER_DBAR_WAVE))
+    print_paper_phase(pp, card)
+    errs["rff_gram@gram_fn"] = pp["gram"]["gram_err"]
+
     launches = dict(run["launches"], dekrr_step_masked=a_launches[
         "dekrr_step_masked"], dekrr_async_solve=a_launches[
         "dekrr_async_solve"], dekrr_cheb_solve=c_launches["dekrr_cheb_solve"],
         flash_decode=llm["launches"]["flash_decode"], **serve_launches)
+    launches["rff_gram@gram_fn"] = pp["gram"]["launches"]["rff_gram"]
     rows = timings(run["packed"], run) + chain_timings(run, a, c) \
-        + feature_timings(run) + decode_timings()
+        + feature_timings(run) + decode_timings() \
+        + [gram_fn_timing(pp["gram"])]
     wide = gram_wide_timing()
     plan = wide["plan"]
     print(f"time [{card}] rff_gram wide route at (B, F, d, N)="

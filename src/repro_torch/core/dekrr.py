@@ -23,7 +23,7 @@ kernels; the tests hold it to this solver.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -137,7 +137,10 @@ class DeKRRSolver:
     the caller names another; see `repro_torch.resolve_device`).
     ``build_aux=False`` defers the ragged Eq. 17 build until `aux` is
     first read — `repro_torch.dist.pack_problem` recomputes Eq. 17
-    batched and never needs it.
+    batched and never needs it. ``gram_fn(fmap, x)`` replaces the
+    neighbour Gram blocks Z_{i,j} Z_{i,j}ᵀ of Eq. 17
+    (`repro_torch.kernels.ops.gram_fn_for_solver` forms them with the
+    `rff_gram` kernel); bagged nodes cannot take it.
     """
 
     def __init__(
@@ -148,6 +151,8 @@ class DeKRRSolver:
         config: DeKRRConfig = DeKRRConfig(),
         *,
         c_nei_per_node: Sequence[float] | None = None,
+        gram_fn: Callable[[FeatureMap, torch.Tensor], torch.Tensor]
+        | None = None,
         build_aux: bool = True,
         device: str | torch.device | None = None,
     ):
@@ -160,6 +165,14 @@ class DeKRRSolver:
         self.feature_maps = [fm.to(self.device) for fm in feature_maps]
         self.data = [nd.to(self.device) for nd in data]
         _validate_data(self.data)
+        if gram_fn is not None and any(nd.bags is not None
+                                       for nd in self.data):
+            raise ValueError(
+                "gram_fn bypasses featurization, so the bag-aggregation "
+                "operator cannot be applied to its Gram blocks — "
+                "aggregate-observation nodes require the default "
+                "featurize path")
+        self._gram_fn = gram_fn
         self.config = config
         self.J = topology.num_nodes
         self.N = sum(nd.num_samples for nd in self.data)
@@ -203,6 +216,8 @@ class DeKRRSolver:
         return self._agg_cols(self.cross_features(i, j), j)
 
     def _gram(self, i: int, j: int) -> torch.Tensor:
+        if self._gram_fn is not None:
+            return self._gram_fn(self.feature_maps[i], self.data[j].x)
         z = self.obs_features(i, j)
         return z @ z.T
 

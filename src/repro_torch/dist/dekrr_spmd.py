@@ -154,9 +154,9 @@ def pack_problem(solver, *, method: str = "batched",
     ``gram_backend`` picks how its Z Zᵀ blocks are formed: ``"cuda"``
     (the `rff_gram` kernel, cos_bias maps only — cos_sin maps use the
     torch matmuls; the default) or ``"torch"``. ``method="aux"`` copies
-    the solver's ragged auxiliaries; bagged solvers and mixed feature
-    kinds are downgraded to it with a warning, unless ``"cuda"`` was
-    asked for by name, which then raises.
+    the solver's ragged auxiliaries; bagged solvers, solvers with a
+    ``gram_fn`` and mixed feature kinds are downgraded to it with a
+    warning, unless ``"cuda"`` was asked for by name, which then raises.
 
     The packed tensors live on ``device`` (the card unless the caller
     names another).
@@ -170,9 +170,12 @@ def pack_problem(solver, *, method: str = "batched",
     device = resolve_device(device)
     kinds = {fm.kind for fm in solver.feature_maps}
     has_bags = any(nd.bags is not None for nd in solver.data)
-    if method == "batched" and (len(kinds) > 1 or has_bags):
-        reason = ("the solver has aggregate-observation (bagged) nodes, "
-                  "whose Agg operator only the ragged build applies"
+    has_gram_fn = solver._gram_fn is not None
+    if method == "batched" and (len(kinds) > 1 or has_gram_fn or has_bags):
+        reason = ("the solver has a custom gram_fn" if has_gram_fn
+                  else "the solver has aggregate-observation (bagged) "
+                       "nodes, whose Agg operator only the ragged build "
+                       "applies"
                   if has_bags
                   else f"the solver mixes feature kinds {sorted(kinds)}")
         if gram_backend == "cuda":
@@ -180,7 +183,8 @@ def pack_problem(solver, *, method: str = "batched",
                 f"pack_problem(gram_backend='cuda') is impossible here: "
                 f"{reason}, which only the ragged method='aux' build "
                 f"honors, and that build ignores gram_backend. Pass "
-                f"gram_backend='torch' or use a uniform cos_bias solver.")
+                f"gram_backend='torch' or use a uniform cos_bias solver "
+                f"without gram_fn.")
         warnings.warn(
             f"pack_problem(method='batched') downgraded to method='aux': "
             f"{reason}. The aux build is a per-node Python loop — expect "

@@ -23,7 +23,8 @@ version (sources in ``csrc/``).
                      ``decode_plan`` (``csrc/flash_decode.cu``)
 * ref.py           — plain featurize / Gram / decode-attention versions
 * ops.py           — the public wrappers (layout, checks, device dispatch,
-                     launch counts)
+                     launch counts), and ``gram_fn_for_solver``, the
+                     solver's ``gram_fn`` through ``rff_gram``
 * _build.py        — nvcc build of ``csrc/*.cu`` and ctypes loading
 
 Nothing is compiled at import; the first CUDA launch builds its kernel.
@@ -31,9 +32,11 @@ Nothing is compiled at import; the first CUDA launch builds its kernel.
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import (dekrr_async_solve, dekrr_cheb_solve,
                                      dekrr_solve, dekrr_step, flash_decode,
-                                     rff_features, rff_features_lowp,
-                                     rff_gram, rff_gram_batched)
+                                     gram_fn_for_solver, rff_features,
+                                     rff_features_lowp, rff_gram,
+                                     rff_gram_batched)
 
 __all__ = ["dekrr_async_solve", "dekrr_cheb_solve", "dekrr_solve",
-           "dekrr_step", "flash_decode", "ops", "rff_features",
-           "rff_features_lowp", "rff_gram", "rff_gram_batched"]
+           "dekrr_step", "flash_decode", "gram_fn_for_solver", "ops",
+           "rff_features", "rff_features_lowp", "rff_gram",
+           "rff_gram_batched"]

@@ -31,6 +31,7 @@ WideGramPlan`).
 from __future__ import annotations
 
 import functools
+import math
 import threading
 
 import numpy as np
@@ -370,6 +371,22 @@ def _launch_rff_gram(omega, bias, x, y, col_mask, scale, dtype):
     rff_gram_cuda(omega, bias, x, y, col_mask, gram, zy, scale=scale)
     _count("rff_gram")
     return gram, zy
+
+
+def gram_fn_for_solver(fmap, x: torch.Tensor) -> torch.Tensor:
+    """Drop-in ``gram_fn`` for `repro_torch.core.DeKRRSolver`: Z(Ω, X)
+    Z(Ω, X)ᵀ through `rff_gram` (the kernel on CUDA tensors, its plain
+    version on CPU ones), cos_bias maps only, computed in float32 as the
+    reference's; the result is cast back to ``x.dtype``."""
+    if fmap.kind != "cos_bias":
+        raise NotImplementedError("fused gram kernel supports cos_bias maps")
+    # √(2/D) in float64, rounded to f32 where the kernel applies it
+    scale = math.sqrt(2.0 / fmap.num_frequencies)
+    dtype = torch.float32
+    g, _ = rff_gram(fmap.omega.to(dtype), fmap.bias.to(dtype), x.to(dtype),
+                    torch.zeros(x.shape[1], dtype=dtype, device=x.device),
+                    scale=scale)
+    return g.to(x.dtype)
 
 
 # -------------------------------------------------------------- Eq. 19 round

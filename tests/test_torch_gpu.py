@@ -799,3 +799,87 @@ def test_gpu_decode_step_launches_flash_decode_per_layer(cuda_device):
         torch.testing.assert_close(out["cuda"], out["torch"], rtol=1e-4,
                                    atol=1e-4 * out["torch"].abs().max())
     assert ops.LAUNCHES["flash_decode"] == 6 * cfg.num_layers
+
+
+# ------------------------------------------------------ the paper's slice
+# gram_fn_for_solver at the paper's shapes (F, d, N): Table 2's D̄ on
+# houses, twitter and wave at full N (N_j training columns), and F 100
+GRAM_FN_SHAPES = [(70, 8, 1032), (130, 77, 4935), (200, 148, 3180),
+                  (100, 27, 987)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,dim,n", GRAM_FN_SHAPES)
+def test_gpu_gram_fn_for_solver_matches_plain(cuda_device, f, dim, n):
+    from repro_torch.kernels.ref import rff_gram_ref
+    rng = np.random.default_rng(f + n)
+    omega = rng.normal(size=(f, dim))
+    bias = rng.uniform(0, 2 * np.pi, f)
+    x = rng.uniform(size=(dim, n))
+    fm = interop.feature_map_from_arrays(omega, bias, "cos_bias",
+                                         device=cuda_device)
+    got = ops.gram_fn_for_solver(fm, torch.as_tensor(x, device=cuda_device))
+    assert ops.launch_counts()["rff_gram"] == 1
+    assert got.dtype == torch.float64
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                    device=cuda_device)
+    want, _ = rff_gram_ref(f32(omega), f32(bias), f32(x),
+                           torch.zeros(n, dtype=torch.float32,
+                                       device=cuda_device),
+                           scale=float(np.sqrt(2.0 / f)))
+    assert_close(got.float(), want, rtol=1e-4)
+
+
+def _paper_split(name, subsample, device):
+    from repro_torch.paper import common as C
+    return C.load_split(name, subsample=subsample, device=device)
+
+
+@pytest.mark.gpu
+def test_gpu_dkla_matches_the_cpu(cuda_device):
+    from repro_torch.core import DKLA, DKLAConfig, circulant, sample_rff
+    ds, train_c, test_c = _paper_split("houses", 4000, "cpu")
+    _, train_g, _ = _paper_split("houses", 4000, cuda_device)
+    fm = sample_rff(torch.Generator().manual_seed(3), ds.dim, 70, 1.0)
+    cfg = DKLAConfig(num_iters=250)
+    cpu = DKLA(circulant(10, (1, 2)), fm, train_c, cfg, device="cpu")
+    gpu = DKLA(circulant(10, (1, 2)), fm, train_g, cfg, device=cuda_device)
+    th_c, th_g = cpu.solve(), gpu.solve()
+    for a, b in zip(th_g, th_c):
+        assert_close(a, b)
+    x = test_c[2].x
+    for node in (None, 4):
+        assert_close(gpu.predict(th_g, x.to(cuda_device), node=node),
+                     cpu.predict(th_c, x, node=node))
+
+
+@pytest.mark.gpu
+def test_gpu_centralized_krr_matches_the_cpu(cuda_device):
+    """rtol 1e-9 beside an atol of 1e-11·max|f|: K + λN I is conditioned
+    near 1e6 at this size, so a prediction near zero carries the
+    summation order's error absolutely."""
+    from repro_torch.core import CentralizedKRR
+    from repro_torch.data.synthetic import pooled
+    _, train, test = _paper_split("houses", 3000, "cpu")
+    tr, te = pooled(train), pooled(test)
+    cpu = CentralizedKRR(1.0, 1e-6).fit(tr.x, tr.y).predict(te.x)
+    gpu = CentralizedKRR(1.0, 1e-6).fit(
+        tr.x.to(cuda_device), tr.y.to(cuda_device)).predict(te.x)
+    want = cpu.numpy()
+    np.testing.assert_allclose(gpu.cpu().numpy(), want, rtol=1e-9,
+                               atol=1e-11 * np.abs(want).max())
+
+
+@pytest.mark.gpu
+def test_gpu_run_dekrr_ddrf_matches_the_cpu(cuda_device):
+    from repro_torch.core import sample_rff
+    from repro_torch.paper import common as C
+    dbar = 70
+    ds, tr_c, te_c = _paper_split("houses", 6000, "cpu")
+    _, tr_g, te_g = _paper_split("houses", 6000, cuda_device)
+    gen = torch.Generator().manual_seed(0)
+    pools = [sample_rff(gen, ds.dim, 20 * dbar, C.SIGMA) for _ in range(C.J)]
+    cpu = C.run_dekrr_ddrf(ds, tr_c, te_c, dbar, candidates=pools)
+    gpu = C.run_dekrr_ddrf(ds, tr_g, te_g, dbar, candidates=pools)
+    np.testing.assert_allclose(gpu.rse, cpu.rse, rtol=1e-9)
+    assert gpu.c == cpu.c
