@@ -90,9 +90,29 @@
    ``cuda_fused``), µs and bytes a round; (e) CentralizedKRR on wave's
    31,800 pooled training columns (test RSE, time, peak memory), and at
    1,000 columns against the CPU.
-12. Launch counts of each path and run, zeroed just before it, and
+12. The streaming runtime (``repro_torch.stream``) at the main path's
+   width, on its maps and training columns with the stream bench's λ
+   1e-3, c_nei 0.02·N and tol 1e-8 (``repro_torch.bench.stream_bench``,
+   ``cuda_fused``, tol checked every round): init; Woodbury folds at
+   b ∈ {8, 32, 128} timed beside the cold rebuild (``pack_problem``) and
+   then ingested; four epochs of 16-column batches at nodes 0, 3 and 7,
+   each a warm and a cold solve on the same operator (warm fewer rounds
+   in every epoch, ``cuda_fused`` == ``cuda`` bit for bit from the same
+   θ0, both against the torch backend); a refresh of node 1 at D 200
+   and of node 2 grown to 240 (re-pad), every other node's inverse kept
+   bit for bit; ``to_packed`` against ``pack_problem`` of the stream's
+   ``reference_solver()`` after the ingests and after each refresh at
+   rtol 1e-9 where cond(A_j) ≤ 1e6 (cond printed); the sync schedule
+   replayed on the CPU through the torch backend, θ and state at rtol
+   1e-9; an async epoch (the masked round at tol 1e-8, then 500 rounds
+   of the async chain); 512 queries through ``DeKRRServeEngine(rt)``
+   equal to ``rt.predict`` at rtol 1e-12, each with the stream's
+   staleness; an interleaved ingest–solve–publish loop against a
+   2-replica server, every answer equal to a clean serve of the one
+   snapshot its staleness names; the path's launches of each kernel.
+13. Launch counts of each path and run, zeroed just before it, and
    ``pack_problem`` repeated warm.
-13. Kernel times by CUDA events (timed on the device, behind a spin that
+14. Kernel times by CUDA events (timed on the device, behind a spin that
    lets the host queue the launches first) beside their plain versions,
    a PyTorch yardstick and the least time the card could take; the
    featurize kernel at the wave and at one node, ``rff_gram`` at the
@@ -109,9 +129,12 @@
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase
 exits non-zero before it. Without a CUDA device the script exits
-non-zero. ``--cpu-rehearsal`` runs steps 4–6, 8, 10 and 11 on the CPU at
-a small size (the kernels' plain versions; the LLM path on the reduced
-qwen1.5-0.5b; Table 2 on two stand-ins at 600 samples), for the tests. ``--decode-timings [--src DIR]`` runs only
+non-zero, and so does a copy of the script without ``src/repro_torch``
+beside it, after one line naming where it looked. ``--cpu-rehearsal``
+runs steps 4–6, 8, 10, 11 and 12 on the CPU at a small size (the
+kernels' plain versions; the LLM path on the reduced qwen1.5-0.5b;
+Table 2 on two stand-ins at 600 samples; the stream on the rehearsal's
+12 features a node), for the tests. ``--decode-timings [--src DIR]`` runs only
 the ``flash_decode`` timings and the two decode steps of step 10 on the
 card, with the ``repro_torch`` package of DIR/.. (``src`` by default), so
 one call can time an earlier tree's kernel beside this one's.
@@ -119,6 +142,7 @@ one call can time an earlier tree's kernel beside this one's.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -128,13 +152,14 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+sys.path.insert(0, SRC_DIR)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the f64
 # tensor-core rate (f32 outside the tensor cores has the same rate) and
@@ -194,6 +219,19 @@ PRECISIONS = (None, "bf16", "int8")
 U_BF16 = 2.0 ** -8
 U_F32 = 2.0 ** -24
 BIT_EQUAL_SHARE = 0.99   # bf16 kernel vs its plain version (sum order)
+
+# Streaming: the stream bench's λ 1e-3, c_nei 0.02·N and tol 1e-8
+# (repro_torch.bench.stream_bench) on the main path's maps and columns.
+STREAM_INGEST = (8, 32, 128)      # minibatch widths folded and timed
+STREAM_EPOCHS = 4
+STREAM_REFRESHES = ((1, D_PER_NODE), (2, 240))   # (node, D_j after)
+STREAM_ASYNC = dict(prob=0.5)
+STREAM_ASYNC_ROUNDS = 500         # the async chain's run (tol 0)
+STREAM_PUBLISHES = 6              # writer rounds of the interleaved loop
+STREAM_THREADED = 256             # queries against the interleaved loop
+STREAM_RTOL = 1e-9
+STREAM_COND_MAX = 1e6             # rtol 1e-9 where cond(A_j) ≤ this
+SERVE_RTOL = 1e-12
 
 # Decode attention: (B, H, K, dh, S, cur) of the kernel's phase — the
 # five cases of tests/test_kernels_decode.py, then the heads of
@@ -2415,6 +2453,493 @@ def print_paper_phase(pp: dict, card: str) -> None:
     print(f"paper phase [{card}]: {pp['secs']:.1f} s")
 
 
+# ------------------------------------------------------------- streaming
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside (checks against plain versions, baselines) are
+    not the path's: the counts are put back as they were."""
+    from repro_torch.kernels import ops
+    saved = ops.launch_counts()
+    try:
+        yield
+    finally:
+        with ops._count_lock:
+            ops.LAUNCHES.update(saved)
+
+
+def _stream_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                  rtol: float = STREAM_RTOL) -> float:
+    """max |got − want|; raises unless |got − want| ≤ rtol·|want| +
+    1e-12·max|want| elementwise."""
+    got = got.to(want.device)
+    err = (got - want).abs()
+    scale = want.abs().max().item() if want.numel() else 0.0
+    max_err = err.max().item() if err.numel() else 0.0
+    if not torch.isfinite(got).all() or (
+            err > rtol * want.abs() + 1e-12 * scale).any():
+        raise PhaseError(f"{name}: disagrees beyond rtol {rtol:g} (max abs "
+                         f"err {max_err:.3e}, max |ref| {scale:.3e})")
+    return max_err
+
+
+def _node_conds(aux) -> list[float]:
+    """cond(A_j) of each node's Eq. 17 matrix: its live block of binv."""
+    return [torch.linalg.cond(aux.binv[j, :dj, :dj]).item()
+            for j, dj in enumerate(aux.node_dims)]
+
+
+def check_stream_packed(rt, where: str, *, plain_gram: bool = False) -> dict:
+    """to_packed(aux) against `pack_problem` of `rt.reference_solver()` on
+    the same device, per node at rtol 1e-9 where cond(A_j) ≤ 1e6 (at rtol
+    cond·1e-15, Woodbury's agreement with a direct inverse, beyond);
+    with ``plain_gram`` also the rebuild through `rff_gram` against the
+    one through torch matmuls (the kernel against its plain version)."""
+    from repro_torch.dist import pack_problem
+    with uncounted():
+        ref = rt.reference_solver()
+        want = pack_problem(ref, device=rt.device)
+        got = rt.packed
+        if got.node_dims != want.node_dims:
+            raise PhaseError(f"stream {where}: node_dims {got.node_dims} ≠ "
+                             f"{want.node_dims}")
+        conds = _node_conds(rt.aux)
+        err = 0.0
+        for j, cond in enumerate(conds):
+            rtol = STREAM_RTOL if cond <= STREAM_COND_MAX else cond * 1e-15
+            for f in ("g", "d", "s", "p"):
+                err = max(err, _stream_close(
+                    f"stream {where}: {f}[{j}] (cond(A) {cond:.3e})",
+                    getattr(got, f)[j], getattr(want, f)[j], rtol))
+        gram_err = None
+        if plain_gram:
+            plain = pack_problem(ref, gram_backend="torch", device=rt.device)
+            gram_err = max(_stream_close(f"stream {where}: rff_gram pack vs "
+                                         f"torch pack, {f}",
+                                         getattr(want, f), getattr(plain, f))
+                           for f in ("g", "d", "s", "p"))
+    return dict(err=err, cond=max(conds), gram_err=gram_err)
+
+
+class _StreamPredictor:
+    """`rt.predict` in `solver.predict`'s signature, for `_predict_all`."""
+
+    def __init__(self, rt):
+        self.rt = rt
+
+    def predict(self, theta, x, node=None):
+        return self.rt.predict(x, node=node)
+
+
+def _async_checks(rt, theta0, budget: int, tol: float, chain_rounds: int,
+                  seed: int) -> dict:
+    """The masked round (a tol solve) and the async chain (tol 0) on the
+    stream's operator from θ0, on a table of seeded masks, against the
+    torch backend (rtol 1e-9); the chain also against the per-round cuda
+    backend, bit for bit."""
+    from repro_torch.core import activation_masks
+    from repro_torch.dist import async_solve_batched
+    packed, acfg = rt.packed, rt.config.async_config
+    gen = torch.Generator(device=rt.device).manual_seed(seed)
+
+    def solve(backend, rounds, t):
+        masks = activation_masks(gen.manual_seed(seed), rounds,
+                                 packed.num_nodes, prob=acfg.prob)
+        return async_solve_batched(packed, rounds, masks, config=acfg,
+                                   theta0=theta0, backend=backend, tol=t,
+                                   return_rounds=True)
+
+    with uncounted():
+        (fused, r_f), (plain, r_p) = (solve(b, budget, tol)
+                                      for b in ("cuda_fused", "torch"))
+        if r_f != r_p:
+            raise PhaseError(f"stream async tol {tol}: {r_f} rounds on "
+                             f"cuda_fused, {r_p} on torch")
+        masked_err = _stream_close("stream async: masked rounds vs torch",
+                                   fused, plain)
+        chain, plain, per_round = (solve(b, chain_rounds, 0.0)[0] for b in
+                                   ("cuda_fused", "torch", "cuda"))
+        chain_err = _stream_close("stream async: chain vs torch", chain,
+                                  plain)
+        if not torch.equal(chain, per_round):
+            raise PhaseError("stream async: chain ≠ masked round launches "
+                             "bit for bit")
+    return dict(masked_err=masked_err, masked_rounds=r_f,
+                chain_err=chain_err)
+
+
+def fold_profile(aux, b: int, calls: int = 5) -> dict | None:
+    """Where a Woodbury fold's time goes on the card, by torch.profiler:
+    device ms and kernels per fold, and the host operators of the most
+    self time; None where the profiler records nothing."""
+    from repro_torch.stream import ingest
+    dim = aux.omega.shape[2]
+    xb = torch.randn(dim, b, dtype=aux.zy.dtype, device=aux.device)
+    yb = torch.randn(b, dtype=aux.zy.dtype, device=aux.device)
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        ingest(aux, 0, xb, yb)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                ingest(aux, 0, xb, yb)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except Exception as exc:                      # the profiler is optional
+        print(f"profiler: not recorded ({type(exc).__name__})")
+        return None
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0))
+    # the kernels themselves: an operator's row repeats its kernels' time
+    kernels = [e for e in events
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and dev(e) > 0]
+    host = sorted((e for e in events if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:6]
+    return dict(device_ms=sum(dev(e) for e in kernels) / 1e3 / calls,
+                kernels=sum(e.count for e in kernels) / calls,
+                host=[(e.key, e.self_cpu_time_total / calls) for e in host])
+
+
+def stream_phase(run: dict, *, epochs: int, ingest: tuple,
+                 refreshes: tuple, async_rounds: int, queries: int,
+                 publishes: int, threaded: int, reps: int,
+                 seed: int = 3) -> dict:
+    """The streaming runtime at the main path's width (its maps and
+    training columns; the stream bench's λ, c_nei, tol): init → ingests →
+    warm/cold epochs → refreshes → an async epoch → serving from the live
+    stream → an interleaved ingest–solve–publish loop against replicas.
+    Launch counts are zeroed at the start and read at the end; the checks
+    inside run `uncounted`. The sync part is replayed on the CPU through
+    the torch backend (the same minibatches, pools and round counts) and
+    held to the device's θ and state."""
+    from repro_torch.bench import stream_bench as SB
+    from repro_torch.core import AsyncGossipConfig, sample_rff
+    from repro_torch.dist import solve_batched, step_batched
+    from repro_torch.kernels import ops
+    from repro_torch.serve import DeKRRReplicaServer, DeKRRServeEngine
+    from repro_torch.stream import SnapshotRegistry
+
+    solver, test = run["solver"], run["test"]
+    device = solver.device
+    sync = torch.cuda.synchronize if device.type == "cuda" \
+        else (lambda: None)
+    rng = np.random.default_rng(seed)
+    dim = solver.data[0].x.shape[0]
+    out = dict(epochs=[], refresh=[], checks={})
+    t_phase = time.perf_counter()
+
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rt = SB.stream_runtime(solver.topology, solver.feature_maps,
+                           solver.data, backend="cuda_fused", seed=seed,
+                           device=device)
+    sync()
+    out["init_ms"] = (time.perf_counter() - t0) * 1e3
+    init = dict(topology=solver.topology, fmaps=list(solver.feature_maps),
+                data=list(solver.data))
+    log = []                       # the sync schedule, for the CPU replay
+    fold, solve = rt.ingest, rt.solve
+
+    def logged_ingest(node, xb, yb):
+        log.append(("ingest", node, np.array(xb), np.array(yb)))
+        return fold(node, xb, yb)
+
+    def logged_solve(rounds=None, tol=None):
+        rep = solve(rounds, tol)
+        log.append(("solve", rep.rounds_run))
+        return rep
+
+    rt.ingest, rt.solve = logged_ingest, logged_solve
+    out["cold0"] = rt.solve()
+    with uncounted():
+        out["ingest"] = SB.ingest_rows(rt, ingest, reps, rng)
+        out["rebuild_us"] = SB.rebuild_us(rt, max(1, reps // 3))
+        out["fold_profile"] = (fold_profile(rt.aux, ingest[-1])
+                               if device.type == "cuda" else None)
+    for node, b in zip((0, 5, 9), ingest):
+        xb, yb = rng.normal(size=(dim, b)), rng.normal(size=b)
+        if device.type != "cuda":
+            rt.ingest(node, xb, yb)
+            continue
+        # an ingest, host minibatch included, must not wait on the device
+        sync()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rt.ingest(node, xb, yb)
+        except RuntimeError as exc:
+            raise PhaseError(f"stream: an ingest at b {b} synchronized with "
+                             f"the device ({exc})") from exc
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out["checks"]["ingests"] = check_stream_packed(rt, "after the ingests",
+                                                   plain_gram=True)
+
+    def after(rt, theta0, row):
+        cfg = rt.config
+        with uncounted():
+            per_round, rounds = solve_batched(
+                rt.packed, cfg.rounds_per_epoch, theta0, backend="cuda",
+                tol=cfg.tol, chunk_rounds=cfg.chunk_rounds,
+                return_rounds=True)
+            if rounds != row["warm_rounds"] or not torch.equal(per_round,
+                                                               rt.theta):
+                raise PhaseError(f"stream epoch {row['epoch']}: cuda_fused "
+                                 f"≠ cuda bit for bit ({row['warm_rounds']} "
+                                 f"and {rounds} rounds)")
+            plain = solve_batched(rt.packed, rounds, theta0,
+                                  backend="torch")
+            row["solve_err"] = _stream_close(
+                f"stream epoch {row['epoch']}: warm solve vs torch",
+                rt.theta, plain)
+            row["step_err"] = _stream_close(
+                f"stream epoch {row['epoch']}: dekrr_step vs torch",
+                step_batched(rt.packed, rt.theta, backend="cuda"),
+                step_batched(rt.packed, rt.theta, backend="torch"))
+            row["cond"] = max(_node_conds(rt.aux))
+        if row["warm_rounds"] >= row["cold_rounds"]:
+            raise PhaseError(f"stream epoch {row['epoch']}: warm "
+                             f"{row['warm_rounds']} rounds, not below cold "
+                             f"{row['cold_rounds']}")
+
+    out["epochs"] = SB.warm_cold_epochs(rt, epochs, rng, after=after)
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for node, d_new in refreshes:
+        sigma = 1.0 / torch.std(rt.feature_maps[node].omega,
+                                correction=0).item()
+        pool = sample_rff(gen, dim, rt.config.refresh_candidate_ratio
+                          * d_new, sigma, dtype=rt.aux.zy.dtype)
+        before = rt.aux.binv.clone()
+        sync()
+        t0 = time.perf_counter()
+        rep = rt.refresh(node, d_new, candidates=pool)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        log.append(("refresh", node, d_new, pool))
+        old = before.shape[1]
+        after_binv = rt.aux.binv
+        for j in range(rt.num_nodes):
+            if j == node:
+                continue
+            grown = after_binv[j, old:, old:]
+            if not (torch.equal(after_binv[j, :old, :old], before[j])
+                    and not after_binv[j, :old, old:].any()
+                    and torch.equal(grown, torch.eye(
+                        grown.shape[0], dtype=grown.dtype,
+                        device=grown.device))):
+                raise PhaseError(f"stream refresh of node {node}: node "
+                                 f"{j}'s inverse changed")
+        chk = check_stream_packed(rt, f"after the refresh of node {node}")
+        out["refresh"].append(dict(node=node, ms=ms, report=rep, **chk))
+    out["after_refresh"] = rt.solve()
+    del rt.ingest, rt.solve
+
+    # the sync schedule again on the CPU, torch backend, same round counts
+    with uncounted():
+        t0 = time.perf_counter()
+        cpu = SB.stream_runtime(
+            init["topology"], [f.to("cpu") for f in init["fmaps"]],
+            [nd.to("cpu") for nd in init["data"]], backend="torch",
+            seed=seed, device="cpu")
+        for event in log:
+            if event[0] == "ingest":
+                cpu.ingest(*event[1:])
+            elif event[0] == "solve":
+                cpu.solve(rounds=event[1], tol=0.0)
+            else:
+                cpu.refresh(event[1], event[2],
+                            candidates=event[3].to("cpu"))
+        out["replay_secs"] = time.perf_counter() - t0
+        out["replay_err"] = _stream_close(
+            "stream: θ on the card vs the CPU replay", rt.theta,
+            cpu.theta.to(device))
+        for f in ("binv", "zy", "st", "pt"):
+            _stream_close(f"stream: {f} on the card vs the CPU replay",
+                          getattr(rt.aux, f), getattr(cpu.aux, f).to(device))
+
+    # an async epoch: the masked round (tol > 0), then the chain (tol 0)
+    rt.config = dataclasses.replace(
+        rt.config, gossip="async", chunk_rounds=None,
+        async_config=AsyncGossipConfig(**STREAM_ASYNC))
+    for node in SB.EPOCH_NODES:
+        rt.ingest(node, rng.normal(size=(dim, SB.EPOCH_BATCH)),
+                  rng.normal(size=SB.EPOCH_BATCH))
+    out["async_checks"] = _async_checks(
+        rt, rt.theta, rt.config.rounds_per_epoch, rt.config.tol,
+        async_rounds, seed + 1)
+    out["async_tol"] = rt.solve()
+    out["async_chain"] = rt.solve(rounds=async_rounds, tol=0.0)
+    rt.config = dataclasses.replace(rt.config, gossip="sync",
+                                    chunk_rounds=SB.CHUNK)
+
+    # serving from the live stream
+    eng = DeKRRServeEngine(rt, batch_size=SERVE_BATCH, backend="cuda")
+    eng.run(serve_queries(test, SERVE_BATCH, seed + 100))       # warm-up
+    qs = serve_queries(test, queries, seed)
+    eng.run(qs)
+    out["serve"] = eng.latency.report()
+    bound = rt.staleness()
+    with uncounted():
+        got = _answers(qs)
+        want = np.concatenate(_predict_all(_StreamPredictor(rt),
+                                           (rt.theta,), qs))
+        out["serve_err"] = _stream_close(
+            "stream serving vs rt.predict", torch.from_numpy(got),
+            torch.from_numpy(want), SERVE_RTOL)
+    if any(q.staleness != bound for q in qs):
+        raise PhaseError("stream serving: an answer carries another "
+                         "staleness than the stream's")
+
+    # interleaved ingest–solve–publish against a 2-replica server
+    reg = SnapshotRegistry()
+    published = {}
+
+    def publish():
+        version = reg.publish_from(rt)
+        snap = reg.latest()
+        published[version] = (snap, tuple(t.clone() for t in snap.theta))
+
+    publish()
+    failure = []
+    batches = [(k % rt.num_nodes, rng.normal(size=(dim, 8)),
+                rng.normal(size=8)) for k in range(publishes)]
+
+    def writer():
+        try:
+            for node, xb, yb in batches:
+                rt.ingest(node, xb, yb)
+                rt.solve()
+                publish()
+        except Exception as exc:              # re-raised below
+            failure.append(exc)
+
+    srv = DeKRRReplicaServer(reg, replicas=SERVE_REPLICAS,
+                             batch_size=SERVE_BATCH, backend="cuda")
+    tq = serve_queries(test, threaded, seed + 7, uid0=queries)
+    thread = threading.Thread(target=writer)
+    t0 = time.perf_counter()
+    thread.start()
+    srv.start()
+    try:
+        # one slice of the queries per publish, each submitted once that
+        # version is out, so the replicas answer across the versions
+        for i, part in enumerate(np.array_split(np.arange(len(tq)),
+                                                publishes + 1)):
+            while reg.version <= i and thread.is_alive():
+                time.sleep(1e-4)
+            for k in part:
+                srv.submit(tq[k])
+    finally:
+        srv.stop()
+        thread.join(timeout=600)
+    sync()
+    out["threaded_secs"] = time.perf_counter() - t0
+    if failure or thread.is_alive():
+        raise PhaseError(f"stream writer thread failed: {failure}")
+    out["launches"] = ops.launch_counts()
+    out["secs"] = time.perf_counter() - t_phase
+
+    with uncounted():
+        by_staleness = {snap.staleness: snap
+                        for snap, _ in published.values()}
+        if len(by_staleness) != len(published):
+            raise PhaseError("stream: two published snapshots share one "
+                             "staleness")
+        for version, (snap, kept) in published.items():
+            if not all(torch.equal(t, c) for t, c in zip(snap.theta, kept)):
+                raise PhaseError(f"stream: published snapshot {version} was "
+                                 f"written after it was published")
+        groups: dict = {}
+        for q in tq:
+            if not q.done or q.staleness not in by_staleness:
+                raise PhaseError(f"stream: threaded query {q.uid} answered "
+                                 f"from no published snapshot")
+            groups.setdefault(q.staleness, []).append(q)
+        err = 0.0
+        for staleness, group in groups.items():
+            clean = [dataclasses.replace(q, prediction=None, staleness=None,
+                                         done=False) for q in group]
+            DeKRRServeEngine(by_staleness[staleness],
+                             batch_size=SERVE_BATCH, backend="cuda").run(clean)
+            err = max(err, _stream_close(
+                "stream: threaded answer vs a clean serve of its snapshot",
+                torch.from_numpy(_answers(group)),
+                torch.from_numpy(_answers(clean)), SERVE_RTOL))
+    out.update(threaded_err=err, publishes=len(published),
+               versions_served=len(groups), threaded=len(tq))
+    return out
+
+
+def check_stream_launches(st: dict, on_card: bool) -> dict:
+    """Every kernel of the streaming path launched in its run (none on
+    the CPU), and none of another path."""
+    got = {k: v for k, v in st["launches"].items() if v}
+    want = ("rff_gram", "dekrr_solve", "dekrr_step", "dekrr_step_masked",
+            "dekrr_async_solve", "rff_features")
+    if not on_card:
+        if got:
+            raise PhaseError(f"stream on the CPU counted launches {got}")
+        return got
+    if set(got) != set(want):
+        raise PhaseError(f"stream path launch counts {got}: expected "
+                         f"launches of exactly {sorted(want)}")
+    return got
+
+
+def print_stream_phase(st: dict, card: str) -> None:
+    ing = "; ".join(f"b {r['batch']}: {r['ingest_us']:.1f} µs"
+                    for r in st["ingest"])
+    print(f"stream [{card}]: init {st['init_ms']:.1f} ms; ingest {ing}; cold "
+          f"rebuild (pack_problem) {st['rebuild_us']:.1f} µs; first cold "
+          f"solve {st['cold0'].rounds_run} rounds; after the ingests |Δ| vs "
+          f"rebuild {st['checks']['ingests']['err']:.3e} (cond(A) ≤ "
+          f"{st['checks']['ingests']['cond']:.3e}), rff_gram pack vs torch "
+          f"pack {st['checks']['ingests']['gram_err']:.3e}", flush=True)
+    prof = st["fold_profile"]
+    if prof is not None:
+        print(f"stream fold at b {STREAM_INGEST[-1]} by the profiler "
+              f"[{card}]: {prof['device_ms']:.4f} ms on the device in "
+              f"{prof['kernels']:.0f} kernels a fold; host self time (µs a "
+              f"fold): " + ", ".join(f"{k} {us:.1f}"
+                                     for k, us in prof["host"]))
+    for e in st["epochs"]:
+        print(f"stream epoch {e['epoch']} [{card}]: warm {e['warm_rounds']} "
+              f"rounds in {e['warm_ms']:.2f} ms, cold {e['cold_rounds']} "
+              f"rounds; residual {e['residual']:.3e}; cuda_fused == cuda "
+              f"bit for bit; vs torch {e['solve_err']:.3e}, dekrr_step vs "
+              f"torch {e['step_err']:.3e} (cond(A) ≤ {e['cond']:.3e})")
+    for r in st["refresh"]:
+        rep = r["report"]
+        print(f"stream refresh of node {r['node']} [{card}]: "
+              f"{rep.old_features} → {rep.new_features} features "
+              f"(re-padded: {rep.repadded}) in {r['ms']:.1f} ms; other "
+              f"nodes' inverses unchanged bit for bit; |Δ| vs rebuild "
+              f"{r['err']:.3e} (cond(A) ≤ {r['cond']:.3e})")
+    ac = st["async_checks"]
+    print(f"stream after the refreshes [{card}]: solve "
+          f"{st['after_refresh'].rounds_run} rounds; CPU replay (torch "
+          f"backend, {st['replay_secs']:.1f} s) |θ_card − θ_cpu| "
+          f"{st['replay_err']:.3e} (cond(A) ≤ {st['refresh'][-1]['cond']:.3e})"
+          f"; async epoch: tol {st['async_tol'].rounds_run} "
+          f"rounds (masked vs torch {ac['masked_err']:.3e} over "
+          f"{ac['masked_rounds']} rounds), chain {st['async_chain'].rounds_run} "
+          f"rounds (vs torch {ac['chain_err']:.3e}, == cuda bit for bit)")
+    sv = st["serve"]
+    print(f"stream serving [{card}]: {sv.count} queries from the live "
+          f"stream, p50 {sv.p50 * 1e3:.3f} ms, p99 {sv.p99 * 1e3:.3f} ms, "
+          f"{sv.qps:.1f} qps, |f − rt.predict| {st['serve_err']:.3e}; "
+          f"interleaved: {st['publishes']} publishes, {st['threaded']} "
+          f"queries on {SERVE_REPLICAS} replicas in "
+          f"{st['threaded_secs']:.2f} s from {st['versions_served']} "
+          f"versions, each equal to a clean serve of its snapshot "
+          f"({st['threaded_err']:.3e})")
+    print(f"stream launches [{card}]: "
+          f"{json.dumps({k: v for k, v in st['launches'].items() if v})}; "
+          f"phase {st['secs']:.1f} s", flush=True)
+
+
 def check_launches(run: dict) -> None:
     got = {k: v for k, v in run["launches"].items() if v}
     rounds = run["rounds"]
@@ -2425,6 +2950,19 @@ def check_launches(run: dict) -> None:
 
 
 # ------------------------------------------------------------------- main
+def package_missing(src: str) -> bool:
+    """True, after one line on stderr naming where it looked, when the
+    port's package is not under ``src``: the script drives the package of
+    the checkout it lies in, so a copy of it alone cannot run."""
+    path = os.path.join(src, "repro_torch", "__init__.py")
+    if os.path.isfile(path):
+        return False
+    print(f"chip_smoke: the port's package is not at {path}; run this "
+          f"script from a checkout of the repository, with src/repro_torch "
+          f"beside it", file=sys.stderr)
+    return True
+
+
 def _llm_config():
     from repro_torch.configs import get_arch
     return get_arch(LLM_ARCH).config
@@ -2449,6 +2987,11 @@ def rehearse_on_cpu() -> int:
     check_llm_path(llm, llm_cfg, on_card=False)
     pp = paper_phase("cpu", subsample=600, fast=True, gram=(2000, 12))
     print_paper_phase(pp, "cpu")
+    st = stream_phase(run, epochs=2, ingest=(8, 32),
+                      refreshes=((1, 12), (2, 16)), async_rounds=50,
+                      queries=64, publishes=3, threaded=32, reps=2)
+    check_stream_launches(st, on_card=False)
+    print_stream_phase(st, "cpu")
     summary = dict(rounds=run["rounds"], rse=run["rse"],
                    launches=run["launches"], exact_err=checks["exact_err"],
                    rho=checks["rho"], async_err=a_checks["err"],
@@ -2462,7 +3005,11 @@ def rehearse_on_cpu() -> int:
                    llm_steps=llm["steps"], llm_tokens=llm["tokens"],
                    llm_logit_rel=llm["rel"],
                    paper_rows=[r[:5] for r in pp["rows"]],
-                   paper_krr_rse=pp["krr"]["rse"])
+                   paper_krr_rse=pp["krr"]["rse"],
+                   stream_rounds=[(e["warm_rounds"], e["cold_rounds"])
+                                  for e in st["epochs"]],
+                   stream_replay_err=st["replay_err"],
+                   stream_serve_err=st["serve_err"])
     print(json.dumps({"cpu_rehearsal": summary}))
     return 0
 
@@ -2625,6 +3172,14 @@ def run_on_card() -> int:
     print_paper_phase(pp, card)
     errs["rff_gram@gram_fn"] = pp["gram"]["gram_err"]
 
+    st = stream_phase(run, epochs=STREAM_EPOCHS, ingest=STREAM_INGEST,
+                      refreshes=STREAM_REFRESHES,
+                      async_rounds=STREAM_ASYNC_ROUNDS,
+                      queries=SERVE_QUERIES, publishes=STREAM_PUBLISHES,
+                      threaded=STREAM_THREADED, reps=10)
+    check_stream_launches(st, on_card=True)
+    print_stream_phase(st, card)
+
     launches = dict(run["launches"], dekrr_step_masked=a_launches[
         "dekrr_step_masked"], dekrr_async_solve=a_launches[
         "dekrr_async_solve"], dekrr_cheb_solve=c_launches["dekrr_cheb_solve"],
@@ -2711,6 +3266,9 @@ def main(argv=None) -> int:
     ap.add_argument("--src", help="with --decode-timings: the directory "
                     "that holds the repro_torch package to time")
     args = ap.parse_args(argv)
+    if package_missing(SRC_DIR if args.src is None
+                       else os.path.abspath(args.src)):
+        return 3
     try:
         if args.decode_timings:
             return decode_timings_only(args.src)

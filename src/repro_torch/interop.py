@@ -19,8 +19,14 @@ from repro_torch.core.rff import FeatureMap
 from repro_torch.dist.dekrr_spmd import PackedProblem
 from repro_torch.models.model import ModelConfig, Params, param_shapes
 from repro_torch.stream.runtime import ServeSnapshot, StalenessBound
+from repro_torch.stream.updates import (StreamAux, _ingest_tables,
+                                        _reverse_slots)
 
 _ARRAY_FIELDS = ("g", "d", "s", "p", "theta_mask", "nbr_idx", "nbr_mask")
+_STREAM_TENSORS = ("binv", "zy", "st", "pt", "theta_mask", "nbr_idx",
+                   "nbr_mask", "omega", "bias", "feat_idx", "scale")
+_STREAM_HOST = ("u_self", "u_cross", "u_s")
+_STREAM_META = ("n_live", "nu", "n_ref", "node_dims", "offsets", "kind")
 
 
 def feature_map_from_arrays(omega, bias, kind: str, *,
@@ -63,6 +69,45 @@ def packed_to_arrays(packed: PackedProblem) -> dict:
     out = {f: to_numpy(getattr(packed, f)) for f in _ARRAY_FIELDS}
     out.update(offsets=packed.offsets, node_dims=packed.node_dims,
                num_edges_directed=packed.num_edges_directed)
+    return out
+
+
+def stream_aux_from_arrays(binv, zy, st, pt, theta_mask, nbr_idx, nbr_mask,
+                           omega, bias, feat_idx, scale, u_self, u_cross,
+                           u_s, *, n_live, nu, n_ref, node_dims,
+                           offsets=None, kind, device=None) -> StreamAux:
+    """A stream state from the reference `StreamAux`'s array fields and
+    metadata, so one stream can be continued on both sides. The slot
+    tables an ingest reads (`ingest_tables`, `rslot`) follow from the
+    slot table and the coefficients and are made here."""
+    device = resolve_device(device)
+    as_t = lambda a: torch.as_tensor(np.array(a), device=device)
+    nbr_idx = np.asarray(nbr_idx, dtype=np.int64)
+    nbr_mask = np.asarray(nbr_mask)
+    u_self, u_cross, u_s = (np.array(u, dtype=np.float64)
+                            for u in (u_self, u_cross, u_s))
+    zy = as_t(zy)
+    rslot = _reverse_slots(nbr_idx, nbr_mask)
+    return StreamAux(
+        binv=as_t(binv), zy=zy, st=as_t(st), pt=as_t(pt),
+        theta_mask=as_t(theta_mask),
+        nbr_idx=as_t(nbr_idx.astype(np.int32)), nbr_mask=as_t(nbr_mask),
+        omega=as_t(omega), bias=as_t(bias),
+        feat_idx=as_t(np.asarray(feat_idx, dtype=np.int64)),
+        scale=as_t(scale), u_self=u_self, u_cross=u_cross, u_s=u_s,
+        ingest_tables=_ingest_tables(nbr_idx, nbr_mask, u_self, u_cross,
+                                     rslot, zy.dtype, device),
+        rslot=rslot, n_live=int(n_live), nu=float(nu), n_ref=int(n_ref),
+        node_dims=tuple(int(v) for v in node_dims),
+        offsets=None if offsets is None else tuple(offsets), kind=kind)
+
+
+def stream_aux_to_arrays(aux: StreamAux) -> dict:
+    """The inverse of `stream_aux_from_arrays`: numpy arrays plus
+    metadata, keyed by the reference's field names."""
+    out = {f: to_numpy(getattr(aux, f)) for f in _STREAM_TENSORS}
+    out.update({f: np.array(getattr(aux, f)) for f in _STREAM_HOST})
+    out.update({f: getattr(aux, f) for f in _STREAM_META})
     return out
 
 

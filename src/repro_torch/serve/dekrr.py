@@ -104,7 +104,7 @@ from repro_torch.serve.admission import (Admitted, AdmissionQueue,
                                          LatencyRecorder, LatencyReport,
                                          pad_bucket)
 from repro_torch.stream.runtime import (ServeSnapshot, SnapshotRegistry,
-                                        StalenessBound)
+                                        StalenessBound, StreamingDeKRR)
 
 __all__ = ["KernelQuery", "DeKRRServeEngine", "DeKRRReplicaServer",
            "stage_snapshot", "answer_wave"]
@@ -542,7 +542,8 @@ class DeKRRServeEngine:
     """Wave/slot-batched query answering over a θ snapshot source.
 
     ``source`` is a `repro_torch.stream.SnapshotRegistry` (its freshest
-    published snapshot per wave) or a frozen
+    published snapshot per wave), a live `repro_torch.stream.
+    StreamingDeKRR` (re-snapshotted once per wave) or a frozen
     `repro_torch.stream.ServeSnapshot`. Waves run on the snapshot's
     device. ``backend`` is "cuda" (the featurize kernel; its plain
     version on a CPU snapshot) or "torch". ``precision`` selects the
@@ -553,10 +554,12 @@ class DeKRRServeEngine:
     def __init__(self, source, *, batch_size: int = 64,
                  backend: str = "cuda", precision: str | None = None):
         _check_config(backend, precision, batch_size)
-        if not isinstance(source, (ServeSnapshot, SnapshotRegistry)):
+        if not isinstance(source, (ServeSnapshot, SnapshotRegistry,
+                                   StreamingDeKRR)):
             raise TypeError(
-                f"DeKRRServeEngine serves from a ServeSnapshot or a "
-                f"SnapshotRegistry, got {type(source).__name__}")
+                f"DeKRRServeEngine serves from a ServeSnapshot, a "
+                f"SnapshotRegistry or a StreamingDeKRR, got "
+                f"{type(source).__name__}")
         self.source = source
         self.batch_size = batch_size
         self.backend = backend
@@ -567,7 +570,9 @@ class DeKRRServeEngine:
     def _snapshot(self) -> ServeSnapshot:
         if isinstance(self.source, ServeSnapshot):
             return self.source
-        return self.source.latest()
+        if isinstance(self.source, SnapshotRegistry):
+            return self.source.latest()
+        return self.source.snapshot()
 
     def _staged(self, snap: ServeSnapshot) -> _StagedSnapshot:
         return self._stages.get(id(snap), snap, backend=self.backend,

@@ -883,3 +883,76 @@ def test_gpu_run_dekrr_ddrf_matches_the_cpu(cuda_device):
     gpu = C.run_dekrr_ddrf(ds, tr_g, te_g, dbar, candidates=pools)
     np.testing.assert_allclose(gpu.rse, cpu.rse, rtol=1e-9)
     assert gpu.c == cpu.c
+
+
+# ------------------------------------------------------------- streaming
+def _stream_pair(device, *, backend="cuda_fused"):
+    """The stream bench's runtime (air_quality, J = 10, 600 samples) on
+    `device`, from maps drawn once on the CPU."""
+    from repro_torch.bench import stream_bench as SB
+    from repro_torch.core import select_features
+    from repro_torch.paper import common as C
+    ds, train, _ = C.load_split("air_quality", subsample=600, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    fmaps = [select_features(gen, ds.dim, 12 + 4 * (j % 3), C.SIGMA,
+                             nd.x, nd.y, candidate_ratio=5)
+             for j, nd in enumerate(train)]
+    return SB.stream_runtime(C.TOPOLOGY, [f.to(device) for f in fmaps],
+                             [nd.to(device) for nd in train],
+                             backend=backend, device=device), ds
+
+
+def _stream_steps(rt, dim, seed=5):
+    rng = np.random.default_rng(seed)
+    for node, b in ((0, 8), (3, 32), (7, 5), (0, 128)):
+        rt.ingest(node, rng.normal(size=(dim, b)), rng.normal(size=b))
+
+
+@pytest.mark.gpu
+def test_gpu_stream_ingest_matches_the_cpu(cuda_device):
+    """One ingest sequence, a refresh and a warm solve on the card equal
+    the same on the CPU (rtol 1e-9; the CPU runs the plain versions)."""
+    from repro_torch.core import sample_rff
+    cpu, ds = _stream_pair("cpu")
+    gpu, _ = _stream_pair(cuda_device)
+    for rt in (cpu, gpu):
+        _stream_steps(rt, ds.dim)
+    for f in ("binv", "zy", "st", "pt"):
+        assert_close(getattr(gpu.aux, f), getattr(cpu.aux, f))
+    pool = sample_rff(torch.Generator().manual_seed(1), ds.dim, 140, 1.0)
+    for rt in (cpu, gpu):
+        rt.refresh(2, num_features=14, candidates=pool)
+    for f in ("binv", "zy", "st", "pt"):
+        assert_close(getattr(gpu.aux, f), getattr(cpu.aux, f))
+    for rt in (cpu, gpu):
+        rt.solve()
+    assert_close(gpu.theta, cpu.theta)
+    assert ops.LAUNCHES["dekrr_solve"] > 0 and ops.LAUNCHES["rff_gram"] > 0
+
+
+@pytest.mark.gpu
+def test_gpu_stream_warm_solve_fused_equals_per_round(cuda_device):
+    """The stream's warm solve on cuda_fused equals the per-round cuda
+    backend bit for bit from the same θ0, same tol checks."""
+    from repro_torch.dist import solve_batched
+    rt, ds = _stream_pair(cuda_device)
+    rt.solve()
+    _stream_steps(rt, ds.dim, seed=6)
+    theta0, cfg = rt.theta, rt.config
+    want, rounds = solve_batched(rt.packed, cfg.rounds_per_epoch, theta0,
+                                 backend="cuda", tol=cfg.tol,
+                                 chunk_rounds=cfg.chunk_rounds,
+                                 return_rounds=True)
+    rep = rt.solve()
+    torch.cuda.synchronize()
+    assert rep.rounds_run == rounds
+    assert torch.equal(rt.theta, want)
+
+
+@pytest.mark.gpu
+def test_gpu_stream_bench_runs(cuda_device):
+    from repro_torch.bench import stream_bench
+    res = stream_bench.run(fast=True, device=cuda_device)
+    assert res["device"] == torch.cuda.get_device_name(cuda_device)
+    assert res["warm_rounds_mean"] < res["cold_rounds_mean"]
+    assert res["serve"]["qps"] > 0

@@ -49,7 +49,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serve.dekrr, repro_torch.kernels.rff_features, "
             "repro_torch.models, repro_torch.configs, "
             "repro_torch.serve.engine, repro_torch.launch.serve, "
-            "repro_torch.kernels.decode_attention; "
+            "repro_torch.kernels.decode_attention, "
+            "repro_torch.bench.stream_bench; "
             "import sys; bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.'))]; assert not bad, bad")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,

@@ -370,3 +370,22 @@ def test_chip_smoke_fails_without_a_card(capsys):
     assert _chip_smoke().main([]) != 0
     captured = capsys.readouterr()
     assert "CUDA device" in captured.err and captured.out == ""
+
+
+def test_chip_smoke_alone_names_where_it_looked(tmp_path):
+    """A copy of the script without the repository beside it exits
+    non-zero with one line naming where it looked for the port, not with
+    a traceback from deep inside a phase."""
+    import shutil
+    import subprocess
+    import sys
+    shutil.copy(os.path.join(REPO_ROOT, "chip_smoke.py"), tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0 and out.stdout == ""
+    want = os.path.join(str(tmp_path), "src", "repro_torch", "__init__.py")
+    assert out.stderr.strip().splitlines() == [
+        f"chip_smoke: the port's package is not at {want}; run this script "
+        f"from a checkout of the repository, with src/repro_torch beside it"]

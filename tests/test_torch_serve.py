@@ -42,6 +42,8 @@ from repro.serve import DeKRRServeEngine as RefEngine
 from repro.serve import KernelQuery as RefQuery
 from repro.stream import ServeSnapshot as RefSnapshot
 from repro.stream import StalenessBound as RefStaleness
+import repro_torch.core as T
+from conftest import cached_fmaps, cached_split
 from repro_torch import interop
 from repro_torch.core.rff import FeatureMap
 from repro_torch.kernels import ops
@@ -51,7 +53,8 @@ from repro_torch.obs import metrics, spans
 from repro_torch.serve import (AdmissionQueue, DeKRRReplicaServer,
                                DeKRRServeEngine, KernelQuery,
                                LatencyRecorder, pad_bucket)
-from repro_torch.stream import ServeSnapshot, SnapshotRegistry, StalenessBound
+from repro_torch.stream import (ServeSnapshot, SnapshotRegistry,
+                                StalenessBound, StreamingDeKRR)
 from test_torch_gpu import assert_close
 
 U_BF16 = 2.0 ** -8
@@ -536,6 +539,124 @@ def test_publish_atomicity_with_alternating_snapshots():
                                            f"snapshots")
         assert q.prediction != other
     assert seen <= {1, 2}
+
+
+def _stream(j=3, d_feat=8):
+    """A live port stream on `test_serve_tier.py`'s small problem (the
+    reference's cached split and maps, carried across)."""
+    ds, train, _ = cached_split("air_quality", j, subsample=60, seed=0)
+    fmaps = cached_fmaps("air_quality", j, (d_feat,) * j, method="energy",
+                         subsample=60, seed=0)
+    n = sum(t.num_samples for t in train)
+    solver = T.DeKRRSolver(
+        T.circulant(j, (1,)),
+        [interop.feature_map_from_arrays(np.asarray(f.omega),
+                                         np.asarray(f.bias), f.kind,
+                                         device="cpu") for f in fmaps],
+        [interop.node_data_from_arrays(np.asarray(nd.x), np.asarray(nd.y),
+                                       device="cpu") for nd in train],
+        T.DeKRRConfig(lam=1e-3, c_nei=0.02 * n), build_aux=False,
+        device="cpu")
+    return StreamingDeKRR(solver), ds
+
+
+def test_publish_atomicity_under_interleaved_ingest_solve():
+    """A solver thread ingests, solves and publishes while replicas
+    answer: every answer matches exactly one published snapshot (its
+    staleness identifies it; the prediction equals a clean serve of that
+    snapshot) — never a torn mix, and no later ingest or solve writes
+    into a published snapshot's tensors."""
+    rt, ds = _stream()
+    rt.solve()
+    reg = SnapshotRegistry()
+    published = {}
+
+    def publish():
+        snap = rt.snapshot()
+        kept = tuple(t.clone() for t in snap.theta)
+        published[reg.publish(snap)] = (snap, kept)
+
+    publish()
+    rng = np.random.default_rng(23)
+    stop = threading.Event()
+
+    def solver_loop():
+        k = 0
+        while not stop.is_set() and k < 6:
+            rt.ingest(k % 3, rng.normal(size=(ds.dim, 8)),
+                      rng.normal(size=8))
+            rt.solve()
+            publish()
+            k += 1
+
+    srv = DeKRRReplicaServer(reg, replicas=2, batch_size=2)
+    writer = threading.Thread(target=solver_loop)
+    queries = [KernelQuery(uid=i, x=rng.normal(size=ds.dim))
+               for i in range(60)]
+    before = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)          # switch threads often
+    try:
+        writer.start()
+        srv.start()
+        for q in queries:
+            srv.submit(q)
+    finally:
+        srv.stop()
+        stop.set()
+        writer.join(timeout=60)
+        sys.setswitchinterval(before)
+    assert not writer.is_alive()
+
+    by_staleness = {snap.staleness: snap
+                    for snap, _ in published.values()}
+    assert len(by_staleness) == len(published)   # distinct versions
+    for snap, kept in published.values():
+        assert all(torch.equal(t, c) for t, c in zip(snap.theta, kept))
+    for q in queries:
+        assert q.done
+        snap = by_staleness.get(q.staleness)
+        assert snap is not None, \
+            f"query {q.uid} answered from an unpublished snapshot"
+        want = DeKRRServeEngine(snap).run(
+            [KernelQuery(uid=q.uid, x=q.x)])[0].prediction
+        np.testing.assert_allclose(q.prediction, want, rtol=1e-12,
+                                   err_msg=f"query {q.uid} torn across "
+                                           f"snapshots")
+
+
+def test_engine_resnapshots_a_live_stream_every_wave():
+    """`DeKRRServeEngine(rt)` takes one snapshot of the live stream per
+    wave (plus one to validate the queries), so an ingest and solve
+    between runs reach the next wave's answers and staleness."""
+    rt, ds = _stream()
+    rt.solve()
+    calls = []
+    take = rt.snapshot
+
+    def counted():
+        calls.append(1)
+        return take()
+
+    rt.snapshot = counted
+    eng = DeKRRServeEngine(rt, batch_size=2)
+    xs = np.random.default_rng(4).normal(size=(ds.dim, 5))
+    first = eng.run([KernelQuery(uid=i, x=xs[:, i]) for i in range(5)])
+    assert len(calls) == 1 + 3               # validation + 3 waves
+    assert {q.staleness.theta_version for q in first} == {1}
+    rt.ingest(1, xs, np.ones(5))
+    stale = eng.run([KernelQuery(uid=9, x=xs[:, 0])])[0]
+    assert stale.staleness.ingests_behind == 1
+    rt.solve()
+    fresh = eng.run([KernelQuery(uid=i, x=xs[:, i]) for i in range(5)])
+    want = DeKRRServeEngine(take()).run(
+        [KernelQuery(uid=i, x=xs[:, i]) for i in range(5)])
+    for got, w, old in zip(fresh, want, first):
+        assert got.staleness.theta_version == 2
+        np.testing.assert_allclose(got.prediction, w.prediction,
+                                   rtol=1e-12)
+        assert got.prediction != old.prediction
+    assert got.prediction == pytest.approx(
+        float(rt.predict(xs[:, 4:5])[0]), rel=1e-12)
 
 
 @pytest.mark.parametrize("precision", ["bf16", "int8"])
