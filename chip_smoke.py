@@ -110,9 +110,26 @@
    staleness; an interleaved ingest–solve–publish loop against a
    2-replica server, every answer equal to a clean serve of the one
    snapshot its staleness names; the path's launches of each kernel.
-13. Launch counts of each path and run, zeroed just before it, and
+13. The system benchmarks (``repro_torch.bench``), the ``bench`` phase:
+   (a) each backend of the main, async and Chebyshev paths on the main
+   path's packed problem (32 rounds, and ``cuda_fused`` in chunks of 10):
+   ``repro_torch.obs.dispatch_count`` equal to the contract {torch 0,
+   cuda R, cuda_fused ⌈R / chunk⌉} and to the launch counts' delta;
+   (b) every kernel's ``repro_torch.analysis.smem`` estimate at the
+   paths' shapes equal to the bytes its csrc launcher takes (the
+   libraries' ``*_smem_bytes`` exports); (c) the over-budget round (K 4,
+   Dy 8, D 640, f64) refused with ``SmemBudgetError``, no launch and no
+   CUDA error; (d) the serve bench on the main path's θ (2 replicas,
+   waves of 16, 600 closed-loop and 300 open-loop queries at 0.3, 0.6 and
+   0.9 of each precision's capacity, every bf16/int8 answer within its
+   bound), the solve bench (the reference's cases), the async bench on
+   the main path's packed problem, the Chebyshev bench (houses at full
+   N) and the multi-output bench, into one registry written as JSONL
+   under ``build/chip_bench/`` and rendered by ``repro_torch.obs``; (e)
+   the provenance block naming the card and its power limit.
+14. Launch counts of each path and run, zeroed just before it, and
    ``pack_problem`` repeated warm.
-14. Kernel times by CUDA events (timed on the device, behind a spin that
+15. Kernel times by CUDA events (timed on the device, behind a spin that
    lets the host queue the launches first) beside their plain versions,
    a PyTorch yardstick and the least time the card could take; the
    featurize kernel at the wave and at one node, ``rff_gram`` at the
@@ -131,10 +148,11 @@ The last line is ``{"ok": true, "device": {...}}``; any failed phase
 exits non-zero before it. Without a CUDA device the script exits
 non-zero, and so does a copy of the script without ``src/repro_torch``
 beside it, after one line naming where it looked. ``--cpu-rehearsal``
-runs steps 4–6, 8, 10, 11 and 12 on the CPU at a small size (the
-kernels' plain versions; the LLM path on the reduced qwen1.5-0.5b;
-Table 2 on two stand-ins at 600 samples; the stream on the rehearsal's
-12 features a node), for the tests. ``--decode-timings [--src DIR]`` runs only
+runs steps 4–6, 8, 10–12 and 13 (without its (b)) on the CPU at a small
+size (the kernels' plain versions; the LLM path on the reduced
+qwen1.5-0.5b; Table 2 on two stand-ins at 600 samples; the stream on the
+rehearsal's 12 features a node; the benches at their reduced sizes), for
+the tests. ``--decode-timings [--src DIR]`` runs only
 the ``flash_decode`` timings and the two decode steps of step 10 on the
 card, with the ``repro_torch`` package of DIR/.. (``src`` by default), so
 one call can time an earlier tree's kernel beside this one's.
@@ -232,6 +250,14 @@ STREAM_THREADED = 256             # queries against the interleaved loop
 STREAM_RTOL = 1e-9
 STREAM_COND_MAX = 1e6             # rtol 1e-9 where cond(A_j) ≤ this
 SERVE_RTOL = 1e-12
+# The bench phase: rounds of each dispatch check (and the fused chunk of
+# one more), the serve bench's (closed-loop queries, open-loop queries,
+# reps) — the reference's full counts — and where its JSONL goes.
+BENCH_ROUNDS = 32
+BENCH_CHUNK = 10
+BENCH_SERVE = (600, 300, 3)
+BENCH_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_bench")
 
 # Decode attention: (B, H, K, dh, S, cur) of the kernel's phase — the
 # five cases of tests/test_kernels_decode.py, then the heads of
@@ -2940,6 +2966,298 @@ def print_stream_phase(st: dict, card: str) -> None:
           f"phase {st['secs']:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------------ bench
+def dispatch_checks(run: dict, a: dict, c: dict, rounds: int) -> list[dict]:
+    """(a) Each backend of the main (sync), async and Chebyshev paths on
+    the main path's packed problem: `dispatch_count` of one solve of
+    ``rounds`` rounds against the contract and, on the card, against the
+    LAUNCHES delta of the same run (on the CPU every launch count stays
+    0: each dispatch runs a plain version)."""
+    from repro_torch.core.acceleration import chebyshev_solve_packed
+    from repro_torch.dist import async_solve_batched, solve_batched
+    from repro_torch.kernels import ops
+    from repro_torch.obs import dispatch_count, round_dispatches
+
+    packed = run["packed"]
+    on_card = packed.device.type == "cuda"
+    lo, hi = c["mu"]
+    masks = a["masks"][:rounds]
+    paths = {
+        "sync": lambda b, **kw: solve_batched(packed, rounds, backend=b,
+                                              return_trace=True, **kw),
+        "async": lambda b, **kw: async_solve_batched(
+            packed, rounds, masks, config=a["config"], backend=b,
+            return_stats=True, **kw),
+        "chebyshev": lambda b, **kw: chebyshev_solve_packed(
+            packed, hi, lo, num_iters=rounds, backend=b, return_trace=True,
+            **kw)}
+    out = []
+    for path, fn in paths.items():
+        for backend, chunk in (("torch", None), ("cuda", None),
+                               ("cuda_fused", None), ("cuda_fused",
+                                                      BENCH_CHUNK)):
+            kw = {} if chunk is None else {"chunk_rounds": chunk}
+            before = ops.launch_counts()
+            count, exact = dispatch_count(fn, backend, **kw)
+            if on_card:
+                torch.cuda.synchronize()
+            after = ops.launch_counts()
+            launched = sum(after[k] - before[k] for k in after)
+            want = round_dispatches(backend, rounds, chunk_rounds=chunk)
+            if not exact or count != want or (
+                    launched != (count if on_card else 0)):
+                raise PhaseError(
+                    f"bench (a) {path} backend={backend} chunk={chunk}: "
+                    f"{count} dispatches, {launched} launches; the contract "
+                    f"is {want}")
+            out.append(dict(path=path, backend=backend, chunk=chunk,
+                            dispatches=count, launches=launched,
+                            contract=want))
+    return out
+
+
+def smem_checks() -> list[dict]:
+    """(b) Each kernel's `repro_torch.analysis.smem` estimate at the
+    paths' shapes against the bytes its csrc launcher takes (the
+    library's C export)."""
+    from repro_torch.analysis import smem
+
+    sms = smem.device_sms(torch.device("cuda"))
+    out = []
+    for kernel, shape in smem.PATH_SHAPES:
+        kw = dict(shape, sms=sms) if kernel in (
+            "rff_gram", "rff_features", "serve_wave") else shape
+        est = getattr(smem, f"estimate_{kernel}")(**kw)
+        got = smem.launcher_bytes(kernel, shape, sms=sms)
+        if got != est.bytes or not est.fits:
+            raise PhaseError(f"bench (b) {kernel} {shape}: the estimate "
+                             f"says {est.bytes} bytes (fits {est.fits}), "
+                             f"the launcher takes {got}")
+        out.append(dict(kernel=kernel, shape=shape, bytes=got,
+                        limit=est.limit, formula=est.formula))
+    return out
+
+
+def over_budget_check(device: str) -> str:
+    """(c) The over-budget round (K 4, Dy 8, D 640, f64: 245,760 B a
+    block) raises `SmemBudgetError` with no launch and no CUDA error."""
+    from repro_torch.analysis import SmemBudgetError
+    from repro_torch.kernels import ops
+
+    j, k, d, dy = 2, 4, 640, 8
+    z = lambda *s: torch.zeros(s, dtype=torch.float64, device=device)
+    nbr = torch.tensor([[1] * k, [0] * k], dtype=torch.int32, device=device)
+    own = torch.arange(j, dtype=torch.int32, device=device)
+    mask = torch.ones((j, k), dtype=torch.int32, device=device)
+    before = ops.launch_counts()
+    try:
+        ops.dekrr_step(z(j, d, d), z(j, d, dy), z(j, d, d), z(j, k, d, d),
+                       z(j, d, dy), nbr, own, mask)
+    except SmemBudgetError as exc:
+        message = str(exc)
+    else:
+        raise PhaseError("bench (c): the over-budget round was not refused")
+    if device == "cuda":
+        torch.cuda.synchronize()
+        (torch.ones(4, device=device) * 2).sum().item()
+    if ops.launch_counts() != before or "245760" not in message:
+        raise PhaseError(f"bench (c): launches moved or the message does "
+                         f"not name the bytes: {message}")
+    return message
+
+
+def check_cost_us(calls: int = 2000) -> dict[str, float]:
+    """Host µs a call of each wrapper's budget check at the main path's
+    shapes (`repro_torch.analysis.smem`; what the check adds to every
+    launch), and of one dispatch count."""
+    from repro_torch.analysis import smem
+    from repro_torch.kernels import ops
+
+    checks = {
+        "dekrr_step": lambda: smem.estimate_dekrr_step(
+            j_nodes=J_NODES, k_slots=4, d_feat=D_PER_NODE).check(),
+        "rff_gram": lambda: smem.estimate_rff_gram(
+            b=J_NODES, f=D_PER_NODE, dim=148, n=3180).check(),
+        "rff_features": lambda: smem.estimate_rff_features(
+            j=J_NODES, d_feat=D_PER_NODE, n=SERVE_N).check(),
+        "flash_decode": lambda: smem.estimate_flash_decode(
+            rows=LLM_BATCH * 16, groups=1, dh=64, s=LLM_MAX_SEQ).check(),
+        "dispatch count": lambda: ops._count_plain("flash_decode"),
+    }
+    out = {}
+    saved = ops.dispatch_counts()
+    for name, fn in checks.items():
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+    with ops._count_lock:
+        ops.DISPATCHES.update(saved)
+    return out
+
+
+def bench_phase(run: dict, a: dict, c: dict, *, fast: bool,
+                serve_counts: tuple[int, int, int],
+                out_dir: str) -> dict:
+    """The system benchmarks (`repro_torch.bench`) on the card: (a)
+    dispatch counts, (b) shared-memory estimates against the launchers
+    (on the card only), (c) the over-budget round, (d) the serve bench on
+    the main path's θ, the solve bench (the reference's CASES), the async
+    bench on the main path's packed problem, the Chebyshev bench (houses
+    at full N) and the multi-output bench, all into one registry written
+    as JSONL under ``out_dir`` and rendered by `repro_torch.obs`, (e)
+    provenance naming the card and its power limit."""
+    from repro_torch.bench import (async_gossip_bench, chebyshev_bench,
+                                   multiout_bench, serve_bench, solve_bench)
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Registry, recording, span
+    from repro_torch.obs.__main__ import load_records, render_report
+    from repro_torch.obs.export import provenance, write_jsonl
+
+    device = run["packed"].device
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    out = dict(dispatch=dispatch_checks(run, a, c, BENCH_ROUNDS))
+    out["smem"] = smem_checks() if on_card else []
+    out["over_budget"] = over_budget_check(device.type)
+    out["check_us"] = check_cost_us()
+    snap, _ = serve_snapshot(run, run["theta"], 1)
+    xs = run["test"][0].x.cpu().numpy()
+    n_cap, n_open, reps = serve_counts
+    registry = Registry()
+    suites = {
+        "serve": lambda: serve_bench.serve_frontier(
+            snap, xs, n_cap=n_cap, n_open=n_open, reps=reps,
+            registry=registry),
+        "solve": lambda: solve_bench.run(fast=fast, device=device,
+                                         registry=registry),
+        "async": lambda: async_gossip_bench.run(
+            fast=fast, device=device, registry=registry,
+            packed=run["packed"]),
+        "chebyshev": lambda: chebyshev_bench.run(
+            fast=fast, device=device, registry=registry,
+            subsample=None if on_card else 600),
+        "multiout": lambda: multiout_bench.run(fast=fast, device=device,
+                                               registry=registry),
+    }
+    ops.reset_launch_counts()
+    results = {}
+    with recording(registry):
+        for name, fn in suites.items():
+            t1 = time.perf_counter()
+            try:
+                with span(f"bench.{name}", fast=fast):
+                    results[name] = fn()
+            except (RuntimeError, AssertionError, ValueError) as exc:
+                raise PhaseError(f"bench (d) {name}: {exc}") from exc
+            registry.histogram("bench.suite_seconds").observe(
+                time.perf_counter() - t1)
+    out["launches"] = ops.launch_counts()
+    want = ("dekrr_step", "dekrr_solve", "dekrr_async_solve", "rff_gram",
+            "rff_features", "rff_features_lowp")
+    if on_card and not all(out["launches"][k] for k in want):
+        raise PhaseError(f"bench (d): a kernel of the benches never "
+                         f"launched: {out['launches']}")
+    prov = provenance(plain=not on_card, device=device,
+                      extra={"phase": "bench", "fast": fast})
+    if on_card and (prov["device_kind"] != torch.cuda.get_device_name(0)
+                    or prov["power_limit"] != card_line()):
+        raise PhaseError(f"bench (e): provenance {prov} does not name the "
+                         f"card and its power limit ({card_line()})")
+    os.makedirs(out_dir, exist_ok=True)
+    path = write_jsonl(registry, os.path.join(out_dir, "run.jsonl"), prov)
+    report = render_report(load_records(path))
+    for section in ("provenance", "convergence", "comm frontier",
+                    "latency / percentiles"):
+        if f"== {section} " not in report:
+            raise PhaseError(f"bench (d): the report has no {section} "
+                             f"section")
+    with open(os.path.join(out_dir, "report.txt"), "w") as f:
+        f.write(report + "\n")
+    out.update(results=results, prov=prov, jsonl=path, report=report,
+               secs=time.perf_counter() - t0)
+    return out
+
+
+def print_bench_phase(b: dict, card: str) -> None:
+    for row in b["dispatch"]:
+        print(f"bench [{card}] (a) {row['path']} backend={row['backend']}"
+              + (f" chunk_rounds={row['chunk']}" if row["chunk"] else "")
+              + f": {row['dispatches']} dispatches, {row['launches']} "
+              f"launches, contract {row['contract']}")
+    for row in b["smem"]:
+        print(f"bench [{card}] (b) {row['kernel']} "
+              f"{json.dumps(row['shape'])}: {row['bytes']} bytes a block "
+              f"(launcher == estimate {row['formula']}; limit "
+              f"{row['limit']})")
+    print(f"bench [{card}] (c) refused: {b['over_budget']}")
+    print(f"bench [{card}] host µs a call of each budget check (and of a "
+          f"dispatch count): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in b["check_us"].items()))
+    r = b["results"]
+    cl = r["serve"]["closed_loop"]
+    print(f"bench [{card}] (d) serve (main path θ, batch "
+          f"{r['serve']['batch_size']}, {r['serve']['replicas']} replicas, "
+          f"queries {json.dumps(r['serve']['queries'])}): closed-loop qps "
+          f"sequential {cl['single_engine_sequential_qps']:.1f}, batched "
+          f"engine {cl['single_engine_batched_qps']:.1f}, replicas "
+          f"{cl['replica_qps']:.1f} (medians)")
+    for row in r["serve"]["frontier"]:
+        print(f"bench [{card}] (d) serve open-loop {row['precision']} at "
+              f"{row['offered_qps'] / row['capacity_qps']:.1f} of "
+              f"{row['capacity_qps']:.1f} qps: achieved "
+              f"{row['achieved_qps']:.1f} qps, p50 {row['p50_ms']:.3f} ms, "
+              f"p99 {row['p99_ms']:.3f} ms, max |f_lo − f_hi| "
+              f"{row['max_answer_error']:.3e}"
+              + (f", max bound {row['max_precision_bound']:.3e}, all "
+                 f"within {row['all_within_bound']}"
+                 if "max_precision_bound" in row else ""))
+    for case in r["solve"]["cases"]:
+        print(f"bench [{card}] (d) solve J={case['j_nodes']} "
+              f"D={case['d_max']} R={case['rounds']}: " + ", ".join(
+                  f"{k} {v / 1e3:.3f} ms ({case['dispatches'][k]} "
+                  f"dispatches)" for k, v in case["us"].items())
+              + f"; H100 bound {case['h100_bound_us'] / 1e3:.4f} ms")
+    for row in r["async"]["schedules"]:
+        last = row["frontier"][-1]
+        print(f"bench [{card}] (d) async {row['schedule']} R="
+              f"{last['rounds']}: rel_err {last['rel_err']:.3e}, "
+              f"{last['actual_bytes']} bytes on the wire (model "
+              f"{last['expected_bytes']:.0f}), censor fraction "
+              f"{last['observed_censor_fraction']:.4f}")
+    for row in r["chebyshev"]["rows"]:
+        print(f"bench [{card}] (d) chebyshev houses N="
+              f"{r['chebyshev']['n_train']} c={row['c_over_n']}N (ρ "
+              f"{row['rho']:.6f}, interval [{row['mu_interval'][0]:.6f}, "
+              f"{row['mu_interval'][1]:.6f}]): rounds "
+              f"to 1e-6 plain {row['rounds_plain']}, Chebyshev "
+              f"{row['rounds_chebyshev']}, {row['bytes_per_round']} bytes a "
+              f"round, {row['seconds']:.2f} s")
+    for row in r["multiout"]["results"]:
+        print(f"bench [{card}] (d) multiout Dy={row['dy']}: " + ", ".join(
+            f"{k} fused {v['fused_us'] / 1e3:.3f} ms vs loop "
+            f"{v['loop_us'] / 1e3:.3f} ms ({v['dispatches_fused']} vs "
+            f"{v['dispatches_loop']} dispatches)"
+            for k, v in row["backends"].items()))
+    print(f"bench [{card}] launches: {json.dumps(b['launches'])}")
+    print(f"bench [{card}] (e) provenance: device_kind "
+          f"{b['prov']['device_kind']!r}, power_limit "
+          f"{b['prov']['power_limit']!r}, torch {b['prov']['torch_version']}"
+          f", cuda {b['prov']['cuda_version']}")
+    lines = b["report"].splitlines()
+    waterfall = [i for i, line in enumerate(lines)
+                 if line.startswith("== span waterfall")]
+    shown = lines if not waterfall else lines[:waterfall[0]] + [
+        line for line in lines[waterfall[0]:]
+        if not line.startswith("  ") or "bench." in line
+        or line.startswith("  total")]
+    print(f"bench [{card}] report of {b['jsonl']} (python -m "
+          f"repro_torch.obs; the span waterfall's bench spans only):")
+    print("\n".join(shown))
+    print(f"bench [{card}] phase {b['secs']:.1f} s", flush=True)
+
+
 def check_launches(run: dict) -> None:
     got = {k: v for k, v in run["launches"].items() if v}
     rounds = run["rounds"]
@@ -2992,6 +3310,9 @@ def rehearse_on_cpu() -> int:
                       queries=64, publishes=3, threaded=32, reps=2)
     check_stream_launches(st, on_card=False)
     print_stream_phase(st, "cpu")
+    b = bench_phase(run, a, c, fast=True, serve_counts=(64, 32, 2),
+                    out_dir=os.path.join(BENCH_OUT, "cpu"))
+    print_bench_phase(b, "cpu")
     summary = dict(rounds=run["rounds"], rse=run["rse"],
                    launches=run["launches"], exact_err=checks["exact_err"],
                    rho=checks["rho"], async_err=a_checks["err"],
@@ -3009,7 +3330,9 @@ def rehearse_on_cpu() -> int:
                    stream_rounds=[(e["warm_rounds"], e["cold_rounds"])
                                   for e in st["epochs"]],
                    stream_replay_err=st["replay_err"],
-                   stream_serve_err=st["serve_err"])
+                   stream_serve_err=st["serve_err"],
+                   bench_dispatch=[(r["path"], r["backend"], r["chunk"],
+                                    r["dispatches"]) for r in b["dispatch"]])
     print(json.dumps({"cpu_rehearsal": summary}))
     return 0
 
@@ -3179,6 +3502,10 @@ def run_on_card() -> int:
                       threaded=STREAM_THREADED, reps=10)
     check_stream_launches(st, on_card=True)
     print_stream_phase(st, card)
+
+    b = bench_phase(run, a, c, fast=False, serve_counts=BENCH_SERVE,
+                    out_dir=BENCH_OUT)
+    print_bench_phase(b, card)
 
     launches = dict(run["launches"], dekrr_step_masked=a_launches[
         "dekrr_step_masked"], dekrr_async_solve=a_launches[

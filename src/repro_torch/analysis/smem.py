@@ -1,0 +1,450 @@
+"""Shared-memory and launch-shape budget of the port's Hopper kernels.
+
+The port's counterpart of the reference's `repro.analysis.vmem`. A CUDA
+kernel whose dynamic shared memory passes what a block may take fails at
+its launch with an opaque CUDA error: after the operands were staged, and
+for the solve after the whole problem was packed. This module makes each
+kernel's shared-memory layout (its ``csrc`` launcher's formula) and its
+launch shape executable, so that the wrappers of
+`repro_torch.kernels.ops` refuse an over-budget shape with a
+`SmemBudgetError` naming the kernel, the formula, the bytes and the limit
+BEFORE anything is staged or launched, on the CPU as on the card.
+
+Budget table (bytes a block; one H100, sm_90):
+
+  kernel             dynamic shared memory a block          cluster  grid
+  -----------------  -------------------------------------  -------  ---------------
+  dekrr_step         (K+2)·Dy·D·itemsize                    C ≤ 8    (C, J)
+  dekrr_solve        (K+2)·Dy·D·itemsize                    C ≤ 8    (C, ≤ J)
+  dekrr_async_solve  (K+2)·Dy·D·itemsize                    C ≤ 8    (C, ≤ J)
+  dekrr_cheb_solve   (K+2)·Dy·D·itemsize                    C ≤ 8    (C, ≤ J)
+  rff_gram, cluster  (F'·36 + Ω + 2·32·36 + 2·2·32 + H)·it  C ≤ 8    (C·S, groups, B)
+  rff_gram, wide     max(Z: (2·64·36 + 2·32·68)·it,         1        (⌈n/64⌉, F'/64, b),
+                         G: 3·(2·64·36 + 32)·it)                     (tiles, b)
+  rff_features       2·(16·WR·(32+p) + 32·(8·NT·WC+p))·it   1        (⌈N/cols⌉, ⌈D/rows⌉, J)
+  serve_wave         rff_features' at the wave's shape      1        the same
+  flash_decode       (stages·2·tile·dh + hb·dh)·4           1        (rows·⌈G/hb⌉, chunks)
+
+Terms: K the slot count (≥ 1: the wrapper pads an edgeless graph to one
+slot), D the padded feature count, Dy the output width; the round kernel
+stages (1 + K) θ blocks and the acc block, each [Dy, D]. For `rff_gram`
+(`kernels/rff_gram.py::gram_plan`): F' = F rounded up to 16, H the rank
+rows a block holds, Ω = H·(⌈d/32⌉·32 + 4) with Ω resident, else
+2·H·(32 + 4). For `rff_features` (`features_plan`): the tile (WR, WC,
+NT) from the shape, p = 8 in bf16 and 4 otherwise. For `flash_decode`
+(`decode_plan`): tile = 32·ppg positions, 3 or 4 stages, hb query heads
+a block. The limit is `SMEM_OPTIN_PER_BLOCK` (232,448 B, the opt-in
+maximum of a block on sm_90) less the static shared memory each kernel
+declares beside its dynamic buffer (`STATIC_SMEM`). Grids hold at most
+2³¹ − 1 blocks along x and 65,535 along y and z; a cluster at most the
+portable 8 blocks.
+
+What the CPU cannot know, the card decides at launch, and the estimate
+says nothing of it: how many clusters of a chain kernel are resident at
+once (`kernels/dekrr_solve.py::chain_max_clusters`, an occupancy query,
+which sets the chains' second grid dimension and can shrink C), and the
+registers a kernel takes (`nvcc -Xptxas -v`). The chains' grids are
+bounded here by J, the most they ever take.
+
+`check_index_table` is the port's copy of the reference's bounds check of
+an index table: a kernel gathering through it has no bounds check of its
+own.
+
+This module imports only numpy and the standard library at import time;
+the estimates read the kernels' launch plans from `repro_torch.kernels`
+when called.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+__all__ = [
+    "H100_SMS",
+    "MAX_CLUSTER",
+    "SMEM_LIMITS",
+    "SMEM_OPTIN_PER_BLOCK",
+    "SMEM_PER_SM",
+    "SMEM_RESERVED_PER_BLOCK",
+    "STATIC_SMEM",
+    "SmemBudgetError",
+    "SmemEstimate",
+    "check_index_table",
+    "device_sms",
+    "estimate_dekrr_async_solve",
+    "estimate_dekrr_cheb_solve",
+    "estimate_dekrr_solve",
+    "estimate_dekrr_step",
+    "estimate_flash_decode",
+    "estimate_rff_features",
+    "estimate_rff_gram",
+    "estimate_serve_wave",
+    "launcher_bytes",
+    "path_estimates",
+]
+
+# One H100 (sm_90): shared memory a block may opt into, an SM's, and the
+# 1 KB of an SM's that the system reserves for each resident block.
+SMEM_OPTIN_PER_BLOCK = 232_448
+SMEM_PER_SM = 233_472
+SMEM_RESERVED_PER_BLOCK = 1_024
+MAX_CLUSTER = 8                 # the portable cluster size
+H100_SMS = 132                  # SMs of the card the CPU budgets for
+MAX_GRID_X = 2**31 - 1
+MAX_GRID_YZ = 65_535
+
+# Static shared memory each kernel declares beside its dynamic buffer, in
+# bytes (at most): the chains' cluster-max scratch (`dekrr::ClusterMax`,
+# 384 B in f64 for one value, 768 B for the async chain's two), and
+# `rff_gram`'s last-block flag with slack. `flash_decode`'s launcher
+# refuses a dynamic size past 232,448 B itself (`kMaxSmem`).
+STATIC_SMEM = {
+    "dekrr_step": 0,
+    "dekrr_solve": 1_024,
+    "dekrr_async_solve": 1_024,
+    "dekrr_cheb_solve": 1_024,
+    "rff_gram": 1_024,
+    "rff_features": 0,
+    "serve_wave": 0,
+    "flash_decode": 0,
+}
+# The dynamic shared memory a block of each kernel may take: the single
+# table the launch plans read (`gram_plan`, `decode_plan`).
+SMEM_LIMITS = {name: SMEM_OPTIN_PER_BLOCK - reserved
+               for name, reserved in STATIC_SMEM.items()}
+
+
+def device_sms(device) -> int:
+    """SMs a launch plan sizes for: the card's on a CUDA device, an
+    H100's (`H100_SMS`) elsewhere, so the CPU budgets as for the card."""
+    if getattr(device, "type", device) != "cuda":
+        return H100_SMS
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+class SmemBudgetError(ValueError):
+    """Raised before any staging or launch when a kernel's shared memory
+    a block, its cluster or its grid passes what the card allows. The
+    message names the kernel, the formula, the bytes and the limit."""
+
+
+@dataclasses.dataclass(frozen=True)
+class SmemEstimate:
+    """Static budget of one kernel call: the dynamic shared memory of its
+    largest block, its cluster size and its grids (one per launch; a
+    zero extent launches nothing and passes)."""
+
+    kernel: str
+    formula: str        # symbolic, as in the module's table
+    detail: str         # the formula with the shapes substituted
+    bytes: int
+    limit: int
+    cluster: int = 1
+    grids: tuple[tuple[int, ...], ...] = ((1, 1, 1),)
+
+    def problems(self) -> list[str]:
+        """What passes the card's limits, as phrases (empty: it fits)."""
+        out = []
+        if self.bytes > self.limit:
+            out.append(f"shared memory {self.formula} = {self.detail} = "
+                       f"{self.bytes} bytes a block exceeds the "
+                       f"{self.limit}-byte limit ({SMEM_OPTIN_PER_BLOCK} B "
+                       f"opt-in on sm_90 less the "
+                       f"{SMEM_OPTIN_PER_BLOCK - self.limit} B the kernel "
+                       f"reserves)")
+        if not 1 <= self.cluster <= MAX_CLUSTER:
+            out.append(f"a cluster of {self.cluster} blocks is outside "
+                       f"[1, {MAX_CLUSTER}]")
+        for grid in self.grids:
+            dims = tuple(grid) + (1,) * (3 - len(grid))
+            if dims[0] > MAX_GRID_X or max(dims[1:]) > MAX_GRID_YZ:
+                out.append(f"grid {dims} is outside (2^31 - 1, 65535, "
+                           f"65535)")
+        return out
+
+    @property
+    def fits(self) -> bool:
+        return not self.problems()
+
+    def check(self) -> "SmemEstimate":
+        """Return self, or raise `SmemBudgetError` naming what does not
+        fit."""
+        problems = self.problems()
+        if problems:
+            raise SmemBudgetError(
+                f"{self.kernel}: " + "; ".join(problems) + " — shrink D, K "
+                f"or Dy, or use backend='torch' (see "
+                f"repro_torch.analysis.smem)")
+        return self
+
+
+def _round_estimate(kernel: str, j_nodes: int, k_slots: int, d_feat: int,
+                    dy: int, itemsize: int) -> SmemEstimate:
+    from repro_torch.kernels.dekrr_step import round_plan
+
+    blocks, _ = round_plan(d_feat)
+    return SmemEstimate(
+        kernel=kernel, formula="(K+2)*Dy*D*itemsize",
+        detail=f"({k_slots}+2)*{dy}*{d_feat}*{itemsize}",
+        bytes=(k_slots + 2) * dy * d_feat * itemsize,
+        limit=SMEM_LIMITS[kernel], cluster=blocks,
+        grids=((blocks, j_nodes, 1),))
+
+
+def estimate_dekrr_step(*, j_nodes: int, k_slots: int, d_feat: int,
+                        dy: int = 1, itemsize: int = 8) -> SmemEstimate:
+    """The round kernel (`csrc/dekrr_step.cu`, `dekrr::node_smem_elems`):
+    (1 + K) staged θ blocks and the acc block, each [Dy, D], in each block
+    of a node's cluster of `round_plan`'s C blocks; grid (C, J)."""
+    return _round_estimate("dekrr_step", j_nodes, k_slots, d_feat, dy,
+                           itemsize)
+
+
+def estimate_dekrr_solve(*, j_nodes: int, k_slots: int, d_feat: int,
+                         dy: int = 1, itemsize: int = 8) -> SmemEstimate:
+    """The synchronous chain (`csrc/dekrr_solve.cu`): the round kernel's
+    node body, so its dynamic shared memory; grid (C, clusters ≤ J), the
+    clusters the card's occupancy query allows (not known here)."""
+    return _round_estimate("dekrr_solve", j_nodes, k_slots, d_feat, dy,
+                           itemsize)
+
+
+def estimate_dekrr_async_solve(*, j_nodes: int, k_slots: int, d_feat: int,
+                               dy: int = 1, itemsize: int = 8
+                               ) -> SmemEstimate:
+    """The asynchronous-gossip chain (`csrc/dekrr_async_solve.cu`): as
+    `estimate_dekrr_solve`; its θ, sent and buffer tables live in device
+    memory, not in shared memory."""
+    return _round_estimate("dekrr_async_solve", j_nodes, k_slots, d_feat,
+                           dy, itemsize)
+
+
+def estimate_dekrr_cheb_solve(*, j_nodes: int, k_slots: int, d_feat: int,
+                              dy: int = 1, itemsize: int = 8
+                              ) -> SmemEstimate:
+    """The Chebyshev chain (`csrc/dekrr_cheb_solve.cu`): as
+    `estimate_dekrr_solve`."""
+    return _round_estimate("dekrr_cheb_solve", j_nodes, k_slots, d_feat, dy,
+                           itemsize)
+
+
+def estimate_rff_gram(*, b: int, f: int, dim: int, n: int,
+                      itemsize: int = 8, sms: int = H100_SMS) -> SmemEstimate:
+    """`rff_gram` on the route `gram_plan` picks (`csrc/rff_gram.cu`,
+    `gram_smem_bytes`; the wide route's `z_smem_bytes` and
+    `wide_smem_bytes`, its largest block)."""
+    from repro_torch.kernels.rff_gram import (GRAM_WIDE_TILE, WideGramPlan,
+                                              _wide_smem_bytes, gram_plan)
+
+    plan = gram_plan(b, f, dim, n, item=itemsize, sms=sms)
+    if isinstance(plan, WideGramPlan):
+        z_bytes, g_bytes = _wide_smem_bytes(itemsize)
+        return SmemEstimate(
+            kernel="rff_gram",
+            formula="max((2*64*36 + 2*32*68)*itemsize, "
+                    "3*(2*64*36 + 32)*itemsize)",
+            detail=f"max({z_bytes}, {g_bytes}) at itemsize {itemsize}",
+            bytes=max(z_bytes, g_bytes), limit=SMEM_LIMITS["rff_gram"],
+            grids=((-(-plan.cols // GRAM_WIDE_TILE),
+                    plan.f_pad // GRAM_WIDE_TILE, plan.batch),
+                   (plan.tiles, plan.batch, 1)))
+    fp = -(-f // 16) * 16
+    rank_rows = -(-(fp // 16) // plan.cluster) * 16
+    omega = (f"{rank_rows}*({-(-dim // 32) * 32}+4)" if plan.resident
+             else f"2*{rank_rows}*(32+4)")
+    return SmemEstimate(
+        kernel="rff_gram",
+        formula="(F'*36 + Omega + 2*32*36 + 2*2*32 + H)*itemsize",
+        detail=(f"({fp}*36 + {omega} + 2*32*36 + 2*2*32 + {rank_rows})"
+                f"*{itemsize}"),
+        bytes=plan.smem_bytes, limit=SMEM_LIMITS["rff_gram"],
+        cluster=plan.cluster,
+        grids=((plan.cluster * plan.slices, plan.groups, b),))
+
+
+def _features_estimate(kernel: str, j: int, d_feat: int, n: int,
+                       itemsize: int, sms: int) -> SmemEstimate:
+    from repro_torch.kernels.rff_features import (FEAT_DEPTH, FEAT_STAGES,
+                                                  FEAT_WARP_ROWS,
+                                                  features_plan)
+
+    plan = features_plan(j, d_feat, n, item=itemsize, sms=sms)
+    pad = 8 if itemsize == 2 else 4
+    return SmemEstimate(
+        kernel=kernel,
+        formula="2*(16*WR*(32+p) + 32*(8*NT*WC+p))*itemsize",
+        detail=(f"{FEAT_STAGES}*({FEAT_WARP_ROWS}*{plan.warp_rows}*"
+                f"({FEAT_DEPTH}+{pad}) + {FEAT_DEPTH}*(8*{plan.warp_tiles}*"
+                f"{plan.warp_cols}+{pad}))*{itemsize}"),
+        bytes=plan.smem_bytes, limit=SMEM_LIMITS[kernel],
+        grids=((-(-n // plan.cols), -(-d_feat // plan.rows), j),))
+
+
+def estimate_rff_features(*, j: int, d_feat: int, n: int,
+                          itemsize: int = 8, sms: int = H100_SMS
+                          ) -> SmemEstimate:
+    """The featurize kernel (`csrc/rff_features.cu`,
+    `features_smem_bytes`) at the tile `features_plan` picks: two ring
+    stages of an Ω slice and an X slice."""
+    return _features_estimate("rff_features", j, d_feat, n, itemsize, sms)
+
+
+def estimate_serve_wave(*, j: int, d_feat: int, n: int, itemsize: int = 8,
+                        sms: int = H100_SMS) -> SmemEstimate:
+    """A serving wave on ``backend="cuda"`` (`repro_torch.serve.dekrr`):
+    ONE featurize launch for the J cos_bias nodes of the snapshot at
+    D_max = ``d_feat`` and the wave's padded column bucket ``n``
+    (itemsize 2 on the bf16/int8 paths). The θ products run in torch and
+    take no shared memory of ours."""
+    return _features_estimate("serve_wave", j, d_feat, n, itemsize, sms)
+
+
+def estimate_flash_decode(*, rows: int, groups: int, dh: int,
+                          s: int = 1) -> SmemEstimate:
+    """The decode-attention kernel (`csrc/flash_decode.cu`, `smem_bytes`)
+    at `decode_plan`'s tiling for ``rows`` (batch, kv head) rows of
+    ``groups`` query heads: a ring of K and V stages and the block's
+    query rows, in float32; grid (rows·head blocks, chunks of S)."""
+    from repro_torch.kernels.decode_attention import (decode_smem_bytes,
+                                                      decode_tiling)
+
+    ppg, tile, stages, tiles, head_block = decode_tiling(groups, dh)
+    chunks = -(-max(s, 1) // (tiles * tile))
+    return SmemEstimate(
+        kernel="flash_decode", formula="(stages*2*tile*dh + hb*dh)*4",
+        detail=f"({stages}*2*{tile}*{dh} + {head_block}*{dh})*4",
+        bytes=decode_smem_bytes(ppg, stages, head_block, dh),
+        limit=SMEM_LIMITS["flash_decode"],
+        grids=((max(rows, 1) * -(-max(groups, 1) // head_block), chunks,
+                1),))
+
+
+def check_index_table(name: str, table, size: int, *, lo: int = 0) -> None:
+    """Every entry of the integer array-like ``table`` must lie in
+    ``[lo, size)``; raises ValueError naming the offending range. A kernel
+    gathering through an index table has no bounds check of its own (the
+    port's copy of `repro.analysis.vmem.check_index_table`)."""
+    arr = np.asarray(table)
+    if arr.size == 0:
+        return
+    if not np.issubdtype(arr.dtype, np.integer):
+        raise ValueError(
+            f"{name}: index table must be integer-typed, got {arr.dtype}")
+    amin, amax = int(arr.min()), int(arr.max())
+    if amin < lo or amax >= size:
+        raise ValueError(
+            f"{name}: indices must lie in [{lo}, {size}) but span "
+            f"[{amin}, {amax}] — an out-of-range slot would silently "
+            f"gather an arbitrary table row")
+
+
+# The shapes of the paths `chip_smoke.py` drives on the card (the paper's
+# wave setting: J 10, circulant(10, (1, 2)) so K 4, D_j 200, d 148,
+# N_j 3,180; the multi-output bench at Dy 8; the serving waves at buckets
+# of 512 and 16 columns; `rff_gram` at the `gram_fn` shape and on its wide
+# route at F 600; the LLM path's decode attention, qwen1.5-0.5b: 16 kv
+# heads of 1 query head at dh 64, B 8 over a 512-position cache and B 1
+# over 32,768).
+_WAVE = dict(j_nodes=10, k_slots=4, d_feat=200)
+PATH_SHAPES = (
+    ("dekrr_step", dict(_WAVE)),
+    ("dekrr_solve", dict(_WAVE)),
+    ("dekrr_async_solve", dict(_WAVE)),
+    ("dekrr_cheb_solve", dict(_WAVE)),
+    ("dekrr_solve", dict(j_nodes=10, k_slots=4, d_feat=32, dy=8)),
+    ("rff_gram", dict(b=10, f=200, dim=148, n=3180)),
+    ("rff_gram", dict(b=1, f=200, dim=148, n=3180, itemsize=4)),
+    ("rff_gram", dict(b=10, f=600, dim=148, n=3180)),
+    ("rff_features", dict(j=1, d_feat=200, n=8)),
+    ("serve_wave", dict(j=10, d_feat=200, n=512)),
+    ("serve_wave", dict(j=10, d_feat=200, n=512, itemsize=2)),
+    ("serve_wave", dict(j=10, d_feat=200, n=16)),
+    ("serve_wave", dict(j=10, d_feat=200, n=16, itemsize=2)),
+    ("flash_decode", dict(rows=128, groups=1, dh=64, s=512)),
+    ("flash_decode", dict(rows=16, groups=1, dh=64, s=32_768)),
+)
+_ESTIMATES = {
+    "dekrr_step": estimate_dekrr_step,
+    "dekrr_solve": estimate_dekrr_solve,
+    "dekrr_async_solve": estimate_dekrr_async_solve,
+    "dekrr_cheb_solve": estimate_dekrr_cheb_solve,
+    "rff_gram": estimate_rff_gram,
+    "rff_features": estimate_rff_features,
+    "serve_wave": estimate_serve_wave,
+    "flash_decode": estimate_flash_decode,
+}
+_SM_DEPENDENT = ("rff_gram", "rff_features", "serve_wave")
+
+
+def _label(kernel: str, shape: dict) -> str:
+    return kernel + "[" + ",".join(f"{k}={v}" for k, v in shape.items()) \
+        + "]"
+
+
+def path_estimates(sms: int = H100_SMS) -> list[tuple[str, SmemEstimate]]:
+    """(label, estimate) of every kernel at `PATH_SHAPES`, on a card of
+    ``sms`` SMs."""
+    out = []
+    for kernel, shape in PATH_SHAPES:
+        kw = dict(shape, sms=sms) if kernel in _SM_DEPENDENT else shape
+        out.append((_label(kernel, shape), _ESTIMATES[kernel](**kw)))
+    return out
+
+
+def launcher_bytes(kernel: str, shape: dict, sms: int = H100_SMS) -> int:
+    """The dynamic shared memory a block that the kernel's ``csrc``
+    launcher takes at ``shape`` (`PATH_SHAPES`' keys), read from the
+    library's C export (``*_smem_bytes``) at the launch plan the wrapper
+    would pass; the largest block for `rff_gram`'s wide route. This loads
+    the built library, so it runs where the kernels build (the card's
+    machine), never on the way to a launch."""
+    from repro_torch.kernels import _build
+
+    item = shape.get("itemsize", 8)
+    if kernel.startswith("dekrr_"):
+        lib = _build.library(kernel)
+        suffix = "f64" if item == 8 else "f32"
+        fn = getattr(lib, f"{kernel}_smem_bytes_{suffix}")
+        return fn(shape["k_slots"], shape["d_feat"], shape.get("dy", 1))
+    if kernel == "rff_gram":
+        from repro_torch.kernels.rff_gram import WideGramPlan, gram_plan
+
+        lib = _build.library("rff_gram")
+        plan = gram_plan(shape["b"], shape["f"], shape["dim"], shape["n"],
+                         item=item, sms=sms)
+        if isinstance(plan, WideGramPlan):
+            return max(lib.rff_gram_wide_smem_bytes(item, 0),
+                       lib.rff_gram_wide_smem_bytes(item, 1))
+        layout = lib.rff_gram_smem_bytes(shape["f"], shape["dim"],
+                                         plan.cluster, int(plan.resident),
+                                         item)
+        if layout != plan.smem_bytes:
+            raise SmemBudgetError(
+                f"rff_gram: gram_plan passes {plan.smem_bytes} bytes but "
+                f"the kernel's layout takes {layout}")
+        return plan.smem_bytes
+    if kernel in ("rff_features", "serve_wave"):
+        from repro_torch.kernels.rff_features import features_plan
+
+        plan = features_plan(shape["j"], shape["d_feat"], shape["n"],
+                             item=item, sms=sms)
+        return _build.library("rff_features").rff_features_smem_bytes(
+            plan.warp_rows, plan.warp_cols, plan.warp_tiles, item)
+    if kernel == "flash_decode":
+        from repro_torch.kernels.decode_attention import decode_plan
+
+        plan = decode_plan(shape["rows"], shape["groups"], shape["dh"])
+        return _build.library("flash_decode").flash_decode_smem_bytes(
+            plan.ppg, plan.stages, plan.head_block, plan.dh)
+    raise ValueError(f"unknown kernel {kernel!r}")
+
+
+def run_pass() -> list:
+    """V001 findings: every path estimate that does not fit."""
+    from repro_torch.analysis.report import Finding
+
+    return [Finding("budget", "V001", label, "; ".join(est.problems()))
+            for label, est in path_estimates() if not est.fits]

@@ -26,14 +26,13 @@ caller can run them on its own problem at another width.
 """
 from __future__ import annotations
 
-import argparse
-import json
 import sys
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.bench.common import cli, sync, time_us, write_json
 from repro_torch.core import DeKRRConfig, DeKRRSolver, NodeData, select_features
 from repro_torch.dist import pack_problem, solve_batched
 from repro_torch.obs.metrics import perf_clock
@@ -49,11 +48,6 @@ CHUNK = 1       # tol checked every round: exact rounds to tol, warm and cold
 INGEST_BATCHES = (8, 32)
 EPOCH_NODES = (0, 3, 7)
 EPOCH_BATCH = 16
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def stream_runtime(topology, fmaps, train, *, backend: str = "cuda_fused",
@@ -84,16 +78,6 @@ def _build_runtime(subsample: int, device) -> tuple[StreamingDeKRR, tuple]:
         (ds, test)
 
 
-def _time_us(fn, reps: int, device) -> float:
-    fn()                                    # warm up
-    _sync(device)
-    t0 = perf_clock()
-    for _ in range(reps):
-        fn()
-    _sync(device)
-    return (perf_clock() - t0) / reps * 1e6
-
-
 def ingest_rows(rt: StreamingDeKRR, batches, reps: int, rng) -> list[dict]:
     """µs per Woodbury fold at node 0 for each batch size, each fold from
     the same state (the runtime is not changed)."""
@@ -103,7 +87,7 @@ def ingest_rows(rt: StreamingDeKRR, batches, reps: int, rng) -> list[dict]:
     for b in batches:
         xb = torch.as_tensor(rng.normal(size=(dim, b)), device=rt.device)
         yb = torch.as_tensor(rng.normal(size=b), device=rt.device)
-        us = _time_us(lambda: fold(aux_probe, 0, xb, yb), reps, rt.device)
+        us = time_us(lambda: fold(aux_probe, 0, xb, yb), reps, rt.device)
         rows.append({"batch": b, "ingest_us": us,
                      "samples_per_sec": b / (us * 1e-6)})
         C.csv_row(f"stream/ingest_b{b}", us,
@@ -114,7 +98,7 @@ def ingest_rows(rt: StreamingDeKRR, batches, reps: int, rng) -> list[dict]:
 def rebuild_us(rt: StreamingDeKRR, reps: int) -> float:
     """µs of a from-scratch `pack_problem` on the accumulated data."""
     ref = rt.reference_solver()
-    us = _time_us(lambda: pack_problem(ref, device=rt.device), reps,
+    us = time_us(lambda: pack_problem(ref, device=rt.device), reps,
                   rt.device)
     C.csv_row("stream/full_rebuild", us, "pack_problem baseline")
     return us
@@ -169,10 +153,10 @@ def serve_queries(rt: StreamingDeKRR, x_test: np.ndarray, count: int, *,
                for i in range(count)]
     eng = DeKRRServeEngine(rt, batch_size=batch_size)
     eng.run([KernelQuery(uid=-1, x=x_test[:, 0])])     # warm up
-    _sync(rt.device)
+    sync(rt.device)
     t0 = perf_clock()
     out = eng.run(queries)
-    _sync(rt.device)
+    sync(rt.device)
     return out, perf_clock() - t0
 
 
@@ -198,10 +182,10 @@ def run(fast: bool = False, *, out: str | None = None,
     results["ingest"] = ingest_rows(rt, INGEST_BATCHES, reps, rng)
     results["rebuild_us"] = rebuild_us(rt, max(1, reps // 3))
 
-    _sync(device)
+    sync(device)
     t0 = perf_clock()
     rt.refresh(1)
-    _sync(device)
+    sync(device)
     results["refresh_ms"] = (perf_clock() - t0) * 1e3
     C.csv_row("stream/refresh", results["refresh_ms"] * 1e3,
               "single-slot DDRF rebuild")
@@ -226,25 +210,10 @@ def run(fast: bool = False, *, out: str | None = None,
               f"qps={results['serve']['qps']:.1f}")
 
     if out is not None:
-        with open(out, "w") as f:
-            json.dump(results, f, indent=2)
-            f.write("\n")
+        write_json(results, out)
         print(f"stream/json,0.0,wrote={out}")
     return results
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--fast", action="store_true",
-                    help="reduced sizes (600 samples, 2 epochs)")
-    ap.add_argument("--out", default=None,
-                    help="write the results as JSON to this path")
-    ap.add_argument("--device", default=None,
-                    help="device to run on (default: the CUDA card)")
-    args = ap.parse_args(argv)
-    run(fast=args.fast, out=args.out, device=args.device)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli(run, __doc__))

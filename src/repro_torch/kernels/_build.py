@@ -41,24 +41,32 @@ SIGNATURES = {
     "dekrr_step": {
         "dekrr_step_f64": [_P] * 10 + [_I] * 6 + [_P],
         "dekrr_step_f32": [_P] * 10 + [_I] * 6 + [_P],
+        "dekrr_step_smem_bytes_f64": [_I] * 3,
+        "dekrr_step_smem_bytes_f32": [_I] * 3,
     },
     "dekrr_solve": {
         "dekrr_solve_f64": [_P] * 11 + [_I] * 9 + [_P],
         "dekrr_solve_f32": [_P] * 11 + [_I] * 9 + [_P],
         "dekrr_solve_max_clusters_f64": [_I] * 4,
         "dekrr_solve_max_clusters_f32": [_I] * 4,
+        "dekrr_solve_smem_bytes_f64": [_I] * 3,
+        "dekrr_solve_smem_bytes_f32": [_I] * 3,
     },
     "dekrr_async_solve": {
         "dekrr_async_solve_f64": [_P] * 18 + [_I] * 11 + [_P],
         "dekrr_async_solve_f32": [_P] * 18 + [_I] * 11 + [_P],
         "dekrr_async_solve_max_clusters_f64": [_I] * 4,
         "dekrr_async_solve_max_clusters_f32": [_I] * 4,
+        "dekrr_async_solve_smem_bytes_f64": [_I] * 3,
+        "dekrr_async_solve_smem_bytes_f32": [_I] * 3,
     },
     "dekrr_cheb_solve": {
         "dekrr_cheb_solve_f64": [_P] * 15 + [_I] * 9 + [_P],
         "dekrr_cheb_solve_f32": [_P] * 15 + [_I] * 9 + [_P],
         "dekrr_cheb_solve_max_clusters_f64": [_I] * 4,
         "dekrr_cheb_solve_max_clusters_f32": [_I] * 4,
+        "dekrr_cheb_solve_smem_bytes_f64": [_I] * 3,
+        "dekrr_cheb_solve_smem_bytes_f32": [_I] * 3,
     },
     "rff_gram": {
         "rff_gram_f64": [_P] * 9 + [_I] * 4 + [ctypes.c_double]
@@ -69,15 +77,19 @@ SIGNATURES = {
         + [_I] * 2 + [_P],
         "rff_gram_wide_f32": [_P] * 8 + [_I] * 4 + [ctypes.c_double]
         + [_I] * 2 + [_P],
+        "rff_gram_smem_bytes": [_I] * 5,
+        "rff_gram_wide_smem_bytes": [_I] * 2,
     },
     "rff_features": {
         "rff_features_f64": [_P] * 6 + [_I] * 8 + [_P],
         "rff_features_f32": [_P] * 6 + [_I] * 8 + [_P],
         "rff_features_bf16": [_P] * 6 + [_I] * 8 + [_P],
+        "rff_features_smem_bytes": [_I] * 4,
     },
     "flash_decode": {
         "flash_decode_f32": [_P] * 7 + [_L] * 4 + [_I] * 9
         + [ctypes.c_double, _P],
+        "flash_decode_smem_bytes": [_I] * 4,
     },
 }
 

@@ -165,4 +165,14 @@ int dekrr_solve_f32(const void* g, const void* d, const void* s, const void* p,
                        rows_per_cta, n_clusters, stream);
 }
 
+// Dynamic shared memory of a block at (K, D, Dy), as the launcher passes it
+// (repro_torch.analysis.smem checks the same formula before any launch).
+int dekrr_solve_smem_bytes_f64(int K, int D, int Dy) {
+  return static_cast<int>(smem_bytes<double>(K, D, Dy));
+}
+
+int dekrr_solve_smem_bytes_f32(int K, int D, int Dy) {
+  return static_cast<int>(smem_bytes<float>(K, D, Dy));
+}
+
 }  // extern "C"

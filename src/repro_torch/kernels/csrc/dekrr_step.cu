@@ -107,4 +107,14 @@ int dekrr_step_f32(const void* g, const void* d, const void* s, const void* p,
                        out, J, K, D, Dy, cluster, rows_per_cta, stream);
 }
 
+// Dynamic shared memory of a block at (K, D, Dy), as the launcher passes it
+// (repro_torch.analysis.smem checks the same formula before any launch).
+int dekrr_step_smem_bytes_f64(int K, int D, int Dy) {
+  return static_cast<int>(dekrr::node_smem_elems(K, D, Dy) * sizeof(double));
+}
+
+int dekrr_step_smem_bytes_f32(int K, int D, int Dy) {
+  return static_cast<int>(dekrr::node_smem_elems(K, D, Dy) * sizeof(float));
+}
+
 }  // extern "C"

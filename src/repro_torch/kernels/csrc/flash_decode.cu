@@ -525,4 +525,10 @@ int flash_decode_f32(const void* q, const void* k, const void* v,
   return int(launch_heads<8>(prm, hb, grid, smem, st));
 }
 
+// Dynamic shared memory of a block, as the launcher computes it
+// (repro_torch.analysis.smem checks the same formula before any launch).
+int flash_decode_smem_bytes(int ppg, int stages, int head_block, int dh) {
+  return int(smem_bytes(ppg, stages, head_block, dh));
+}
+
 }  // extern "C"

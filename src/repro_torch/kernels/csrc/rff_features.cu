@@ -438,4 +438,13 @@ int rff_features_bf16(const void* omega, const void* bias, const void* x,
                                dim, n, wr, wc, nt, smem_bytes, stream);
 }
 
+// Dynamic shared memory of a block of tile (wr, wc, nt) for elements of
+// `elem` bytes (8 f64, 4 f32, 2 bf16), the least the launcher accepts
+// (repro_torch.analysis.smem checks the same formula before any launch).
+int rff_features_smem_bytes(int wr, int wc, int nt, int elem) {
+  if (elem == 8) return static_cast<int>(features_smem_bytes<double>(wr, wc, nt));
+  if (elem == 4) return static_cast<int>(features_smem_bytes<float>(wr, wc, nt));
+  return static_cast<int>(features_smem_bytes<__nv_bfloat16>(wr, wc, nt));
+}
+
 }  // extern "C"

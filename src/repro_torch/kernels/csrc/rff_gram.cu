@@ -929,4 +929,17 @@ int rff_gram_wide_f32(const void* omega, const void* bias, const void* x,
                             dim, N, scale, batch, cols, stream);
 }
 
+// Dynamic shared memory of a block, in bytes of elements of `elem` bytes:
+// the cluster route's layout (gram_smem_bytes) at (F, dim, C, resident),
+// and the wide route's Z kernel (gram 0) or Gram kernel (gram 1). The
+// launchers take these sizes (repro_torch.analysis.smem checks the same
+// formulas before any launch).
+int rff_gram_smem_bytes(int F, int dim, int C, int resident, int elem) {
+  return static_cast<int>(gram_smem_bytes(F, dim, C, resident, elem));
+}
+
+int rff_gram_wide_smem_bytes(int elem, int gram) {
+  return static_cast<int>(gram ? wide_smem_bytes(elem) : z_smem_bytes(elem));
+}
+
 }  // extern "C"

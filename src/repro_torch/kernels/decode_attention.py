@@ -32,6 +32,9 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.smem import (SMEM_LIMITS, SMEM_PER_SM,
+                                       SMEM_RESERVED_PER_BLOCK,
+                                       SmemBudgetError)
 from repro_torch.kernels import _build
 
 _NEG_INF = -1e30
@@ -43,9 +46,11 @@ DECODE_CHUNK_BYTES = 256 << 10    # K and V bytes a block streams
 DECODE_MAX_CHUNK_TILES = 64
 DECODE_PAIR_STAGE_BYTES = 32 << 10   # two positions a lane group up to it
 DECODE_HEAD_BLOCKS = (1, 2, 4)    # query heads a block takes
-DECODE_SMEM_LIMIT = 232_448       # shared memory a block may take
-DECODE_SMEM_PER_SM = 233_472      # an SM's, of which 1 KB per block is
-DECODE_SMEM_RESERVED = 1_024      # the system's
+# shared memory a block may take, an SM's, and the 1 KB of it per block
+# that the system keeps (`repro_torch.analysis.smem`)
+DECODE_SMEM_LIMIT = SMEM_LIMITS["flash_decode"]
+DECODE_SMEM_PER_SM = SMEM_PER_SM
+DECODE_SMEM_RESERVED = SMEM_RESERVED_PER_BLOCK
 DECODE_THREADS_PER_SM = 2_048
 
 
@@ -107,6 +112,31 @@ class DecodePlan:
         return self.blocks(s) / (sms * self.blocks_per_sm)
 
 
+def decode_tiling(groups: int, dh: int) -> tuple[int, int, int, int, int]:
+    """(ppg, tile, stages, tiles a chunk, head_block) of `decode_plan`
+    for ``groups`` query heads at head size ``dh`` (any dh ≥ 1: the
+    budget check reads it for shapes the card would refuse too)."""
+    dh = max(1, dh)
+    ppg = 2 if 2 * 2 * DECODE_LANE_GROUPS * dh * 4 \
+        <= DECODE_PAIR_STAGE_BYTES else 1
+    tile = ppg * DECODE_LANE_GROUPS
+    stage_bytes = 2 * tile * dh * 4
+    stages = 4 if stage_bytes <= 16 << 10 else 3
+    tiles = max(1, min(DECODE_MAX_CHUNK_TILES,
+                       DECODE_CHUNK_BYTES // stage_bytes))
+    head_block = next((hb for hb in DECODE_HEAD_BLOCKS if hb >= groups),
+                      DECODE_HEAD_BLOCKS[-1])
+    return ppg, tile, stages, tiles, head_block
+
+
+def decode_smem_bytes(ppg: int, stages: int, head_block: int,
+                      dh: int) -> int:
+    """Shared memory of a block in the layout of csrc/flash_decode.cu
+    (`smem_bytes`): the ring [stages][K, V][32·ppg][dh] and the block's
+    query rows [head_block][dh], in float32."""
+    return (stages * 2 * ppg * DECODE_LANE_GROUPS * dh + head_block * dh) * 4
+
+
 @functools.lru_cache(maxsize=None)
 def decode_plan(rows: int, groups: int, dh: int) -> DecodePlan:
     """Launch plan of `flash_decode`: 256 threads a block, eight lanes a
@@ -122,20 +152,12 @@ def decode_plan(rows: int, groups: int, dh: int) -> DecodePlan:
         raise ValueError(f"decode_plan: rows {rows}, groups {groups} and "
                          f"head_dim {dh} must be positive, head_dim a "
                          f"multiple of 4")
-    ppg = 2 if 2 * 2 * DECODE_LANE_GROUPS * dh * 4 \
-        <= DECODE_PAIR_STAGE_BYTES else 1
-    tile = ppg * DECODE_LANE_GROUPS
-    stage_bytes = 2 * tile * dh * 4
-    stages = 4 if stage_bytes <= 16 << 10 else 3
-    tiles = max(1, min(DECODE_MAX_CHUNK_TILES,
-                       DECODE_CHUNK_BYTES // stage_bytes))
-    head_block = next((hb for hb in DECODE_HEAD_BLOCKS if hb >= groups),
-                      DECODE_HEAD_BLOCKS[-1])
-    smem = (stages * 2 * tile * dh + head_block * dh) * 4
+    ppg, tile, stages, tiles, head_block = decode_tiling(groups, dh)
+    smem = decode_smem_bytes(ppg, stages, head_block, dh)
     if smem > DECODE_SMEM_LIMIT:
-        raise ValueError(f"decode_plan: head_dim {dh} needs {smem} bytes of "
-                         f"shared memory, past the {DECODE_SMEM_LIMIT} a "
-                         f"block may take")
+        raise SmemBudgetError(
+            f"decode_plan: head_dim {dh} needs {smem} bytes of shared "
+            f"memory, past the {DECODE_SMEM_LIMIT} a block may take")
     per_sm = min(DECODE_THREADS_PER_SM // DECODE_THREADS,
                  DECODE_SMEM_PER_SM // (smem + DECODE_SMEM_RESERVED))
     return DecodePlan(

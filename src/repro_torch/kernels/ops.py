@@ -17,9 +17,18 @@ Layout owned here, mirroring `repro.kernels.ops`:
 The TPU wrappers' (8, 128) padding has no counterpart: the CUDA kernels
 mask their own ragged edges.
 
+Before any staging or launch, each wrapper checks its kernel's
+shared-memory and launch-shape budget at the call's shapes
+(`repro_torch.analysis.smem`), on the CPU as on the card: a shape the
+card would refuse raises `SmemBudgetError` there and here alike.
+
 `LAUNCHES` counts kernel launches per kernel; a wrapper adds one exactly
 where it launches its kernel, never on the CPU path, under a lock, since
-serving replicas launch from several threads. The round kernel with an
+serving replicas launch from several threads. `DISPATCHES`, keyed like
+it and under the same lock, counts the calls in which a wrapper runs its
+kernel on CUDA or its plain version on the CPU, so a CPU run can be held
+to the same dispatch contract as the card
+(`repro_torch.obs.dispatch`). The round kernel with an
 activation mask counts as ``dekrr_step_masked``, apart from the unmasked
 round; the featurize kernel counts as ``rff_features`` in f64/f32 and as
 ``rff_features_lowp`` in bf16, once a launch whether it covers one node
@@ -37,6 +46,8 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.analysis import smem
+from repro_torch.analysis.smem import check_index_table
 from repro_torch.kernels.dekrr_solve import (dekrr_async_solve_cuda,
                                              dekrr_async_solve_reference,
                                              dekrr_cheb_solve_cuda,
@@ -58,13 +69,22 @@ from repro_torch.kernels.rff_gram import (rff_gram_batched_reference,
 LAUNCHES = {"rff_gram": 0, "dekrr_step": 0, "dekrr_step_masked": 0,
             "dekrr_solve": 0, "dekrr_async_solve": 0, "dekrr_cheb_solve": 0,
             "rff_features": 0, "rff_features_lowp": 0, "flash_decode": 0}
+DISPATCHES = dict.fromkeys(LAUNCHES, 0)
 _FLOATS = (torch.float32, torch.float64)
 _count_lock = threading.Lock()
 
 
 def _count(name: str) -> None:
+    """One launch of ``name``'s kernel on CUDA: a launch and a dispatch."""
     with _count_lock:
         LAUNCHES[name] += 1
+        DISPATCHES[name] += 1
+
+
+def _count_plain(name: str) -> None:
+    """One run of ``name``'s plain version on the CPU: a dispatch."""
+    with _count_lock:
+        DISPATCHES[name] += 1
 
 
 def reset_launch_counts() -> None:
@@ -76,6 +96,11 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict[str, int]:
     with _count_lock:
         return dict(LAUNCHES)
+
+
+def dispatch_counts() -> dict[str, int]:
+    with _count_lock:
+        return dict(DISPATCHES)
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
@@ -175,7 +200,11 @@ def rff_features(omega: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
     name = "rff_features"
     on_cuda = _check_features(name, omega, bias, x)
     dtype = _check_floats(name, omega, bias, x)
+    smem.estimate_rff_features(j=1, d_feat=omega.shape[0], n=x.shape[1],
+                               itemsize=x.element_size(),
+                               sms=smem.device_sms(x.device)).check()
     if not on_cuda:
+        _count_plain(name)
         return rff_features_reference(omega, bias, x, scale=scale)
     return _launch_features(omega.contiguous()[None],
                             bias.contiguous()[None], x.contiguous(),
@@ -194,7 +223,11 @@ def rff_features_batched(omega: torch.Tensor, bias: torch.Tensor,
     on_cuda, scale, d_feat = _check_batched_features(name, omega, bias, x,
                                                      scale, d_feat)
     dtype = _check_floats(name, omega, bias, x)
+    smem.estimate_rff_features(j=omega.shape[0], d_feat=omega.shape[1],
+                               n=x.shape[1], itemsize=x.element_size(),
+                               sms=smem.device_sms(x.device)).check()
     if not on_cuda:
+        _count_plain(name)
         return rff_features_batched_reference(omega, bias, x, scale=scale,
                                               d_feat=d_feat)
     return _launch_features(omega, bias, x, scale, d_feat, dtype)
@@ -219,7 +252,11 @@ def rff_features_lowp(omega: torch.Tensor, bias: torch.Tensor,
     name = "rff_features_lowp"
     on_cuda = _check_features(name, omega, bias, x)
     _check_real(name, omega, bias, x)
+    smem.estimate_rff_features(j=1, d_feat=omega.shape[0], n=x.shape[1],
+                               itemsize=2,
+                               sms=smem.device_sms(x.device)).check()
     if not on_cuda:
+        _count_plain(name)
         return rff_features_lowp_reference(omega, bias, x, scale=scale)
     bf16 = torch.bfloat16
     z = _launch_features(omega.to(bf16).contiguous()[None],
@@ -241,9 +278,13 @@ def rff_features_lowp_batched(omega: torch.Tensor, bias: torch.Tensor,
     on_cuda, scale, d_feat = _check_batched_features(name, omega, bias, x,
                                                      scale, d_feat)
     _check_real(name, omega, bias, x)
+    smem.estimate_rff_features(j=omega.shape[0], d_feat=omega.shape[1],
+                               n=x.shape[1], itemsize=2,
+                               sms=smem.device_sms(x.device)).check()
     bf16 = torch.bfloat16
     omega, bias, x = omega.to(bf16), bias.to(bf16), x.to(bf16)
     if not on_cuda:
+        _count_plain(name)
         z = rff_features_bf16_batched_reference(omega, bias, x,
                                                 d_feat=d_feat)
         scales = torch.tensor(scale, dtype=torch.float32)
@@ -287,10 +328,13 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     cur = int(cur_index)
     if not 1 <= cur <= s:
         raise ValueError(f"{name}: cur_index {cur} lies outside [1, {s}]")
+    smem.estimate_flash_decode(rows=b * kh, groups=h // kh, dh=dh,
+                               s=s).check()
     if out_dtype == torch.float64:
         q, k_cache, v_cache = (t.float() for t in (q, k_cache, v_cache))
     lens = torch.full((b * kh,), cur, dtype=torch.int32, device=q.device)
     if not on_cuda:
+        _count_plain(name)
         return flash_decode_reference(q, k_cache, v_cache,
                                       lens).to(out_dtype)
     _check_contiguous(name, q=q)
@@ -336,7 +380,12 @@ def rff_gram_batched(omega: torch.Tensor, bias: torch.Tensor,
     _check_shape(name, "y", y, (b, n))
     _check_shape(name, "col_mask", col_mask, (b, n))
     dtype = _check_floats(name, omega, bias, x, y, col_mask)
-    if not _on_cuda(name, omega, bias, x, y, col_mask):
+    on_cuda = _on_cuda(name, omega, bias, x, y, col_mask)
+    smem.estimate_rff_gram(b=b, f=f, dim=dim, n=n,
+                           itemsize=x.element_size(),
+                           sms=smem.device_sms(x.device)).check()
+    if not on_cuda:
+        _count_plain("rff_gram")
         return rff_gram_batched_reference(omega, bias, x, y, col_mask)
     return _launch_rff_gram(omega, bias, x, y, col_mask, 1.0, dtype)
 
@@ -354,7 +403,12 @@ def rff_gram(omega: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
     _check_shape(name, "x", x, (dim, n))
     _check_shape(name, "y", y, (n,))
     dtype = _check_floats(name, omega, bias, x, y)
-    if not _on_cuda(name, omega, bias, x, y):
+    on_cuda = _on_cuda(name, omega, bias, x, y)
+    smem.estimate_rff_gram(b=1, f=d_feat, dim=dim, n=n,
+                           itemsize=x.element_size(),
+                           sms=smem.device_sms(x.device)).check()
+    if not on_cuda:
+        _count_plain(name)
         return rff_gram_ref(omega, bias, x, y, scale=scale)
     mask = torch.ones((1, n), dtype=dtype, device=x.device)
     gram, zy = _launch_rff_gram(omega[None], bias[None], x[None], y[None],
@@ -414,25 +468,6 @@ def _unflatten_dy(out: torch.Tensor, dy: int, ndim: int) -> torch.Tensor:
     return out.reshape(j_nodes, dy, -1).transpose(1, 2)
 
 
-def check_index_table(name: str, table, size: int, *, lo: int = 0) -> None:
-    """Every entry of the integer array-like ``table`` must lie in
-    ``[lo, size)``; raises ValueError naming the offending range. A kernel
-    gathering through an index table has no bounds check of its own (the
-    port's copy of `repro.analysis.vmem.check_index_table`)."""
-    arr = np.asarray(table)
-    if arr.size == 0:
-        return
-    if not np.issubdtype(arr.dtype, np.integer):
-        raise ValueError(
-            f"{name}: index table must be integer-typed, got {arr.dtype}")
-    amin, amax = int(arr.min()), int(arr.max())
-    if amin < lo or amax >= size:
-        raise ValueError(
-            f"{name}: indices must lie in [{lo}, {size}) but span "
-            f"[{amin}, {amax}] — an out-of-range slot would silently "
-            f"gather an arbitrary table row")
-
-
 def _check_dekrr_indices(t_rows: int, nbr_idx, self_idx, nbr_mask, *,
                          distinct_self: bool = False) -> None:
     """Bounds-check the slot tables against the θ-table row count on the
@@ -452,12 +487,19 @@ def _check_dekrr_indices(t_rows: int, nbr_idx, self_idx, nbr_mask, *,
                          f"but span [{idx.min()}, {idx.max()}]")
 
 
+_DEKRR_BUDGETS = {"dekrr_step": smem.estimate_dekrr_step,
+                  "dekrr_solve": smem.estimate_dekrr_solve,
+                  "dekrr_async_solve": smem.estimate_dekrr_async_solve,
+                  "dekrr_cheb_solve": smem.estimate_dekrr_cheb_solve}
+
+
 def _pad_dekrr_operands(name, g, d, s, p, theta, nbr_idx, self_idx,
-                        nbr_mask):
+                        nbr_mask, *, kernel: str | None = None):
     """Check the DeKRR operand set and bring it to the kernels' layout:
     Dy flattened into rows, the slot axis at K ≥ 1 (an all-masked zero-P
     slot for edgeless graphs), int32 index tables and a 0/1 int32 mask.
-    Returns (on_cuda, dy, operands)."""
+    With ``kernel`` named, its shared-memory budget is checked at those
+    shapes before anything is staged. Returns (on_cuda, dy, operands)."""
     if d.ndim not in (2, 3) or theta.ndim != d.ndim:
         raise ValueError(f"{name}: d {tuple(d.shape)} and theta "
                          f"{tuple(theta.shape)} must both be [.., D] or "
@@ -476,6 +518,10 @@ def _pad_dekrr_operands(name, g, d, s, p, theta, nbr_idx, self_idx,
     _check_floats(name, g, d, s, p, theta)
     _check_contiguous(name, g=g, s=s, p=p)
     on_cuda = _on_cuda(name, g, d, s, p, theta, nbr_idx, self_idx, nbr_mask)
+    if kernel is not None:
+        _DEKRR_BUDGETS[kernel](j_nodes=j_nodes, k_slots=max(1, k_slots),
+                               d_feat=d_feat, dy=dy,
+                               itemsize=d.element_size()).check()
     if k_slots == 0:
         p = torch.zeros((j_nodes, 1, d_feat, d_feat), dtype=p.dtype,
                         device=p.device)
@@ -508,7 +554,7 @@ def dekrr_step(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
     """
     name = "dekrr_step"
     on_cuda, dy, ops = _pad_dekrr_operands(name, g, d, s, p, theta, nbr_idx,
-                                           self_idx, nbr_mask)
+                                           self_idx, nbr_mask, kernel=name)
     _check_dekrr_indices(theta.shape[0], ops[5], ops[6], ops[7])
     act = None
     if active is not None:
@@ -516,6 +562,7 @@ def dekrr_step(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
         _on_cuda(name, d, active)             # raises on a device mix
         act = (active != 0).to(torch.int32).contiguous()
     if not on_cuda:
+        _count_plain("dekrr_step" if act is None else "dekrr_step_masked")
         out = dekrr_step_reference(*ops, dy=dy) if act is None \
             else dekrr_step_masked_reference(*ops, act, dy=dy)
     else:
@@ -541,7 +588,7 @@ def dekrr_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"{name}: num_rounds must be >= 0, got "
                          f"{num_rounds}")
     on_cuda, dy, ops = _pad_dekrr_operands(name, g, d, s, p, theta, nbr_idx,
-                                           self_idx, nbr_mask)
+                                           self_idx, nbr_mask, kernel=name)
     _check_dekrr_indices(theta.shape[0], ops[5], ops[6], ops[7],
                          distinct_self=True)
     j_nodes = d.shape[0]
@@ -552,6 +599,7 @@ def dekrr_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
                                     device=theta.device)
         return out
     if not on_cuda:
+        _count_plain(name)
         out = dekrr_solve_reference(*ops, num_rounds=num_rounds, dy=dy,
                                     trace=trace)
         if trace:
@@ -638,7 +686,7 @@ def dekrr_async_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
                          f"than the {j_nodes} nodes")
     self_idx = torch.arange(j_nodes, dtype=torch.int32, device=d.device)
     on_cuda, dy, ops = _pad_dekrr_operands(name, g, d, s, p, theta, nbr_idx,
-                                           self_idx, nbr_mask)
+                                           self_idx, nbr_mask, kernel=name)
     _check_floats(name, d, sent, buffers, thresholds)
     _on_cuda(name, d, sent, buffers, active_tab, thresholds)
     _check_async_nbr_indices(j_nodes, ops[5], ops[7])
@@ -658,6 +706,7 @@ def dekrr_async_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
            (active_tab != 0).to(torch.int32).contiguous(),
            thresholds.contiguous())
     if not on_cuda:
+        _count_plain(name)
         outs = dekrr_async_solve_reference(
             *raw, censored=censored, edge_gossip=gossip == "edge", dy=dy,
             trace=trace)
@@ -713,7 +762,7 @@ def dekrr_cheb_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
     _check_shape(name, "betas", betas, (num_rounds,))
     _check_shape(name, "delta", delta, tuple(d.shape))
     on_cuda, dy, ops = _pad_dekrr_operands(name, g, d, s, p, theta, nbr_idx,
-                                           self_idx, nbr_mask)
+                                           self_idx, nbr_mask, kernel=name)
     _check_floats(name, d, delta, alphas, betas)
     _on_cuda(name, d, delta, alphas, betas)
     _check_dekrr_indices(theta.shape[0], ops[5], ops[6], ops[7],
@@ -724,6 +773,7 @@ def dekrr_cheb_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
     raw = ops[:5] + (_flatten_dy(delta),) + ops[5:] + (
         alphas.contiguous(), betas.contiguous())
     if not on_cuda:
+        _count_plain(name)
         outs = dekrr_cheb_solve_reference(*raw, dy=dy, trace=trace)
     else:
         kw = dict(dtype=d.dtype, device=d.device)

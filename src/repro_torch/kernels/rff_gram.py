@@ -37,6 +37,7 @@ import math
 
 import torch
 
+from repro_torch.analysis.smem import SMEM_LIMITS
 from repro_torch.kernels import _build
 
 # The kernel's tiling (csrc/rff_gram.cu): 8 warps a block, 32-column
@@ -51,8 +52,8 @@ GRAM_MAX_RANK_ROWS = 128
 GRAM_BLOCKS_PER_CTA = 6 * GRAM_WARPS
 GRAM_CLUSTERS = (2, 4, 8)
 # Shared memory a block may use (232,448 B on sm_90), less the kernel's
-# static shared words and some slack.
-GRAM_SMEM_LIMIT = 232_448 - 1_024
+# static shared words and some slack (`repro_torch.analysis.smem`).
+GRAM_SMEM_LIMIT = SMEM_LIMITS["rff_gram"]
 # Largest workspace a launch may take, in bytes.
 GRAM_WORKSPACE_CAP = 64 << 20
 # The wide route's Z and G tile (rows and columns), and the Gram blocks a
@@ -123,6 +124,16 @@ def _smem_bytes(f: int, dim: int, cluster: int, resident: bool,
     return (fp * (GRAM_COLS + 4) + omega
             + GRAM_STAGES * GRAM_DEPTH * (GRAM_COLS + 4)
             + GRAM_STAGES * 2 * GRAM_COLS + rank_rows) * item
+
+
+def _wide_smem_bytes(item: int) -> tuple[int, int]:
+    """Shared memory of a block of the wide route's Z kernel and of its
+    Gram kernel, in the layouts of csrc/rff_gram.cu (`z_smem_bytes`,
+    `wide_smem_bytes`: 64-row panels of stride 32 + 4, the X panel of
+    stride 64 + 4, a ring of 3 in the Gram kernel)."""
+    t, k = GRAM_WIDE_TILE, GRAM_DEPTH
+    return ((2 * t * (k + 4) + 2 * k * (t + 4)) * item,
+            3 * (2 * t * (k + 4) + k) * item)
 
 
 def gram_plan(b: int, f: int, dim: int, n: int, *, item: int = 8,

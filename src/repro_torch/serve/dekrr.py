@@ -96,6 +96,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from repro_torch.analysis import smem
 from repro_torch.core.rff import FeatureMap, featurize
 from repro_torch.kernels import ops
 from repro_torch.obs.metrics import perf_clock
@@ -435,6 +436,20 @@ def answer_wave(st: _StagedSnapshot, x: torch.Tensor
     return torch.stack(preds), torch.stack(bounds) * _SAFETY
 
 
+def _check_wave_smem(st: _StagedSnapshot, q_pad: int) -> None:
+    """Budget check of a ``backend="cuda"`` wave before anything of it is
+    staged: its one featurize launch over the packed cos_bias nodes at the
+    padded column bucket (`repro_torch.analysis.smem.estimate_serve_wave`;
+    bf16 operands on the low-precision paths)."""
+    pk = st.packed
+    if pk is None:
+        return
+    smem.estimate_serve_wave(
+        j=len(pk.nodes), d_feat=max(pk.d_feat), n=q_pad,
+        itemsize=pk.omega.element_size(),
+        sms=smem.device_sms(st.snap.device)).check()
+
+
 def _serve_wave(st: _StagedSnapshot, entries: list[Admitted]) -> None:
     """Answer one admitted wave in place: featurize once at the padded
     column bucket, slice per query, COPY per answer, attach the
@@ -446,6 +461,8 @@ def _serve_wave(st: _StagedSnapshot, entries: list[Admitted]) -> None:
         offset += e.width
     q_live = offset
     q_pad = pad_bucket(q_live)
+    if st.backend == "cuda":
+        _check_wave_smem(st, q_pad)
 
     fill_dtype = st.dtype if st.precision is None else np.float64
     x_np = np.zeros((st.input_dim, q_pad), dtype=fill_dtype)

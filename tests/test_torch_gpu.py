@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch import interop
+from repro_torch.analysis.smem import PATH_SHAPES
 from repro_torch.dist import AsyncGossipState, async_step_batched
 from repro_torch.kernels import ops
 from repro_torch.kernels.dekrr_solve import dekrr_solve_reference
@@ -229,7 +230,8 @@ def test_gpu_step_launches_equal_one_solve_launch(cuda_device, j, k, dfeat,
     for _ in range(7):
         out = torch.empty((j * dy, dfeat), dtype=table.dtype,
                           device=cuda_device)
-        dekrr_step_cuda(*lay[:4], table, *lay[5:], out, dy=dy)
+        dekrr_step_cuda(  # analysis: ignore[R004]
+            *lay[:4], table, *lay[5:], out, dy=dy)
         table = table.clone()
         table.view(-1, dy, dfeat)[own] = out.view(j, dy, dfeat)
     torch.cuda.synchronize()
@@ -956,3 +958,79 @@ def test_gpu_stream_bench_runs(cuda_device):
     assert res["device"] == torch.cuda.get_device_name(cuda_device)
     assert res["warm_rounds_mean"] < res["cold_rounds_mean"]
     assert res["serve"]["qps"] > 0
+
+
+# --------------------------------------------------------------------------
+# Dispatch counts and the shared-memory budget on the card
+# --------------------------------------------------------------------------
+def _run_kind(kind, packed, backend, rounds, gen):
+    from repro_torch.core import AsyncGossipConfig, activation_masks
+    from repro_torch.core.acceleration import chebyshev_solve_packed
+    from repro_torch.dist import async_solve_batched, solve_batched
+    if kind == "sync":
+        return solve_batched(packed, rounds, backend=backend,
+                             return_trace=True)
+    if kind == "async":
+        masks = activation_masks(gen, rounds, packed.num_nodes, prob=0.5)
+        return async_solve_batched(
+            packed, rounds, masks, backend=backend, return_stats=True,
+            config=AsyncGossipConfig(prob=0.5, censor_tau=2e-2,
+                                     censor_decay=0.9))
+    return chebyshev_solve_packed(packed, 0.9, 0.0, num_iters=rounds,
+                                  backend=backend, return_trace=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["torch", "cuda", "cuda_fused"])
+@pytest.mark.parametrize("kind", ["sync", "async", "chebyshev"])
+def test_gpu_dispatch_count_equals_launches(cuda_device, kind, backend):
+    """On the card each dispatch is one launch: `dispatch_count` equals
+    the `LAUNCHES` delta and the contract."""
+    from repro_torch.analysis.dispatch import synthetic_packed
+    from repro_torch.obs import dispatch_count, round_dispatches
+    packed = synthetic_packed(j_nodes=10, d_feat=40, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    rounds = 9
+    before = sum(ops.launch_counts().values())
+    count, exact = dispatch_count(_run_kind, kind, packed, backend, rounds,
+                                  gen)
+    torch.cuda.synchronize()
+    launched = sum(ops.launch_counts().values()) - before
+    assert exact and count == launched == round_dispatches(backend, rounds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,shape", PATH_SHAPES,
+                         ids=lambda v: v if isinstance(v, str) else "-".join(
+                             f"{k}{x}" for k, x in v.items()))
+def test_gpu_smem_estimate_equals_launcher_bytes(cuda_device, kernel, shape):
+    """Each kernel's budget estimate at the paths' shapes equals the bytes
+    its csrc launcher takes (read from the library's C export)."""
+    from repro_torch.analysis import smem
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    kw = dict(shape, sms=sms) if kernel in ("rff_gram", "rff_features",
+                                            "serve_wave") else shape
+    est = getattr(smem, f"estimate_{kernel}")(**kw)
+    assert est.fits
+    assert smem.launcher_bytes(kernel, shape, sms=sms) == est.bytes
+
+
+@pytest.mark.gpu
+def test_gpu_over_budget_round_refused_without_launch(cuda_device):
+    """K 4, Dy 8, D 640 in f64 needs 245,760 B a block: refused before any
+    launch, with no CUDA error left behind."""
+    from repro_torch.analysis import SmemBudgetError
+    j, k, d, dy = 2, 4, 640, 8
+    z = lambda *s: torch.zeros(s, dtype=torch.float64, device=cuda_device)
+    nbr = torch.tensor([[1] * k, [0] * k], dtype=torch.int32,
+                       device=cuda_device)
+    own = torch.arange(j, dtype=torch.int32, device=cuda_device)
+    mask = torch.ones((j, k), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(SmemBudgetError, match="245760"):
+        ops.dekrr_step(z(j, d, d), z(j, d, dy), z(j, d, d), z(j, k, d, d),
+                       z(j, d, dy), nbr, own, mask)
+    with pytest.raises(SmemBudgetError, match="245760"):
+        ops.dekrr_solve(z(j, d, d), z(j, d, dy), z(j, d, d), z(j, k, d, d),
+                        z(j, d, dy), nbr, own, mask, num_rounds=3)
+    torch.cuda.synchronize()
+    assert sum(ops.launch_counts().values()) == 0

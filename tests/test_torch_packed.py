@@ -359,7 +359,14 @@ def _chip_smoke():
 
 
 def test_chip_smoke_rehearses_the_main_path_on_cpu(capsys):
-    assert _chip_smoke().main(["--cpu-rehearsal"]) == 0
+    # One intra-op thread: the rehearsal is thousands of small ops, which
+    # more threads only slow down while other test workers share the CPU.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert _chip_smoke().main(["--cpu-rehearsal"]) == 0
+    finally:
+        torch.set_num_threads(threads)
     out = capsys.readouterr().out
     assert '"cpu_rehearsal"' in out and '"ok"' not in out
 
