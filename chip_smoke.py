@@ -37,7 +37,21 @@
 6. Chebyshev acceleration on the same problem: the spectral interval on
    cuda, then chebyshev_solve_packed on cuda_fused, == cuda bit for bit,
    and strictly fewer rounds than plain Jacobi to the same error.
-7. The featurize kernel (``rff_features``) against its plain versions:
+7. The SPMD solvers on the same packed problem, one node per rank: ten
+   ranks started by `repro_torch.dist.ranks.run_ranks` on the one card,
+   exchanging θ over gloo through host buffers (NCCL refuses two ranks
+   on one device). Sync `cuda` and `cuda_fused` θ == batched `cuda` bit
+   for bit in both modes (ppermute ring shifts, allgather), at the main
+   path's rounds and at tol 1e-10 (the same rounds), `torch` within rtol
+   1e-9, a warm start from the converged θ in ≤ 1 round; async on the
+   async path's mask table (p 0.5 censored, edge, tol 1e-10) ==
+   `async_solve_batched(cuda)` bit for bit with its wire counts, the
+   synchronous schedule == the sync solver; θ bytes a round summed over
+   ranks == `comm_bytes_per_round`; dispatches == launches == rounds on
+   every rank; ms a round per mode and backend, and a round taken apart
+   on rank 0 (exchange, the round on the local table, the wrapper's
+   index check).
+8. The featurize kernel (``rff_features``) against its plain versions:
    f64 and f32 at D = 200, d = 148, N ∈ {8, 64, 512} and a ragged
    D = 37, d = 5, N = 13 (f64 at rtol 1e-9); bf16 (``rff_features_lowp``)
    bit-equal to the plain bf16 version at 99% of the entries or more,
@@ -46,7 +60,7 @@
    N = 512, and a ragged D_j of 37, 200 and 64 in one launch) against
    the batched plain versions with the same checks, padded rows exact
    zeros, and each node bit-equal to its own launch in f64, f32, bf16.
-8. Serving at full width: θ of the main path's cuda_fused solve and the
+9. Serving at full width: θ of the main path's cuda_fused solve and the
    DDRF maps taken into a ServeSnapshot (staleness residual from one
    more round), published to a SnapshotRegistry, and 512 test-split
    queries (widths 1–8, half network-mean, half per-node) answered by a
@@ -59,13 +73,13 @@
    nodes (plus one calibration-stripe launch on the low-precision
    paths); p50, p99 and qps per precision, and at full precision on 1
    replica.
-9. The decode-attention kernel (``flash_decode``) against its split plain
+10. The decode-attention kernel (``flash_decode``) against its split plain
    version (the kernel's chunks, combined in chunk order) and its one-pass
    plain version at DECODE_SHAPES (2e-5), one long request (B 1, S 32,768)
    among them; two calls give the same bits, the cache beyond cur_index
    set to ±999 changes no bit, and a CUDA-graph replay gives the eager
    call's bits.
-10. LLM serving at qwen1.5-0.5b's full width and depth (24 layers,
+11. LLM serving at qwen1.5-0.5b's full width and depth (24 layers,
    d_model 1024, 16 heads, vocab 151,936; the port's seeded weights, no
    checkpoint): ServeEngine(batch 8, max_seq 512, backend cuda) serves
    16 requests (prompts of 16–128 seeded tokens, 32 new tokens each, two
@@ -77,7 +91,7 @@
    p50/p99 per request and ms per decode step; one decode step's device
    time at the serving cache and at one long request (B 1, S 32,768, the
    last position: a 6.4 GB f32 cache) by CUDA-graph replay.
-11. The paper's experiments (``repro_torch.paper``) at the synthetic
+12. The paper's experiments (``repro_torch.paper``) at the synthetic
    stand-ins' full N: (a) Table 2's wave setting built with
    ``gram_fn=ops.gram_fn_for_solver`` (40 ``rff_gram`` launches at B 1,
    F 200, f32), θ from solve_exact within 2e-4 of the default solver's,
@@ -90,7 +104,7 @@
    ``cuda_fused``), µs and bytes a round; (e) CentralizedKRR on wave's
    31,800 pooled training columns (test RSE, time, peak memory), and at
    1,000 columns against the CPU.
-12. The streaming runtime (``repro_torch.stream``) at the main path's
+13. The streaming runtime (``repro_torch.stream``) at the main path's
    width, on its maps and training columns with the stream bench's λ
    1e-3, c_nei 0.02·N and tol 1e-8 (``repro_torch.bench.stream_bench``,
    ``cuda_fused``, tol checked every round): init; Woodbury folds at
@@ -110,7 +124,7 @@
    staleness; an interleaved ingest–solve–publish loop against a
    2-replica server, every answer equal to a clean serve of the one
    snapshot its staleness names; the path's launches of each kernel.
-13. The system benchmarks (``repro_torch.bench``), the ``bench`` phase:
+14. The system benchmarks (``repro_torch.bench``), the ``bench`` phase:
    (a) each backend of the main, async and Chebyshev paths on the main
    path's packed problem (32 rounds, and ``cuda_fused`` in chunks of 10):
    ``repro_torch.obs.dispatch_count`` equal to the contract {torch 0,
@@ -127,9 +141,9 @@
    N) and the multi-output bench, into one registry written as JSONL
    under ``build/chip_bench/`` and rendered by ``repro_torch.obs``; (e)
    the provenance block naming the card and its power limit.
-14. Launch counts of each path and run, zeroed just before it, and
+15. Launch counts of each path and run, zeroed just before it, and
    ``pack_problem`` repeated warm.
-15. Kernel times by CUDA events (timed on the device, behind a spin that
+16. Kernel times by CUDA events (timed on the device, behind a spin that
    lets the host queue the launches first) beside their plain versions,
    a PyTorch yardstick and the least time the card could take; the
    featurize kernel at the wave and at one node, ``rff_gram`` at the
@@ -139,7 +153,10 @@
    at the serving cache (cur 128 and 512), there both warm (one cache
    launched again) and cold (24 distinct caches launched in turn, the 805
    MB a decode step's layers pass through L2), beside the fastest SDPA
-   call. ``dekrr_solve`` and ``dekrr_async_solve``
+   call; the round kernel, unmasked and masked, at the SPMD shape (J = 1
+   over a [1 + K, D] table, rows ``dekrr_step@spmd`` and
+   ``dekrr_step_masked@spmd``, their launches the spmd phase's summed
+   over ranks). ``dekrr_solve`` and ``dekrr_async_solve``
    are timed in turns with their yardsticks (CHAIN_PAIRS pairs, the
    median of each), and each chain's time per round is printed beside
    the round kernel's.
@@ -148,12 +165,12 @@ The last line is ``{"ok": true, "device": {...}}``; any failed phase
 exits non-zero before it. Without a CUDA device the script exits
 non-zero, and so does a copy of the script without ``src/repro_torch``
 beside it, after one line naming where it looked. ``--cpu-rehearsal``
-runs steps 4–6, 8, 10–12 and 13 (without its (b)) on the CPU at a small
+runs steps 4–7, 9, 11–13 and 14 (without its (b)) on the CPU at a small
 size (the kernels' plain versions; the LLM path on the reduced
 qwen1.5-0.5b; Table 2 on two stand-ins at 600 samples; the stream on the
 rehearsal's 12 features a node; the benches at their reduced sizes), for
 the tests. ``--decode-timings [--src DIR]`` runs only
-the ``flash_decode`` timings and the two decode steps of step 10 on the
+the ``flash_decode`` timings and the two decode steps of step 11 on the
 card, with the ``repro_torch`` package of DIR/.. (``src`` by default), so
 one call can time an earlier tree's kernel beside this one's.
 """
@@ -222,6 +239,13 @@ PHASE_ROUNDS = 7    # rounds of the chain kernels' phases
 J_LOOPED = 40
 CHAIN_PAIRS = 5     # kernel / yardstick pairs timed in turns per chain
 CHEB_TOL = 1e-8     # relative error of the rounds-to-tolerance comparison
+# The SPMD phase: one node per rank, all ranks on the one card. NCCL
+# refuses two ranks on one device, so the ranks exchange θ over gloo,
+# through host buffers.
+SPMD_BACKEND = "gloo"
+SPMD_MODES = ("ppermute", "allgather")
+SPMD_TIMEOUT = 300.0
+SPMD_SPLIT_ROUNDS = 200
 
 # Serving: the featurize kernel's phase shapes (D, d, N), its batched
 # cases (D_j per node, d, N: the serving wave and a ragged launch), and the
@@ -911,7 +935,8 @@ def async_path(run: dict, *, rounds: int, seed: int = 0) -> dict:
         packed, rounds, m, config=c, backend=b, **kw))
     wire = dict(return_stats=True, return_trace=True)
     return dict(
-        masks=masks, config=config, rounds=rounds,
+        masks=masks, config=config, rounds=rounds, edge_masks=edge_masks,
+        edge_config=edge_config,
         fused=solve(masks, config, "cuda_fused", **wire),
         per_round=solve(masks, config, "cuda", **wire),
         torch=solve(masks, config, "torch", **wire),
@@ -3267,6 +3292,268 @@ def check_launches(run: dict) -> None:
         raise PhaseError(f"main path launch counts {got}, expected {want}")
 
 
+# ------------------------------------------------------------------ spmd
+def _cpu_packed(packed):
+    """The packed problem with every tensor on the CPU: the ranks get it
+    through shared memory and each moves only its own rows to its device."""
+    return dataclasses.replace(packed, **{
+        f.name: getattr(packed, f.name).cpu()
+        for f in dataclasses.fields(packed)
+        if isinstance(getattr(packed, f.name), torch.Tensor)})
+
+
+def spmd_cases(run: dict, a: dict, *, split_rounds: int) -> list[dict]:
+    """The cases each rank runs (`repro_torch.dist.spmd_cases`), named."""
+    from repro_torch.core import AsyncGossipConfig
+
+    rounds, j_nodes = run["rounds"], run["packed"].num_nodes
+    cases = []
+    add = lambda name, **c: cases.append(dict(name=name, **c))  # noqa: E731
+    tol_theta = run["spmd_ref"]["tol"][0].cpu()
+    for mode in SPMD_MODES:
+        for b in ("cuda", "cuda_fused", "torch"):
+            add(f"sync/{mode}/{b}", solver="sync", mode=mode, backend=b,
+                num_iters=rounds)
+        add(f"sync-tol/{mode}", solver="sync", mode=mode, backend="cuda",
+            num_iters=NUM_ITERS, kw=dict(tol=SOLVE_TOL, return_rounds=True))
+        add(f"sync-warm/{mode}", solver="sync", mode=mode, backend="cuda",
+            num_iters=NUM_ITERS, kw=dict(theta0=tol_theta, tol=SOLVE_TOL,
+                                         return_rounds=True))
+        add(f"async/{mode}", solver="async", mode=mode, backend="cuda",
+            num_iters=a["rounds"], kw=dict(masks=a["masks"].cpu(),
+                                           config=a["config"],
+                                           return_trace=True))
+        add(f"async-sync/{mode}", solver="async", mode=mode, backend="cuda",
+            num_iters=rounds,
+            kw=dict(masks=torch.ones((rounds, j_nodes), dtype=torch.bool),
+                    config=AsyncGossipConfig()))
+        add(f"split/{mode}", solver="split", mode=mode, backend="cuda",
+            num_iters=split_rounds)
+    add("async-edge/ppermute", solver="async", mode="ppermute",
+        backend="cuda", num_iters=a["rounds"],
+        kw=dict(masks=a["edge_masks"].cpu(), config=a["edge_config"],
+                return_trace=True))
+    add("async-tol/ppermute", solver="async", mode="ppermute",
+        backend="cuda", num_iters=a["rounds"],
+        kw=dict(masks=a["masks"].cpu(), config=a["config"], tol=ASYNC_TOL,
+                return_rounds=True, return_trace=True))
+    return cases
+
+
+def spmd_phase(run: dict, a: dict, *, device: str,
+               split_rounds: int = SPMD_SPLIT_ROUNDS) -> dict:
+    """The SPMD solvers on the main path's packed problem, one node per
+    rank: J ranks started by `run_ranks` on ``device`` (all on the one
+    card), exchanging θ over gloo through host buffers."""
+    from repro_torch.dist import solve_batched
+    from repro_torch.dist.ranks import run_ranks
+    from repro_torch.dist.spmd_cases import solve_cases
+
+    packed = run["packed"]
+    run["spmd_ref"] = dict(
+        cuda=_launched(lambda: solve_batched(packed, run["rounds"],
+                                             backend="cuda")),
+        tol=solve_batched(packed, NUM_ITERS, backend="cuda", tol=SOLVE_TOL,
+                          chunk_rounds=1, return_rounds=True))
+    cases = spmd_cases(run, a, split_rounds=split_rounds)
+    t0 = time.perf_counter()
+    per_rank = run_ranks(solve_cases, packed.num_nodes, backend=SPMD_BACKEND,
+                         device=device, timeout=SPMD_TIMEOUT,
+                         args=(_cpu_packed(packed), cases, device))
+    secs = time.perf_counter() - t0
+    return dict(cases=cases, ranks={c["name"]: [r[i] for r in per_rank]
+                                    for i, c in enumerate(cases)},
+                secs=secs, ranks_n=packed.num_nodes)
+
+
+def _same(name: str, got, want) -> None:
+    if not torch.equal(got.cpu(), want.cpu()):
+        raise PhaseError(f"spmd {name}: not bit-equal to its reference "
+                         f"(max |Δ| {(got.cpu() - want.cpu()).abs().max():.3e})")
+
+
+def check_spmd_phase(sp: dict, run: dict, a: dict) -> dict:
+    """Every check of the spmd phase; raises on failure. Returns the
+    per-round times, the split, the wire and the launches."""
+    from repro_torch.dist import comm_bytes_per_round
+
+    packed, rounds = run["packed"], run["rounds"]
+    on_card = packed.device.type == "cuda"
+    ranks = sp["ranks"]
+    for name, per_rank in ranks.items():
+        if "error" in per_rank[0]:
+            raise PhaseError(f"spmd {name} raised: {per_rank[0]['error']}")
+        if "out" in per_rank[0]:
+            first = per_rank[0]["out"]
+            first = first[0] if isinstance(first, tuple) else first
+            for r, res in enumerate(per_rank[1:], 1):
+                got = res["out"][0] if isinstance(res["out"], tuple) \
+                    else res["out"]
+                if not torch.equal(got, first):
+                    raise PhaseError(f"spmd {name}: rank {r} returned "
+                                     f"another θ than rank 0")
+    out = lambda name: ranks[name][0]["out"]                # noqa: E731
+    want = run["spmd_ref"]["cuda"][0]
+    want_tol, want_tol_rounds = run["spmd_ref"]["tol"]
+    (a_theta, a_stats, a_trace) = a["per_round"][0]
+    e_theta, e_stats = a["edge_round"][0]
+    t_theta, t_rounds, t_stats = a["tol"][0]
+    errs, ms, wire, launches = {}, {}, {}, {}
+    for mode in SPMD_MODES:
+        _same(f"sync/{mode}/cuda", out(f"sync/{mode}/cuda"), want)
+        _same(f"sync/{mode}/cuda_fused", out(f"sync/{mode}/cuda_fused"),
+              want)
+        errs[f"torch/{mode}"] = compare(
+            f"spmd sync/{mode}/torch", out(f"sync/{mode}/torch").to(
+                want.device), want, torch.float64)
+        theta_t, rounds_t = out(f"sync-tol/{mode}")
+        if rounds_t != want_tol_rounds:
+            raise PhaseError(f"spmd sync-tol/{mode}: {rounds_t} rounds, the "
+                             f"batched cuda solve {want_tol_rounds}")
+        _same(f"sync-tol/{mode}", theta_t, want_tol)
+        if not out(f"sync-warm/{mode}")[1] <= 1:
+            raise PhaseError(f"spmd sync-warm/{mode}: the warm start ran "
+                             f"{out(f'sync-warm/{mode}')[1]} rounds")
+        theta_a, trace_a = out(f"async/{mode}")
+        _same(f"async/{mode}", theta_a, a_theta)
+        if (int(trace_a.broadcasts.sum()), int(trace_a.deliveries.sum())) \
+                != (a_stats.broadcasts, a_stats.deliveries) or not all(
+                torch.equal(x.cpu(), y.cpu()) for x, y in zip(
+                    trace_a[1:], a_trace[1:])):
+            raise PhaseError(f"spmd async/{mode}: wire series differ from "
+                             f"async_solve_batched(cuda)'s")
+        _same(f"async-sync/{mode}", out(f"async-sync/{mode}"),
+              out(f"sync/{mode}/cuda"))
+        per_rank = ranks[f"sync/{mode}/cuda"]
+        wire[mode] = sum(r["wire_bytes"] for r in per_rank) / rounds
+        if wire[mode] != comm_bytes_per_round(packed, mode):
+            raise PhaseError(f"spmd {mode}: {wire[mode]} θ bytes a round on "
+                             f"the wire, the cost model says "
+                             f"{comm_bytes_per_round(packed, mode)}")
+        for r, res in enumerate(per_rank):
+            if not (res["dispatches"] == rounds
+                    == res["launches"]["dekrr_step"] + rounds * (not on_card)):
+                raise PhaseError(
+                    f"spmd sync/{mode}/cuda rank {r}: {res['dispatches']} "
+                    f"dispatches, {res['launches']['dekrr_step']} launches, "
+                    f"the contract {rounds}")
+        for b in ("cuda", "cuda_fused", "torch"):
+            ms[f"sync/{mode}/{b}"] = max(
+                r["seconds"] for r in ranks[f"sync/{mode}/{b}"]) \
+                / rounds * 1e3
+        ms[f"async/{mode}/cuda"] = max(
+            r["seconds"] for r in ranks[f"async/{mode}"]) / a["rounds"] * 1e3
+    theta_e, trace_e = out("async-edge/ppermute")
+    _same("async-edge/ppermute", theta_e, e_theta)
+    if (int(trace_e.broadcasts.sum()), int(trace_e.deliveries.sum())) != \
+            (e_stats.broadcasts, e_stats.deliveries):
+        raise PhaseError("spmd async-edge: wire counts differ")
+    theta_t, rounds_t, trace_t = out("async-tol/ppermute")
+    if rounds_t != t_rounds:
+        raise PhaseError(f"spmd async-tol: {rounds_t} rounds, the batched "
+                         f"solve {t_rounds}")
+    _same("async-tol/ppermute", theta_t, t_theta)
+    for name, per_rank in ranks.items():
+        for res in per_rank:
+            for k, v in res.get("launches", {}).items():
+                launches[k] = launches.get(k, 0) + v
+    launches = {k: v for k, v in launches.items() if v}
+    if set(launches) != ({"dekrr_step", "dekrr_step_masked"} if on_card
+                         else set()):
+        raise PhaseError(f"spmd launches {launches}: on the card the phase "
+                         f"launches dekrr_step and dekrr_step_masked and "
+                         f"nothing else, on the CPU nothing")
+    split = {mode: ranks[f"split/{mode}"][0] for mode in SPMD_MODES}
+    return dict(errs=errs, ms=ms, wire=wire, launches=launches, split=split,
+                batched_ms=run["spmd_ref"]["cuda"][1] / rounds * 1e3,
+                tol_rounds=want_tol_rounds,
+                async_tol_rounds=rounds_t)
+
+
+def print_spmd_phase(sp: dict, sc: dict, run: dict, card: str) -> None:
+    print(f"spmd [{card}]: backend={SPMD_BACKEND}, host-staged, "
+          f"{sp['ranks_n']} ranks on 1 card; J={run['packed'].num_nodes}, "
+          f"D={run['packed'].max_features}, {run['rounds']} rounds; "
+          f"phase {sp['secs']:.1f} s (spawn and every case)")
+    print(f"spmd checks: pass (cuda and cuda_fused θ == batched cuda bit for "
+          f"bit in both modes; torch within rtol 1e-9, max |Δ| "
+          f"{max(sc['errs'].values()):.3e}; tol {SOLVE_TOL}: "
+          f"{sc['tol_rounds']} rounds == batched, θ bit-equal; warm start "
+          f"≤ 1 round; async p 0.5 censored, edge and tol "
+          f"{ASYNC_TOL} ({sc['async_tol_rounds']} rounds) == "
+          f"async_solve_batched(cuda) bit for bit with its wire counts; "
+          f"is_synchronous == sync; dispatches == launches == rounds on "
+          f"every rank)")
+    print(f"spmd wire [{card}]: θ bytes a round summed over ranks " +
+          ", ".join(f"{m} {int(v)}" for m, v in sc["wire"].items()) +
+          " (== comm_bytes_per_round)")
+    print(f"spmd ms a round [{card}] (rank max, wall): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sc["ms"].items())
+        + f"; batched cuda {sc['batched_ms']:.4f}, batched cuda_fused "
+          f"solve {run['t_solve'] / run['rounds'] * 1e3:.4f}")
+    for mode, sp_ in sc["split"].items():
+        print(f"spmd split of a round on rank 0 [{card}] {mode}: exchange "
+              f"{sp_['exchange_s'] * 1e3:.4f} ms, round on the local table "
+              f"{sp_['round_s'] * 1e3:.4f} ms (of it the wrapper's index "
+              f"check with its three host copies "
+              f"{sp_['index_check_s'] * 1e3:.4f} ms)")
+    print(f"spmd launches (summed over ranks): {json.dumps(sc['launches'])}",
+          flush=True)
+
+
+def spmd_step_timings(run: dict, errs: dict) -> list[dict]:
+    """The round kernel at the SPMD shape, J = 1 over node 0's [1 + K, D]
+    table, unmasked and masked, by CUDA events, beside its plain version,
+    one node's gather and three einsums, and its bound; each kernel's
+    error against its plain version goes into ``errs``."""
+    from repro_torch.kernels.dekrr_step import (dekrr_step_cuda,
+                                                dekrr_step_masked_reference,
+                                                dekrr_step_reference)
+
+    packed, theta = run["packed"], run["theta"]
+    dev, dtype = packed.device, packed.d.dtype
+    k_slots, d_feat = packed.num_slots, packed.max_features
+    table = torch.cat([theta[:1], theta[packed.nbr_idx[0].long()]])
+    local = torch.arange(1, k_slots + 1, dtype=torch.int32, device=dev)[None]
+    self_idx = torch.zeros((1,), dtype=torch.int32, device=dev)
+    lay = _raw_layout((packed.g[:1], packed.d[:1], packed.s[:1],
+                       packed.p[:1], table, local, self_idx,
+                       packed.nbr_mask[:1]))
+    active = torch.ones((1,), dtype=torch.int32, device=dev)
+    out = torch.empty_like(lay[1])
+    g, d, s_, p = lay[0], lay[1], lay[2], lay[3]
+
+    def library_node():
+        nbr = table[local[0].long()] * packed.nbr_mask[0, :, None]
+        acc = d[0] + torch.einsum("ab,b->a", s_[0], table[0]) \
+            + torch.einsum("kab,kb->a", p[0], nbr)
+        return torch.einsum("ab,b->a", g[0], acc)[None]
+
+    byts = (2 + k_slots) * d_feat * d_feat * lay[0].element_size() \
+        + nbytes(d, table, local, self_idx, lay[7], out)
+    flops = 2 * (2 + k_slots) * d_feat * d_feat
+    rows = []
+    for name, replaces, kw, plain in (
+            ("dekrr_step@spmd", "src/repro/kernels/dekrr_step.py:192", {},
+             lambda: dekrr_step_reference(*lay, dy=1)),
+            ("dekrr_step_masked@spmd", "src/repro/kernels/dekrr_step.py:121",
+             {"active": active},
+             lambda: dekrr_step_masked_reference(*lay, active, dy=1))):
+        dekrr_step_cuda(*lay, out, dy=1, **kw)
+        errs[name] = compare(f"{name} vs plain", out, plain(), dtype)
+        bms, by = bound_ms(byts + (nbytes(active) if kw else 0), flops, dtype)
+        rows.append(dict(
+            name=name, route="cuda", shape=[1, k_slots, d_feat, 1,
+                                            k_slots + 1],
+            source="src/repro_torch/kernels/csrc/dekrr_step.cu",
+            replaces=replaces,
+            ms=cuda_ms(lambda: dekrr_step_cuda(*lay, out, dy=1, **kw),
+                       reps=200),
+            plain_ms=cuda_ms(plain, reps=50), bound_ms=bms, bound_by=by,
+            library_ms=cuda_ms(library_node, reps=50)))
+    return rows
+
+
 # ------------------------------------------------------------------- main
 def package_missing(src: str) -> bool:
     """True, after one line on stderr naming where it looked, when the
@@ -3297,6 +3584,9 @@ def rehearse_on_cpu() -> int:
     a_checks = check_async_path(a, run, checks)
     c = cheb_path(run, checks)
     c_checks = check_cheb_path(c, run, checks)
+    sp = spmd_phase(run, a, device="cpu", split_rounds=20)
+    sp_checks = check_spmd_phase(sp, run, a)
+    print_spmd_phase(sp, sp_checks, run, "cpu")
     sv = serve_path(run, queries=128)
     sv_checks = check_serve_path(sv, run, on_card=False)
     llm_cfg = _llm_config().reduced()
@@ -3332,7 +3622,9 @@ def rehearse_on_cpu() -> int:
                    stream_replay_err=st["replay_err"],
                    stream_serve_err=st["serve_err"],
                    bench_dispatch=[(r["path"], r["backend"], r["chunk"],
-                                    r["dispatches"]) for r in b["dispatch"]])
+                                    r["dispatches"]) for r in b["dispatch"]],
+                   spmd_wire=sp_checks["wire"],
+                   spmd_launches=sp_checks["launches"])
     print(json.dumps({"cpu_rehearsal": summary}))
     return 0
 
@@ -3430,6 +3722,10 @@ def run_on_card() -> int:
           f"Chebyshev {c['cheb_rounds']}", flush=True)
     print(f"chebyshev launches: {json.dumps(c_launches)}")
 
+    sp = spmd_phase(run, a, device="cuda:0")
+    sp_checks = check_spmd_phase(sp, run, a)
+    print_spmd_phase(sp, sp_checks, run, card)
+
     errs.update(features_phase())
     sv = serve_path(run, queries=SERVE_QUERIES)
     sv_checks = check_serve_path(sv, run, on_card=True)
@@ -3512,9 +3808,11 @@ def run_on_card() -> int:
         "dekrr_async_solve"], dekrr_cheb_solve=c_launches["dekrr_cheb_solve"],
         flash_decode=llm["launches"]["flash_decode"], **serve_launches)
     launches["rff_gram@gram_fn"] = pp["gram"]["launches"]["rff_gram"]
+    for k in ("dekrr_step", "dekrr_step_masked"):
+        launches[f"{k}@spmd"] = sp_checks["launches"][k]
     rows = timings(run["packed"], run) + chain_timings(run, a, c) \
         + feature_timings(run) + decode_timings() \
-        + [gram_fn_timing(pp["gram"])]
+        + [gram_fn_timing(pp["gram"])] + spmd_step_timings(run, errs)
     wide = gram_wide_timing()
     plan = wide["plan"]
     print(f"time [{card}] rff_gram wide route at (B, F, d, N)="

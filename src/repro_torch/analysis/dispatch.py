@@ -6,6 +6,12 @@ problem on the CPU (the kernels' plain versions), its dispatches are
 counted by `repro_torch.obs.dispatch.dispatch_count`, and a count off the
 documented `round_dispatches` contract is a J002 finding. The numerics
 are irrelevant here; only shapes and the slot layout are real.
+
+The SPMD solvers (`make_spmd_solver`, `make_async_spmd_solver`) run on
+`SPMD_NODES` CPU ranks started by `repro_torch.dist.ranks.run_ranks`, one
+launch for all of them, and each rank's dispatches are held to the
+contract: rounds never fuse across the per-round exchange, so ``cuda``
+and ``cuda_fused`` make R dispatches on every rank and ``torch`` none.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ from repro_torch.obs.dispatch import dispatch_count, round_dispatches
 
 ROUNDS = 5
 BACKENDS = ("torch", "cuda", "cuda_fused")
+SPMD_NODES = 4
+SPMD_TIMEOUT = 120.0
 
 
 @dataclasses.dataclass
@@ -128,6 +136,62 @@ def entry_points(rounds: int = ROUNDS) -> list[EntryPoint]:
     return eps
 
 
+def spmd_entry_points(rounds: int = ROUNDS) -> list[dict]:
+    """`spmd_cases.solve_cases` cases: both SPMD solvers on every mode and
+    backend at tol = 0, with and without a trace, each with the per-rank
+    dispatches its contract pins (``"expected"``)."""
+    from repro_torch.core import AsyncGossipConfig, activation_masks
+
+    gen = torch.Generator().manual_seed(0)
+    masks = activation_masks(gen, rounds, SPMD_NODES, prob=0.5)
+    config = AsyncGossipConfig(prob=0.5, censor_tau=2e-2, censor_decay=0.9)
+    cases = []
+    for solver, name in (("sync", "make_spmd_solver"),
+                         ("async", "make_async_spmd_solver")):
+        for mode in ("ppermute", "allgather"):
+            for b in BACKENDS:
+                for trace in (False, True):
+                    kw = {"return_trace": trace}
+                    if solver == "async":
+                        kw.update(masks=masks, config=config)
+                    cases.append(dict(
+                        name=f"{name}[mode={mode},backend={b},tol=0"
+                             f"{',trace' if trace else ''}]",
+                        solver=solver, mode=mode, backend=b,
+                        num_iters=rounds, kw=kw,
+                        expected=round_dispatches(
+                            "torch" if b == "torch" else "cuda", rounds)))
+    return cases
+
+
+def check_spmd_results(cases: list[dict],
+                       per_rank: list[list[dict]]) -> list[Finding]:
+    """J002 for every case where some rank's dispatches are off its pin
+    (or the case raised)."""
+    findings = []
+    for i, case in enumerate(cases):
+        counts = [rank[i].get("dispatches") for rank in per_rank]
+        if all(c == case["expected"] for c in counts):
+            continue
+        findings.append(Finding(
+            "dispatch", "J002", case["name"],
+            f"the ranks ran {counts} kernel dispatch(es) but the "
+            f"round_dispatches contract documents {case['expected']} on "
+            f"each rank"))
+    return findings
+
+
+def run_spmd_pass(rounds: int = ROUNDS) -> list[Finding]:
+    """The SPMD entry points on `SPMD_NODES` CPU ranks, one launch."""
+    from repro_torch.dist.ranks import run_ranks
+    from repro_torch.dist.spmd_cases import solve_cases
+
+    cases = spmd_entry_points(rounds)
+    per_rank = run_ranks(solve_cases, SPMD_NODES, timeout=SPMD_TIMEOUT,
+                         args=(synthetic_packed(SPMD_NODES), cases, "cpu"))
+    return check_spmd_results(cases, per_rank)
+
+
 def check_entry_point(ep: EntryPoint) -> list[Finding]:
     count, exact = dispatch_count(ep.run)
     if exact and count == ep.expected_dispatches:
@@ -142,4 +206,4 @@ def run_pass(rounds: int = ROUNDS) -> list[Finding]:
     findings = []
     for ep in entry_points(rounds):
         findings += check_entry_point(ep)
-    return findings
+    return findings + run_spmd_pass(rounds)

@@ -5,6 +5,7 @@ ragged solver. Chebyshev acceleration is
 `repro_torch.core.acceleration` (it runs on the packed runtime)."""
 from repro_torch.core.async_gossip import (AsyncGossipConfig,
                                            AsyncGossipResult,
+                                           activation_mask,
                                            activation_masks,
                                            async_gossip_solve,
                                            censor_schedule, edge_list,
@@ -23,7 +24,7 @@ from repro_torch.core.rff import (FeatureMap, featurize, gaussian_kernel,
                                   sample_rff)
 
 __all__ = [
-    "AsyncGossipConfig", "AsyncGossipResult", "activation_masks",
+    "AsyncGossipConfig", "AsyncGossipResult", "activation_mask", "activation_masks",
     "async_gossip_solve", "censor_schedule", "edge_list",
     "edges_from_slot_table",
     "AuxMatrices", "CentralizedKRR", "CentralizedRF", "DKLA", "DKLAConfig",

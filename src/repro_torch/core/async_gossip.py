@@ -43,6 +43,7 @@ from repro_torch._device import resolve_device
 __all__ = [
     "AsyncGossipConfig",
     "AsyncGossipResult",
+    "activation_mask",
     "activation_masks",
     "async_gossip_solve",
     "censor_schedule",
@@ -140,6 +141,30 @@ def activation_masks(generator: torch.Generator, num_rounds: int,
     masks = torch.zeros((num_rounds, num_nodes), dtype=torch.bool,
                         device=device)
     return masks.scatter_(1, uv, True)
+
+
+def _round_seed(seed: int, round_idx: int) -> int:
+    """A fixed mix of (seed, round): the SplitMix64 finaliser of
+    seed·2⁶⁴-golden + round, so nearby seeds and rounds seed unrelated
+    streams. Any process computes it without talking to another."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(round_idx)) % 2 ** 64
+    z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9 % 2 ** 64
+    z = (z ^ (z >> 27)) * 0x94D049BB133111EB % 2 ** 64
+    return (z ^ (z >> 31)) >> 1                  # manual_seed takes < 2⁶³
+
+
+def activation_mask(seed: int, round_idx: int, num_nodes: int, *,
+                    prob: float = 1.0, gossip: str = "bernoulli",
+                    edges: np.ndarray | None = None) -> torch.Tensor:
+    """The round-r activation mask [J] bool, on the CPU, deterministic in
+    (seed, round_idx): every rank of an SPMD solve computes the same row
+    without talking (the reference folds the round into a `jax.random`
+    key for the same reason; these are not its bits). Draws as
+    `activation_masks` does, from a CPU `torch.Generator` seeded by a
+    fixed mix of the two."""
+    gen = torch.Generator().manual_seed(_round_seed(seed, round_idx))
+    return activation_masks(gen, 1, num_nodes, prob=prob, gossip=gossip,
+                            edges=edges)[0]
 
 
 def censor_schedule(censor_tau: float, censor_decay: float, num_rounds: int,

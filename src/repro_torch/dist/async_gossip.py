@@ -1,7 +1,7 @@
 """Asynchronous gossip DeKRR on the packed layout.
 
-The counterpart of the batched part of `repro.dist.async_gossip` (the
-multi-device runner comes with the SPMD slice). `repro_torch.core.
+The counterpart of `repro.dist.async_gossip`: the packed runtime below,
+and `make_async_spmd_solver`, one node per rank of a process group. `repro_torch.core.
 async_gossip` defines the semantics; this module runs them on the packed
 [J, D_max] problem:
 
@@ -39,9 +39,13 @@ import torch
 
 from repro_torch.core.async_gossip import (AsyncGossipConfig,
                                            _check_mask_table,
+                                           activation_mask,
                                            censor_schedule,
                                            edges_from_slot_table)
-from repro_torch.dist.dekrr_spmd import (PackedProblem, _check_backend,
+from repro_torch.dist.dekrr_spmd import (PackedProblem, _all_max, _all_rows,
+                                         _check_backend, _check_spmd_args,
+                                         _check_spmd_problem, _make_exchange,
+                                         _NodeRound, _rank_device,
                                          step_batched)
 from repro_torch.kernels.ops import check_index_table
 from repro_torch.obs.trace import AsyncSolveTrace
@@ -53,6 +57,7 @@ __all__ = [
     "async_solve_batched",
     "async_step_batched",
     "init_async_state",
+    "make_async_spmd_solver",
 ]
 
 # Default tol-check chunk of the async solve: the per-round freeze makes
@@ -376,3 +381,143 @@ def async_solve_batched(packed: PackedProblem, num_iters: int,
     if return_trace:
         out += (trace,)
     return out if len(out) > 1 else state.theta
+
+
+# --------------------------------------------------------------------------
+# SPMD: one node per rank of a torch.distributed process group
+# --------------------------------------------------------------------------
+def _spmd_masks(packed: PackedProblem, num_iters: int, masks, seed,
+                config: AsyncGossipConfig, edges) -> torch.Tensor:
+    """The [R, J] table every rank walks: the caller's, or row r drawn by
+    `activation_mask(seed, r, …)` on each rank alike."""
+    j_nodes = packed.num_nodes
+    if masks is None:
+        if seed is None:
+            raise ValueError("make_async_spmd_solver: pass the [R, J] mask "
+                             "table (masks=) or a seed to draw it from")
+        rows = [activation_mask(seed, r, j_nodes, prob=config.prob,
+                                gossip=config.gossip, edges=edges)
+                for r in range(num_iters)]
+        masks = (torch.stack(rows) if rows
+                 else torch.zeros((0, j_nodes), dtype=torch.bool))
+    _check_mask_table("make_async_spmd_solver", masks, num_iters, j_nodes)
+    return masks.cpu() != 0
+
+
+def make_async_spmd_solver(group=None, mode: str = "ppermute",
+                           backend: str = "cuda", *, device=None):
+    """Build the async counterpart of `make_spmd_solver`: ``run(packed,
+    num_iters, masks=None, *, config=AsyncGossipConfig(), seed=None,
+    thresholds=None, theta0=None, tol=0.0, return_rounds=False,
+    return_trace=False)``, one node per rank of ``group``, the same
+    exchange modes.
+
+    The [R, J] activation table is replicated on every rank: ``masks``
+    as given, or drawn row by row with `activation_mask(seed, r, …)`. The
+    thresholds are `censor_schedule` of ``config`` unless given. Every
+    rank walks the same table, so the exchange runs every round on every
+    rank and the masks decide what lands in the staleness buffers, which
+    one exchange before the loop fills with the neighbours' θ0.
+
+    Per round: the masked round (``active``) on [own θ; buffers]; the
+    node broadcasts when active and (censored) its Δ against ``sent``
+    passes the threshold; the post-censoring ``sent`` is exchanged. Under
+    "bernoulli" that alone is the delivery (a buffer always equals the
+    sender's last broadcast); under "edge" the broadcast flag travels as
+    a one-element exchange and gates delivery to the drawn edge.
+
+    ``tol > 0`` stops on the network-wide max|Δθ| (one all-reduce a
+    round) except after all-silent rounds, whose Δθ ≡ 0 is the schedule
+    idling. ``return_trace`` appends an `AsyncSolveTrace`: the residuals
+    combined by one all-reduce after the loop and the wire series from
+    every rank's broadcast flags (one all-gather). With
+    ``config.is_synchronous`` schedules (p = 1, bernoulli, no censoring)
+    the result equals `make_spmd_solver`'s bit for bit. Return order:
+    ``(theta[, rounds][, trace])``, θ as [J, D_max(, Dy)] on every rank.
+    """
+    _check_spmd_args(mode, backend)
+    device = _rank_device(device)
+
+    def run(packed: PackedProblem, num_iters: int,
+            masks: torch.Tensor | None = None, *,
+            config: AsyncGossipConfig = AsyncGossipConfig(),
+            seed: int | None = None,
+            thresholds: torch.Tensor | None = None,
+            theta0: torch.Tensor | None = None, tol: float = 0.0,
+            return_rounds: bool = False, return_trace: bool = False):
+        _check_spmd_problem(packed, group, mode)
+        if tol < 0:
+            raise ValueError(f"tol must be >= 0, got {tol}")
+        num_iters = int(num_iters)
+        edge = config.gossip == "edge"
+        edges = _packed_edges(packed) if edge else None
+        masks = _spmd_masks(packed, num_iters, masks, seed, config, edges)
+        dtype = packed.d.dtype
+        if thresholds is None:
+            thresholds = censor_schedule(config.censor_tau,
+                                         config.censor_decay, num_iters,
+                                         dtype=dtype, device=device)
+        elif tuple(thresholds.shape) != (num_iters,):
+            raise ValueError(f"make_async_spmd_solver: thresholds have "
+                             f"shape {list(thresholds.shape)}, expected "
+                             f"[{num_iters}]")
+        thresholds = thresholds.to(dtype=dtype, device=device)
+        step = _NodeRound(packed, group, device, backend)
+        exchange = _make_exchange(mode, group, packed.offsets, step.slots)
+        r = step.rank
+        active = masks[:, r:r + 1].to(device)                 # [R, 1]
+        live = step.node.nbr_mask[0] != 0                      # [K]
+        if edge:
+            nbr_active = masks[:, step.slots].to(device)       # [R, K]
+        theta = (torch.zeros_like(step.node.d) if theta0 is None
+                 else theta0[r:r + 1].to(device))
+        sent, buffers = theta, exchange(theta)
+        if return_trace:
+            residuals = theta.new_zeros((num_iters,))
+            flags = torch.zeros((num_iters,), dtype=torch.int32,
+                                device=device)
+        rounds = 0
+        for rnd in range(num_iters):
+            act = active[rnd]
+            new = step(theta, buffers, act)
+            if config.censored:
+                delta = torch.amax(torch.abs(new - sent))
+                bcast = act[0] & (delta > thresholds[rnd])
+            else:
+                bcast = act[0]
+            sent = torch.where(bcast, new, sent)
+            payload = exchange(sent)                           # [K, D…]
+            if edge:
+                flag = exchange(bcast.reshape(1, 1).to(dtype))[:, 0] != 0
+                gate = act[0] & nbr_active[rnd] & flag & live
+            else:
+                gate = live
+            buffers = torch.where(_gate(gate, payload.ndim), payload,
+                                  buffers)
+            if return_trace or tol > 0:
+                local = torch.amax(torch.abs(new - theta))
+            if return_trace:
+                residuals[rnd] = local
+                flags[rnd] = bcast.to(torch.int32)
+            rounds += 1
+            converged = (tol > 0 and bool(masks[rnd].any())
+                         and float(_all_max(local, group)) < tol)
+            theta = new
+            if converged:
+                break
+        out = (_all_rows(theta, group),)
+        if return_rounds:
+            out += (rounds,)
+        if return_trace:
+            bc = _all_rows(flags[None], group).T               # [R, J]
+            small = dataclasses.replace(
+                packed, nbr_idx=packed.nbr_idx.to(device),
+                nbr_mask=packed.nbr_mask.to(device))
+            act_n, bcasts, delivs, wire = _wire_series(
+                small, masks.to(device), bc, gossip=config.gossip)
+            ran = torch.arange(num_iters, device=device) < rounds
+            out += (AsyncSolveTrace(_all_max(residuals, group), act_n * ran,
+                                    bcasts, delivs, wire),)
+        return out if len(out) > 1 else out[0]
+
+    return run

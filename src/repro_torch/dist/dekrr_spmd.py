@@ -1,8 +1,7 @@
 """Packed runtime for the Eq. 19 DeKRR-DDRF iteration.
 
-The counterpart of `repro.dist.dekrr_spmd`'s packed part (the file name
-is kept so the two are found side by side; the multi-device runners come
-in a later slice).
+The counterpart of `repro.dist.dekrr_spmd` (the file name is kept so the
+two are found side by side).
 
 1. **Packing** (`pack_problem`): every per-node auxiliary padded to the
    network maximum D_max and stacked over nodes —
@@ -29,6 +28,12 @@ in a later slice).
        in one cooperative launch.
 
    On CPU tensors the ``cuda*`` backends run the kernels' plain versions.
+
+3. **SPMD** (`make_spmd_solver`): one node per rank of a
+   `torch.distributed` process group, each rank holding only its node's
+   blocks and exchanging only θ with its neighbours each round (ring
+   shifts or an all-gather). `repro_torch.dist.ranks.run_ranks` starts
+   the ranks.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 from repro_torch.obs.spans import span
@@ -51,6 +57,9 @@ __all__ = [
     "step_batched",
     "solve_batched",
     "comm_bytes_per_round",
+    "exchange_counts",
+    "make_spmd_solver",
+    "reset_exchange_counts",
 ]
 
 
@@ -709,9 +718,253 @@ def solve_batched(packed: PackedProblem, num_iters: int,
 
 
 # --------------------------------------------------------------------------
-# §II-C communication cost model
+# SPMD: one node per rank of a torch.distributed process group
 # --------------------------------------------------------------------------
 _MODES = ("ppermute", "allgather")
+
+# θ bytes this process received from other ranks in SPMD exchanges, and
+# the exchanges run (the wire check of the SPMD solvers reads them).
+EXCHANGES = {"exchanges": 0, "bytes": 0}
+
+
+def reset_exchange_counts() -> None:
+    for k in EXCHANGES:
+        EXCHANGES[k] = 0
+
+
+def exchange_counts() -> dict[str, int]:
+    return dict(EXCHANGES)
+
+
+def _host_staged(group) -> bool:
+    """Gloo's point-to-point calls take host tensors only, so a gloo group
+    moves card-resident θ through host buffers. That is the group's own
+    property: the backend is whatever the caller's group runs."""
+    return dist.get_backend(group) == "gloo"
+
+
+def _global_rank(group, rank: int) -> int:
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+def _make_exchange(mode: str, group, offsets: tuple[int, ...] | None,
+                   slots: Sequence[int]):
+    """Per-rank neighbour exchange ``vec [1, W…] → [K, W…]`` — the one
+    wiring the sync and async SPMD solvers share (their bit-for-bit
+    equivalence at full activation rests on it).
+
+    ``"ppermute"``: for each circulant offset s one forward shift (receive
+    from node j+s) and one backward shift (receive from j−s), in the
+    packed slot order [(+s₁), (−s₁), (+s₂), …], through one
+    `dist.batch_isend_irecv`. ``"allgather"``: every rank's row 0 is
+    gathered, then this node's ``slots`` (its `nbr_idx` row) are taken.
+    On a gloo group, θ on the card goes through host buffers and the
+    received rows are copied back.
+    """
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    stage = _host_staged(group)
+    slots = [int(k) for k in slots]
+
+    def exchange(vec: torch.Tensor) -> torch.Tensor:
+        send = (vec.cpu() if stage else vec).contiguous()
+        if mode == "ppermute":
+            recvs, p2p = [], []
+            for m, shift in enumerate(offsets):
+                for tag, src, dst in ((2 * m, rank + shift, rank - shift),
+                                      (2 * m + 1, rank - shift,
+                                       rank + shift)):
+                    buf = torch.empty_like(send)
+                    p2p += [dist.P2POp(dist.isend, send,
+                                       _global_rank(group, dst % world),
+                                       group, tag),
+                            dist.P2POp(dist.irecv, buf,
+                                       _global_rank(group, src % world),
+                                       group, tag)]
+                    recvs.append(buf)
+            if p2p:
+                for work in dist.batch_isend_irecv(p2p):
+                    work.wait()
+            from_others = len(recvs)
+        else:
+            everyone = [torch.empty_like(send) for _ in range(world)]
+            dist.all_gather(everyone, send, group=group)
+            recvs = [everyone[k] for k in slots]
+            from_others = world - 1
+        EXCHANGES["exchanges"] += 1
+        EXCHANGES["bytes"] += from_others * send.numel() * send.element_size()
+        out = (torch.cat(recvs) if recvs
+               else send.new_zeros((0,) + tuple(send.shape[1:])))
+        return out.to(vec.device)
+
+    return exchange
+
+
+def _all_max(t: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise max of ``t`` over the group's ranks, on t's device."""
+    buf = (t.cpu() if _host_staged(group) else t).clone(
+        memory_format=torch.contiguous_format)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+    return buf.to(t.device)
+
+
+def _all_rows(row: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's [1, …] row, stacked in rank order, on row's device."""
+    send = (row.cpu() if _host_staged(group) else row).contiguous()
+    rows = [torch.empty_like(send)
+            for _ in range(dist.get_world_size(group))]
+    dist.all_gather(rows, send, group=group)
+    return torch.cat(rows).to(row.device)
+
+
+def _check_spmd_problem(packed: PackedProblem, group, mode: str) -> None:
+    """Launch-time validation shared by the sync and async SPMD solvers:
+    one node per rank of the group, and the circulant slot layout when
+    the exchange is ring shifts."""
+    j_nodes = packed.num_nodes
+    world = dist.get_world_size(group)
+    if world != j_nodes:
+        raise ValueError(
+            f"the process group has {world} ranks but the problem has "
+            f"{j_nodes} nodes (one node per rank)")
+    if mode == "ppermute":
+        if packed.offsets is None:
+            raise ValueError(
+                "ppermute mode needs a circulant-packed problem "
+                "(packed.offsets is None — use mode='allgather')")
+        if packed.num_slots != 2 * len(packed.offsets):
+            raise ValueError("slot table is not in circulant layout")
+
+
+def _check_spmd_args(mode: str, backend: str) -> None:
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
+    _check_backend(backend)
+
+
+def _rank_device(device) -> torch.device:
+    """The rank's device: the current card unless the caller names one."""
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class _NodeRound:
+    """This rank's node: its rows of the packed problem on its device, and
+    one Eq. 19 round on the local θ table [own θ; K neighbour θ] — the
+    batched matmul round (``torch``) or the `dekrr_step` kernel with
+    ``nbr_idx = [[1 … K]]`` and ``self_idx = [0]`` (``cuda``;
+    ``cuda_fused`` too: rounds cannot fuse across the exchange). The
+    index tables are built once, here."""
+
+    def __init__(self, packed: PackedProblem, group, device: torch.device,
+                 backend: str):
+        self.rank = r = dist.get_rank(group)
+        rows = lambda t: t[r:r + 1].to(device).contiguous()   # noqa: E731
+        k_slots = packed.num_slots
+        self.node = PackedProblem(
+            g=rows(packed.g), d=rows(packed.d), s=rows(packed.s),
+            p=rows(packed.p), theta_mask=rows(packed.theta_mask),
+            nbr_idx=torch.arange(1, k_slots + 1, dtype=torch.int32,
+                                 device=device)[None],
+            nbr_mask=rows(packed.nbr_mask), offsets=packed.offsets)
+        self.slots = packed.nbr_idx[r].tolist()
+        self.self_idx = torch.zeros((1,), dtype=torch.int32, device=device)
+        self.backend = backend
+
+    def __call__(self, theta: torch.Tensor, nbr: torch.Tensor,
+                 active: torch.Tensor | None = None) -> torch.Tensor:
+        """theta [1, D(, Dy)], nbr [K, D(, Dy)], active [1] or None."""
+        node = self.node
+        if self.backend == "torch":
+            new = _step_torch(node, theta, nbr[None])
+            if active is None:
+                return new
+            gate = (active != 0).reshape((1,) + (1,) * (theta.ndim - 1))
+            return torch.where(gate, new, theta)
+        from repro_torch.kernels.ops import dekrr_step
+
+        return dekrr_step(node.g, node.d, node.s, node.p,
+                          torch.cat([theta, nbr]), node.nbr_idx,
+                          self.self_idx, node.nbr_mask, active)
+
+
+def make_spmd_solver(group=None, mode: str = "ppermute",
+                     backend: str = "cuda", *, device=None):
+    """Build ``run(packed, num_iters, theta0=None, *, tol=0.0,
+    return_rounds=False, return_trace=False)`` for one node per rank of
+    ``group`` (the default group when None): rank r IS node r, keeps only
+    its node's G/d/S/P on ``device`` (the current card unless the caller
+    names another) and exchanges only θ with its neighbours each round:
+
+      * ``"ppermute"``: one ring shift each way per circulant offset
+        (a circulant-packed problem only); Σ_j |N_j| · D_max rows a round;
+      * ``"allgather"``: gather every rank's θ, take the slots; any
+        topology; J · (J − 1) · D_max rows a round.
+
+    ``backend`` picks the round: "torch" (`_step_torch` on the one-node
+    slice) or "cuda" (the `dekrr_step` kernel on the local θ table; its
+    plain version on CPU tensors). "cuda_fused" is accepted and runs the
+    per-round kernel: each round waits for the exchange, so rounds cannot
+    fuse across it.
+
+    The runner:
+
+      * ``theta0`` ([J, D_max(, Dy)]) warm-starts the iteration; each rank
+        takes its row.
+      * ``tol > 0`` stops early: every round the rank's max|Δθ| goes
+        through one all-reduce (max), so every rank takes the same stop
+        decision; nothing runs after the converging round. θ and the
+        rounds match ``solve_batched(..., tol=tol, chunk_rounds=1)``.
+      * ``return_rounds`` appends the rounds run (an int);
+        ``return_trace`` a `SolveTrace` of the network-wide per-round
+        max|Δθ| [num_iters] (0 after a stop): each rank records its own
+        series and one all-reduce after the loop combines them.
+
+    θ comes back as [J, D_max(, Dy)] on every rank, on its device. Return
+    order: ``(theta[, rounds][, trace])``.
+    """
+    _check_spmd_args(mode, backend)
+    device = _rank_device(device)
+
+    def run(packed: PackedProblem, num_iters: int,
+            theta0: torch.Tensor | None = None, *, tol: float = 0.0,
+            return_rounds: bool = False, return_trace: bool = False):
+        _check_spmd_problem(packed, group, mode)
+        if tol < 0:
+            raise ValueError(f"tol must be >= 0, got {tol}")
+        num_iters = int(num_iters)
+        step = _NodeRound(packed, group, device, backend)
+        exchange = _make_exchange(mode, group, packed.offsets, step.slots)
+        r = step.rank
+        theta = (torch.zeros_like(step.node.d) if theta0 is None
+                 else theta0[r:r + 1].to(device))
+        residuals = theta.new_zeros((num_iters,)) if return_trace else None
+        rounds = 0
+        while rounds < num_iters:
+            new = step(theta, exchange(theta))
+            if return_trace or tol > 0:
+                local = torch.amax(torch.abs(new - theta))
+            if return_trace:
+                residuals[rounds] = local
+            rounds += 1
+            converged = tol > 0 and float(_all_max(local, group)) < tol
+            theta = new
+            if converged:
+                break
+        out = (_all_rows(theta, group),)
+        if return_rounds:
+            out += (rounds,)
+        if return_trace:
+            out += (SolveTrace(residuals=_all_max(residuals, group)),)
+        return out if len(out) > 1 else out[0]
+
+    return run
+
+
+# --------------------------------------------------------------------------
+# §II-C communication cost model
+# --------------------------------------------------------------------------
 
 
 def comm_bytes_per_round(packed: PackedProblem, mode: str, *,

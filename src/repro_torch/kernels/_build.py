@@ -6,18 +6,25 @@ library with a plain C interface and loaded with `ctypes`:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o <name>.so <name>.cu
 
-Libraries go under ``build/repro_torch/<hash>/`` at the repository root,
-keyed by a hash of every source in ``csrc/`` (headers included), so an
+Libraries go under ``build/repro_torch/<hash>/`` at the repository root
+(under ``$REPRO_TORCH_BUILD_ROOT/<hash>/`` where that is set), keyed by a
+hash of every source in ``csrc/`` (headers included), so an
 edit rebuilds and an unchanged tree reuses what is there. Nothing is
 built at import: the first call that needs a kernel builds it, and
 `build_all` builds every source at once, one ``nvcc`` process each.
+Processes that reach a kernel at once (the ranks of an SPMD solve) take
+a file lock in the build directory around the check and the build, and
+nvcc writes to a name of its own process before the library is moved
+into place, so one process builds and the others load what it built.
 
 Every C entry point returns ``cudaGetLastError()`` (or the error of the
 CUDA call that failed); `check` raises on anything but 0.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -93,7 +100,7 @@ SIGNATURES = {
     },
 }
 
-_lock = threading.Lock()
+_lock = threading.RLock()
 _libs: dict[str, ctypes.CDLL] = {}
 # nvcc's -Xptxas -v report per source, from the build that made the library
 ptxas_reports: dict[str, str] = {}
@@ -123,19 +130,26 @@ def source_hash() -> str:
 
 
 def _build_dir() -> Path:
-    out = BUILD_ROOT / source_hash()
+    root = Path(os.environ.get("REPRO_TORCH_BUILD_ROOT", BUILD_ROOT))
+    out = root / source_hash()
     out.mkdir(parents=True, exist_ok=True)
     return out
 
 
 def _start(name: str, out: Path) -> subprocess.Popen | None:
-    """Start nvcc for one source unless its library is already built."""
+    """Start nvcc for one source unless its library is already built. The
+    output goes to a name of this process's own, so builds in other
+    processes never write the same file."""
     if (out / f"{name}.so").exists():
         return None
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out / f"{name}.so.tmp"),
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(_tmp_path(name, out)),
            str(CSRC / f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+
+
+def _tmp_path(name: str, out: Path) -> Path:
+    return out / f"{name}.so.{os.getpid()}.tmp"
 
 
 def _finish(name: str, out: Path, proc: subprocess.Popen | None) -> None:
@@ -148,27 +162,51 @@ def _finish(name: str, out: Path, proc: subprocess.Popen | None) -> None:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     (out / f"{name}.ptxas.txt").write_text(log)
-    os.replace(out / f"{name}.so.tmp", out / f"{name}.so")
+    os.replace(_tmp_path(name, out), out / f"{name}.so")
     ptxas_reports[name] = log
+
+
+@contextlib.contextmanager
+def _locked(out: Path):
+    """Hold the build directory against other threads (the threading lock)
+    and other processes (``flock`` on its lock file; the kernel drops it
+    when a holder dies, so a file left behind blocks nobody)."""
+    with _lock, open(out / "build.lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
+def ensure_built(names, out: Path | None = None) -> dict[str, Path]:
+    """Build the named sources whose libraries are missing from ``out``
+    (the build directory of this tree by default), one nvcc each, all at
+    once, under the cross-process lock: of many processes that ask at
+    once, one builds and the others find its libraries. Returns the
+    library path of each name."""
+    out = _build_dir() if out is None else Path(out)
+    with _locked(out):
+        procs = {n: _start(n, out) for n in names}
+        try:
+            for n in names:
+                _finish(n, out, procs[n])
+        finally:
+            for n, proc in procs.items():
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                _tmp_path(n, out).unlink(missing_ok=True)
+    return {n: out / f"{n}.so" for n in names}
 
 
 def build_all() -> dict[str, str]:
     """Build every source at once (one nvcc each) and load them. Returns
     the ``-Xptxas -v`` report per source."""
     with _lock:
-        out = _build_dir()
         todo = [n for n in SOURCES if n not in _libs]
-        procs = {n: _start(n, out) for n in todo}
-        try:
-            for n in todo:
-                _finish(n, out, procs[n])
-        finally:
-            for proc in procs.values():
-                if proc is not None and proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        for n in todo:
-            _libs[n] = _load(out / f"{n}.so", n)
+        for n, path in ensure_built(todo).items():
+            _libs[n] = _load(path, n)
     return dict(ptxas_reports)
 
 
@@ -188,9 +226,7 @@ def library(name: str) -> ctypes.CDLL:
         return lib
     with _lock:
         if name not in _libs:
-            out = _build_dir()
-            _finish(name, out, _start(name, out))
-            _libs[name] = _load(out / f"{name}.so", name)
+            _libs[name] = _load(ensure_built((name,))[name], name)
         return _libs[name]
 
 

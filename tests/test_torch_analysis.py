@@ -342,6 +342,22 @@ def test_dispatch_pass_clean_and_catches_a_violation():
     assert "1 kernel dispatch(es)" in finding.message
 
 
+def test_spmd_dispatch_cases_and_a_violation():
+    cases = dispatch.spmd_entry_points()
+    assert len(cases) == 24
+    assert {c["expected"] for c in cases} == {0, dispatch.ROUNDS}
+    ok = [[{"dispatches": c["expected"]} for c in cases]
+          for _ in range(dispatch.SPMD_NODES)]
+    assert dispatch.check_spmd_results(cases, ok) == []
+    ok[2][5] = {"dispatches": 7}
+    ok[3][9] = {"error": "raised"}
+    found = dispatch.check_spmd_results(cases, ok)
+    assert [(f.rule, f.where) for f in found] == [
+        ("J002", cases[5]["name"]), ("J002", cases[9]["name"])]
+    assert "[5, 5, 7, 5]" in found[0].message or \
+        "[0, 0, 7, 0]" in found[0].message
+
+
 def test_cli_exits_zero_on_the_live_tree(capsys):
     assert analysis_main([]) == 0
     out = capsys.readouterr().out

@@ -1034,3 +1034,110 @@ def test_gpu_over_budget_round_refused_without_launch(cuda_device):
                         z(j, d, dy), nbr, own, mask, num_rounds=3)
     torch.cuda.synchronize()
     assert sum(ops.launch_counts().values()) == 0
+
+
+# ---------------------------------------------------------------- the SPMD
+# solvers: one node per rank, all ranks on the one card, exchanging θ over
+# gloo through host buffers (NCCL refuses two ranks on one device).
+def _spmd_cases(rounds, masks):
+    from repro_torch.core import AsyncGossipConfig
+
+    config = AsyncGossipConfig(prob=0.5, censor_tau=2e-2, censor_decay=0.9)
+    cases = []
+    for mode in ("ppermute", "allgather"):
+        cases.append(dict(solver="sync", mode=mode, backend="cuda",
+                          num_iters=rounds))
+        cases.append(dict(solver="async", mode=mode, backend="cuda",
+                          num_iters=rounds,
+                          kw=dict(masks=masks, config=config)))
+    return cases, config
+
+
+@pytest.mark.gpu
+def test_gpu_spmd_four_ranks_equal_batched_cuda(cuda_device):
+    """Sync and async SPMD `cuda` on 4 ranks == the batched `cuda` solves
+    bit for bit: the round kernel's node body does not depend on J."""
+    from repro_torch.analysis.dispatch import synthetic_packed
+    from repro_torch.core import activation_masks
+    from repro_torch.dist import async_solve_batched, solve_batched
+    from repro_torch.dist.ranks import run_ranks
+    from repro_torch.dist.spmd_cases import solve_cases
+
+    rounds = 30
+    packed = synthetic_packed(j_nodes=4, d_feat=64)
+    masks = activation_masks(torch.Generator().manual_seed(1), rounds, 4,
+                             prob=0.5)
+    cases, config = _spmd_cases(rounds, masks)
+    per_rank = run_ranks(solve_cases, 4, backend="gloo",
+                         device=str(cuda_device) + ":0", timeout=300.0,
+                         args=(packed, cases, None))
+    on_card = synthetic_packed(j_nodes=4, d_feat=64, device="cuda")
+    want = solve_batched(on_card, rounds, backend="cuda").cpu()
+    want_a = async_solve_batched(on_card, rounds, masks, config=config,
+                                 backend="cuda").cpu()
+    for rank in per_rank:
+        for case, res in zip(cases, rank):
+            ref = want if case["solver"] == "sync" else want_a
+            assert torch.equal(res["out"], ref), case
+            kernel = "dekrr_step" if case["solver"] == "sync" \
+                else "dekrr_step_masked"
+            assert res["launches"][kernel] == res["dispatches"] == rounds
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+def test_gpu_dekrr_step_one_node_table_matches_plain(cuda_device, masked):
+    """The SPMD shape: J = 1 over a [1 + K, D] table (K 4, D 200, f64)."""
+    args = [a.to(cuda_device) for a in to_t(
+        dekrr_case(1, 4, 200, 1, 4, seed=23, masked=False))]
+    args[5] = torch.arange(1, 5, dtype=torch.int32,
+                           device=cuda_device)[None]
+    args[6] = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    active = torch.ones((1,), dtype=torch.int32, device=cuda_device) \
+        if masked else None
+    lay = ops._pad_dekrr_operands("t", *args)[2]
+    want = dekrr_step_masked_reference(*lay, active, dy=1) if masked \
+        else dekrr_step_reference(*lay, dy=1)
+    got = ops.dekrr_step(*args, active)
+    torch.cuda.synchronize()
+    assert_close(got, want.cpu())
+    assert ops.LAUNCHES["dekrr_step_masked" if masked else "dekrr_step"] == 1
+
+
+@pytest.mark.gpu
+def test_gpu_ten_ranks_first_use_builds_each_library_once(
+        cuda_device, tmp_path, monkeypatch):
+    """Ten ranks reach the round kernel at once with an empty build
+    directory: nvcc runs once for it and every rank loads the library."""
+    import os
+    import shutil
+    import stat
+
+    from repro_torch.analysis.dispatch import synthetic_packed
+    from repro_torch.dist.ranks import run_ranks
+    from repro_torch.dist.spmd_cases import solve_cases
+
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    log = tmp_path / "nvcc.log"
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    wrapper = bindir / "nvcc"
+    wrapper.write_text(f'#!/bin/sh\necho "$@" >> {log}\nexec {nvcc} "$@"\n')
+    wrapper.chmod(wrapper.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setenv("REPRO_TORCH_BUILD_ROOT", str(tmp_path / "build"))
+    packed = synthetic_packed(j_nodes=10, d_feat=16)
+    packed.offsets = None                      # allgather over any layout
+    case = dict(solver="sync", mode="allgather", backend="cuda",
+                num_iters=3)
+    per_rank = run_ranks(solve_cases, 10, backend="gloo",
+                         device=str(cuda_device) + ":0", timeout=600.0,
+                         args=(packed, [case], None))
+    calls = log.read_text().splitlines()
+    assert len(calls) == 1 and calls[0].endswith("dekrr_step.cu")
+    libs = list((tmp_path / "build").glob("*/dekrr_step.so"))
+    assert len(libs) == 1
+    assert list((tmp_path / "build").glob("*/*.tmp")) == []
+    for rank in per_rank:
+        assert rank[0]["launches"]["dekrr_step"] == 3
+        assert torch.equal(rank[0]["out"], per_rank[0][0]["out"])
