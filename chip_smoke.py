@@ -91,7 +91,24 @@
    p50/p99 per request and ms per decode step; one decode step's device
    time at the serving cache and at one long request (B 1, S 32,768, the
    last position: a 6.4 GB f32 cache) by CUDA-graph replay.
-12. The paper's experiments (``repro_torch.paper``) at the synthetic
+12. The other mixers (the ``mixers`` phase), each model through the same
+   ServeEngine traffic with seeded f32 weights drawn on the card:
+   rwkv6-7b at full width and depth (rwkv + rwkv_cmix; 32 layers, d 4096,
+   7.5 B parameters), deepseek-moe-16b at full width and 8 of its 28
+   layers (attn with flash_decode at dh 128, the moe ffn: 64 routed
+   experts top-6 + 2 shared), jamba-1.5-large at its registry reduced()
+   size (attn, mamba and moe interleaved) and qwen1.5-0.5b's
+   sliding-window variant at full width and depth (every slot swa,
+   window 8,192). Each: the same requests again give the same tokens,
+   one request alone equals sequential decode_step calls, the first
+   wave teacher-forced gives the engine's tokens and backend torch
+   within LLM_LOGIT_TOL of backend cuda (the swa variant also its attn
+   model), decode == the model's own forward (rtol 2e-3, atol 2e-4,
+   capacity factor 8), flash_decode launches = attn layers × steps, one
+   decode step captured into a CUDA graph (no host sync) and replayed
+   for its device time; tokens/s, p50/p99 per request, ms a step, the
+   busy share, peak memory. The engine of step 11 is freed first.
+13. The paper's experiments (``repro_torch.paper``) at the synthetic
    stand-ins' full N: (a) Table 2's wave setting built with
    ``gram_fn=ops.gram_fn_for_solver`` (40 ``rff_gram`` launches at B 1,
    F 200, f32), θ from solve_exact within 2e-4 of the default solver's,
@@ -104,7 +121,7 @@
    ``cuda_fused``), µs and bytes a round; (e) CentralizedKRR on wave's
    31,800 pooled training columns (test RSE, time, peak memory), and at
    1,000 columns against the CPU.
-13. The streaming runtime (``repro_torch.stream``) at the main path's
+14. The streaming runtime (``repro_torch.stream``) at the main path's
    width, on its maps and training columns with the stream bench's λ
    1e-3, c_nei 0.02·N and tol 1e-8 (``repro_torch.bench.stream_bench``,
    ``cuda_fused``, tol checked every round): init; Woodbury folds at
@@ -124,7 +141,7 @@
    staleness; an interleaved ingest–solve–publish loop against a
    2-replica server, every answer equal to a clean serve of the one
    snapshot its staleness names; the path's launches of each kernel.
-14. The system benchmarks (``repro_torch.bench``), the ``bench`` phase:
+15. The system benchmarks (``repro_torch.bench``), the ``bench`` phase:
    (a) each backend of the main, async and Chebyshev paths on the main
    path's packed problem (32 rounds, and ``cuda_fused`` in chunks of 10):
    ``repro_torch.obs.dispatch_count`` equal to the contract {torch 0,
@@ -141,9 +158,9 @@
    N) and the multi-output bench, into one registry written as JSONL
    under ``build/chip_bench/`` and rendered by ``repro_torch.obs``; (e)
    the provenance block naming the card and its power limit.
-15. Launch counts of each path and run, zeroed just before it, and
+16. Launch counts of each path and run, zeroed just before it, and
    ``pack_problem`` repeated warm.
-16. Kernel times by CUDA events (timed on the device, behind a spin that
+17. Kernel times by CUDA events (timed on the device, behind a spin that
    lets the host queue the launches first) beside their plain versions,
    a PyTorch yardstick and the least time the card could take; the
    featurize kernel at the wave and at one node, ``rff_gram`` at the
@@ -153,7 +170,9 @@
    at the serving cache (cur 128 and 512), there both warm (one cache
    launched again) and cold (24 distinct caches launched in turn, the 805
    MB a decode step's layers pass through L2), beside the fastest SDPA
-   call; the round kernel, unmasked and masked, at the SPMD shape (J = 1
+   call, and at deepseek-moe-16b's heads (H = K = 16, dh 128; row
+   ``flash_decode@dh128``, its launches the mixers phase's) warm at cur
+   128 and 512 beside its split plain version and SDPA; the round kernel, unmasked and masked, at the SPMD shape (J = 1
    over a [1 + K, D] table, rows ``dekrr_step@spmd`` and
    ``dekrr_step_masked@spmd``, their launches the spmd phase's summed
    over ranks). ``dekrr_solve`` and ``dekrr_async_solve``
@@ -165,11 +184,11 @@ The last line is ``{"ok": true, "device": {...}}``; any failed phase
 exits non-zero before it. Without a CUDA device the script exits
 non-zero, and so does a copy of the script without ``src/repro_torch``
 beside it, after one line naming where it looked. ``--cpu-rehearsal``
-runs steps 4–7, 9, 11–13 and 14 (without its (b)) on the CPU at a small
+runs steps 4–7, 9, 11–14 and 15 (without its (b)) on the CPU at a small
 size (the kernels' plain versions; the LLM path on the reduced
-qwen1.5-0.5b; Table 2 on two stand-ins at 600 samples; the stream on the
-rehearsal's 12 features a node; the benches at their reduced sizes), for
-the tests. ``--decode-timings [--src DIR]`` runs only
+qwen1.5-0.5b; the mixers' models reduced, the window 64; Table 2 on
+two stand-ins at 600 samples; the stream on the rehearsal's 12 features
+a node; the benches at their reduced sizes), for the tests. ``--decode-timings [--src DIR]`` runs only
 the ``flash_decode`` timings and the two decode steps of step 11 on the
 card, with the ``repro_torch`` package of DIR/.. (``src`` by default), so
 one call can time an earlier tree's kernel beside this one's.
@@ -179,6 +198,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -322,6 +342,27 @@ LLM_NEW_TOKENS = 32
 LLM_LOGIT_TOL = 1e-3
 # int8 vs f32 cache, the bound of test_int8_kv_cache_decode_close_to_bf16
 INT8_LOGIT_TOL = 0.05
+
+# The mixers phase (repro_torch.models.{moe,ssm,rwkv} and the swa ring):
+# each model through ServeEngine at the LLM_* traffic above, seeded f32
+# weights drawn on the card. rwkv6-7b and qwen1.5-0.5b's sliding-window
+# variant (every slot swa, the registry's long-context window of 8,192,
+# as launch/specs.py builds it) at full width and depth; deepseek-moe-16b
+# at full width and 8 of its 28 layers (67.5 GB of f32 weights at full
+# depth leaves no room beside the rest of the script); jamba-1.5-large at
+# its registry reduced() size (one 8-slot period at d 8192 is ~178 GB).
+MIXER_MODELS = ("rwkv6_7b", "deepseek_moe_16b", "jamba_1_5_large_398b",
+                "qwen1_5_0_5b-swa")
+MIXER_DEEPSEEK_LAYERS = 8
+MIXER_REHEARSAL_WINDOW = 64    # the rehearsal's window: its max_seq
+# decode == own forward, tests/test_arch_smoke.py::
+# test_decode_matches_forward: (B, S), (rtol, atol), capacity factor
+MIXER_FORWARD = (2, 16)
+MIXER_FORWARD_TOL = (2e-3, 2e-4)
+MIXER_CAPACITY = 8.0
+# flash_decode at deepseek-moe-16b's heads (H = K = 16, dh 128) at the
+# serving cache: (B, H, K, dh, S)
+DECODE_DH128 = (LLM_BATCH, 16, 16, 128, LLM_MAX_SEQ)
 
 # the paper's experiments (repro_torch.paper): θ of a gram_fn solver
 # against the default one, the reference's tolerance for this pairing
@@ -1939,15 +1980,22 @@ def _token_plan(wave, batch: int) -> list[list[int]]:
 
 
 def llm_path(device: str, cfg, *, requests: int, batch: int, max_seq: int,
-             prompt=LLM_PROMPT, new_tokens=LLM_NEW_TOKENS) -> dict:
+             prompt=LLM_PROMPT, new_tokens=LLM_NEW_TOKENS,
+             variants=None) -> dict:
     """The LLM serving path: ServeEngine (backend cuda) with the port's
     seeded weights serves `requests` greedy requests twice, the repeat
     run timed with the launch counts zeroed just before; then one request
     alone against sequential decode_step calls, and the first wave's
-    tokens teacher-forced through decode_step on both backends and with
-    the int8 cache."""
+    tokens teacher-forced through decode_step on both backends and
+    through each of `variants` (a name to a function of the engine's
+    parameters giving another model, run on backend cuda; by default
+    the int8 cache)."""
     from repro_torch.models.model import Model
     from repro_torch.serve import Request, ServeEngine
+
+    if variants is None:
+        variants = {"int8": lambda params: Model(
+            dataclasses.replace(cfg, kv_cache_dtype="int8"), params)}
 
     engine = ServeEngine(cfg, batch_size=batch, max_seq=max_seq, seed=0,
                          device=device, backend="cuda")
@@ -1979,14 +2027,13 @@ def llm_path(device: str, cfg, *, requests: int, batch: int, max_seq: int,
                 seq.append(int(logits[0].argmax()))
     out["solo"], out["sequential"] = solo.output, seq
 
-    # teacher forcing the first wave: cuda vs torch, and the int8 cache
+    # teacher forcing the first wave: cuda vs torch, and the variants
     wave = done[:batch]
-    int8 = Model(dataclasses.replace(cfg, kv_cache_dtype="int8"),
-                 engine.params)
-    runs = {"cuda": (model, "cuda"), "torch": (model, "torch"),
-            "int8": (int8, "cuda")}
+    runs = {"cuda": (model, "cuda"), "torch": (model, "torch")}
+    runs.update({k: (make(engine.params), "cuda")
+                 for k, make in variants.items()})
     caches = {k: m.init_cache(batch, max_seq) for k, (m, _) in runs.items()}
-    diff = {"torch": 0.0, "int8": 0.0}
+    diff = {k: 0.0 for k in runs if k != "cuda"}
     scale, mismatches = 0.0, 0
     plan = _token_plan(wave, batch)
     with torch.inference_mode():
@@ -2050,15 +2097,27 @@ def check_llm_path(llm: dict, cfg, on_card: bool) -> None:
         raise PhaseError(f"LLM serving: cuda and torch logits differ by "
                          f"{rel['torch']:.3e} of max|logit| (tolerance "
                          f"{LLM_LOGIT_TOL:g})")
-    if not rel["int8"] < INT8_LOGIT_TOL:
+    if "int8" in rel and not rel["int8"] < INT8_LOGIT_TOL:
         raise PhaseError(f"LLM serving: int8-cache logits differ by "
                          f"{rel['int8']:.3e} of max|logit| from the f32 cache "
                          f"(tolerance {INT8_LOGIT_TOL:g})")
+    if "attn" in rel and not rel["attn"] <= LLM_LOGIT_TOL:
+        raise PhaseError(f"{cfg.name}: the sliding-window logits differ by "
+                         f"{rel['attn']:.3e} of max|logit| from the attn "
+                         f"model's inside the window (tolerance "
+                         f"{LLM_LOGIT_TOL:g})")
     got = {k: v for k, v in llm["launches"].items() if v}
-    want = {"flash_decode": cfg.num_layers * llm["steps"]} if on_card else {}
+    want = {"flash_decode": attn_layers(cfg) * llm["steps"]} \
+        if on_card and attn_layers(cfg) else {}
     if got != want:
         raise PhaseError(f"LLM serving launch counts {got}, expected {want}")
     llm.update(tokens=n_tokens, rel=rel)
+
+
+def attn_layers(cfg) -> int:
+    """Layers whose mixer is ``attn``: each launches flash_decode once a
+    decode step on backend cuda."""
+    return cfg.num_groups * sum(s.mixer == "attn" for s in cfg.slots)
 
 
 def sdpa_yardsticks(q, k, v, want, cur: int) -> dict:
@@ -2255,6 +2314,198 @@ def decode_timings_only(src: str | None) -> int:
         "step_ms": {"serving cache (B 8, S 512, cur 128)": step_ms,
                     "long request (B 1, S 32768, cur 32768)": long_ms}}))
     return 0
+
+
+# ------------------------------------------------------- the other mixers
+def mixer_config(name: str, *, full: bool):
+    """The configuration of a MIXER_MODELS entry: on the card rwkv6-7b and
+    qwen1.5-0.5b's sliding-window variant at full width and depth,
+    deepseek-moe-16b at full width and MIXER_DEEPSEEK_LAYERS layers, jamba
+    at its registry reduced() size; ``full=False`` (the rehearsal): every
+    one reduced, the window at MIXER_REHEARSAL_WINDOW."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import SlotSpec
+
+    base, _, variant = name.partition("-")
+    spec = get_arch(base)
+    cfg = spec.config
+    if not full or base == "jamba_1_5_large_398b":
+        cfg = cfg.reduced()
+    elif base == "deepseek_moe_16b":
+        cfg = dataclasses.replace(cfg, num_layers=MIXER_DEEPSEEK_LAYERS)
+    if variant == "swa":
+        cfg = dataclasses.replace(
+            cfg, slots=tuple(SlotSpec("swa" if s.mixer == "attn" else s.mixer,
+                                      s.ffn) for s in cfg.slots),
+            sliding_window=(spec.long_context_window if full
+                            else MIXER_REHEARSAL_WINDOW))
+    return cfg
+
+
+def _attn_variant(cfg):
+    """The model a sliding-window variant came from: every swa slot attn
+    again (the same parameters)."""
+    from repro_torch.models.model import Model, SlotSpec
+
+    attn_cfg = dataclasses.replace(
+        cfg, slots=tuple(SlotSpec("attn" if s.mixer == "swa" else s.mixer,
+                                  s.ffn) for s in cfg.slots),
+        sliding_window=None)
+    return lambda params: Model(attn_cfg, params)
+
+
+def decode_matches_forward(model, cfg, device: str, forward) -> float:
+    """Teacher-forcing parity of `tests/test_arch_smoke.py`: decode_step
+    (backend cuda) at each position of a seeded [B, S] batch against the
+    model's own forward, MoE capacity factor MIXER_CAPACITY so no token
+    drops, |Δ| ≤ atol + rtol·|forward|. Returns max |Δ|."""
+    from repro_torch.models.model import Model
+
+    rtol, atol = MIXER_FORWARD_TOL
+    m = Model(dataclasses.replace(cfg, moe_capacity_factor=MIXER_CAPACITY),
+              model.params)
+    b, s = forward
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (b, s))).to(device)
+    worst = 0.0
+    with torch.inference_mode():
+        full, aux = m.forward(toks)
+        if not all(torch.isfinite(v) for v in aux.values()):
+            raise PhaseError(f"{cfg.name}: forward's aux losses are not "
+                             f"finite: {aux}")
+        cache = m.init_cache(b, s)
+        for t in range(s):
+            lg, cache = m.decode_step(cache, toks[:, t:t + 1], t)
+            err = (lg - full[:, t]).abs()
+            if not (torch.isfinite(lg).all()
+                    and (err <= atol + rtol * full[:, t].abs()).all()):
+                raise PhaseError(f"{cfg.name}: decode diverges from its own "
+                                 f"forward at t={t} (max |Δ| "
+                                 f"{err.max().item():.3e}, rtol {rtol:g}, "
+                                 f"atol {atol:g})")
+            worst = max(worst, err.max().item())
+    return worst
+
+
+def mixer_path(device: str, cfg, *, requests: int, batch: int,
+               max_seq: int, prompt, new_tokens: int, forward) -> dict:
+    """One model of the mixers phase: `llm_path` (for a sliding-window
+    variant with its attn model as the teacher-forced variant), its
+    checks, decode == forward, and on the card one decode step captured
+    into a CUDA graph (a host sync on the path makes the capture raise)
+    and replayed for its device time, and the peak memory."""
+    from repro_torch.models.model import param_count
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    variants = {"attn": _attn_variant(cfg)} \
+        if any(s.mixer == "swa" for s in cfg.slots) else {}
+    t0 = time.perf_counter()
+    out = llm_path(device, cfg, requests=requests, batch=batch,
+                   max_seq=max_seq, prompt=prompt, new_tokens=new_tokens,
+                   variants=variants)
+    check_llm_path(out, cfg, on_card)
+    model = out.pop("engine").model
+    out["forward_err"] = decode_matches_forward(model, cfg, device, forward)
+    out["device_ms"] = None
+    if on_card:
+        pos = max_seq // 4 - 1
+        try:
+            out["device_ms"] = graph_step_ms(model, batch, max_seq, pos)
+        except RuntimeError as exc:
+            raise PhaseError(f"{cfg.name}: one decode step did not capture "
+                             f"into a CUDA graph (a host sync on the "
+                             f"path?): {exc}") from exc
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["params"] = param_count(model.params)
+    out["phase_secs"] = time.perf_counter() - t0
+    return out
+
+
+def mixers_phase(device: str, card: str, *, full: bool, requests: int,
+                 batch: int, max_seq: int, prompt=LLM_PROMPT,
+                 new_tokens=LLM_NEW_TOKENS, forward=MIXER_FORWARD) -> dict:
+    """MIXER_MODELS in turn through `mixer_path`, each freed before the
+    next is drawn; one line of metrics and one of checks per model."""
+    results = {}
+    for name in MIXER_MODELS:
+        cfg = mixer_config(name, full=full)
+        r = mixer_path(device, cfg, requests=requests, batch=batch,
+                       max_seq=max_seq, prompt=prompt,
+                       new_tokens=new_tokens, forward=forward)
+        rep, step_ms = r["report"], r["secs"] / r["steps"] * 1e3
+        dev = "not measured (CPU)" if r["device_ms"] is None else (
+            f"{r['device_ms']:.3f} ms a step on the device by CUDA-graph "
+            f"replay at cur={max_seq // 4} (busy share "
+            f"{r['device_ms'] / step_ms:.3f}), peak memory "
+            f"{r['peak_gib']:.2f} GiB")
+        print(f"mixers [{card}] {name} = {cfg.name} ({cfg.num_layers} "
+              f"layers, d {cfg.d_model}, {r['params'] / 1e9:.3f} B params "
+              f"f32, slots {[(s.mixer, s.ffn) for s in cfg.slots]}): "
+              f"{rep.count} requests in {r['secs']:.2f} s (repeat run; "
+              f"cold {r['cold_secs']:.2f} s), {r['steps']} decode steps of "
+              f"{batch} slots, {step_ms:.2f} ms a step eager, "
+              f"{r['tokens'] / r['secs']:.1f} generated tokens/s, "
+              f"per-request p50 {rep.p50 * 1e3:.1f} ms, p99 "
+              f"{rep.p99 * 1e3:.1f} ms; {dev}; launches "
+              f"{json.dumps({k: v for k, v in r['launches'].items() if v})};"
+              f" phase {r['phase_secs']:.1f} s", flush=True)
+        print(f"mixers checks {name}: pass (repeat run equal, one request "
+              f"== sequential decode_step, {r['replay_steps']} "
+              f"teacher-forced steps equal to the engine's tokens, " +
+              ", ".join(f"{k} vs cuda {v:.3e}" for k, v in r["rel"].items())
+              + f" of max|logit| {r['scale']:.3f} (tolerance "
+              f"{LLM_LOGIT_TOL:g}); decode vs own forward max |Δ| "
+              f"{r['forward_err']:.3e} (rtol {MIXER_FORWARD_TOL[0]:g}, atol "
+              f"{MIXER_FORWARD_TOL[1]:g}, capacity factor "
+              f"{MIXER_CAPACITY:g}); flash_decode launches "
+              f"{r['launches'].get('flash_decode', 0)}, on the card "
+              f"{attn_layers(cfg)} attn layers × {r['steps']} steps)",
+              flush=True)
+        results[name] = r
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return results
+
+
+def decode_dh128_row(launches: int) -> dict:
+    """flash_decode at deepseek-moe-16b's heads (DECODE_DH128: H = K = 16,
+    dh 128) at the serving cache, warm at cur a quarter of S and all of
+    it: each against its split plain version (DECODE_TOL), timed beside
+    it and the fastest SDPA call. The row is cur = S / 4, the decode
+    step's timed position."""
+    from repro_torch.kernels.decode_attention import (
+        flash_decode_split_reference)
+
+    b, h, kh, dh, s = DECODE_DH128
+    per_cur, worst = {}, 0.0
+    for cur in (s // 4, s):
+        t = decode_kernel_ms(b, h, kh, dh, s, cur)
+        q, k, v = t["operands"]
+        want = flash_decode_split_reference(q, k, v, t["lens"])
+        err = (t["out"] - want).abs()
+        if not (torch.isfinite(t["out"]).all()
+                and (err <= DECODE_TOL * (1 + want.abs())).all()):
+            raise PhaseError(f"flash_decode at dh {dh}, cur {cur}: disagrees "
+                             f"with its split plain version (max abs err "
+                             f"{err.max().item():.3e})")
+        worst = max(worst, err.max().item())
+        per_cur[cur] = dict(
+            ms=t["ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            plain_ms=cuda_ms(lambda: flash_decode_split_reference(
+                q, k, v, t["lens"]), reps=5, warmup=1),
+            sdpa=sdpa_yardsticks(q, k, v, t["out"], cur))
+        del t, q, k, v
+    row = per_cur[s // 4]
+    return dict(name="flash_decode@dh128", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_decode.cu",
+                replaces="src/repro/kernels/decode_attention.py:89",
+                shape=[b, h, kh, dh, s, s // 4], ms=row["ms"],
+                plain_ms=row["plain_ms"], library_ms=row["sdpa"]["ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                launches=launches, max_abs_err=worst, per_cur=per_cur)
 
 
 # ------------------------------------------------------ the paper's experiments
@@ -3593,6 +3844,9 @@ def rehearse_on_cpu() -> int:
     llm = llm_path("cpu", llm_cfg, requests=6, batch=4, max_seq=64,
                    prompt=(4, 16), new_tokens=8)
     check_llm_path(llm, llm_cfg, on_card=False)
+    mx = mixers_phase("cpu", "cpu", full=False, requests=4, batch=2,
+                      max_seq=MIXER_REHEARSAL_WINDOW, prompt=(3, 8),
+                      new_tokens=4, forward=(2, 6))
     pp = paper_phase("cpu", subsample=600, fast=True, gram=(2000, 12))
     print_paper_phase(pp, "cpu")
     st = stream_phase(run, epochs=2, ingest=(8, 32),
@@ -3615,6 +3869,9 @@ def rehearse_on_cpu() -> int:
                                 for p, r in sv["runs"].items()},
                    llm_steps=llm["steps"], llm_tokens=llm["tokens"],
                    llm_logit_rel=llm["rel"],
+                   mixer_steps={k: r["steps"] for k, r in mx.items()},
+                   mixer_forward_err={k: r["forward_err"]
+                                      for k, r in mx.items()},
                    paper_rows=[r[:5] for r in pp["rows"]],
                    paper_krr_rse=pp["krr"]["rse"],
                    stream_rounds=[(e["warm_rounds"], e["cold_rounds"])
@@ -3785,6 +4042,11 @@ def run_on_card() -> int:
           f"max|logit| {llm['scale']:.3f} (tolerance {LLM_LOGIT_TOL:g}), "
           f"int8 cache {llm['rel']['int8']:.3e} (tolerance "
           f"{INT8_LOGIT_TOL:g}))")
+    llm.pop("engine")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mx = mixers_phase("cuda", card, full=True, requests=LLM_REQUESTS,
+                      batch=LLM_BATCH, max_seq=LLM_MAX_SEQ)
 
     pp = paper_phase("cuda", subsample=None, fast=False,
                      gram=(None, PAPER_DBAR_WAVE))
@@ -3812,7 +4074,9 @@ def run_on_card() -> int:
         launches[f"{k}@spmd"] = sp_checks["launches"][k]
     rows = timings(run["packed"], run) + chain_timings(run, a, c) \
         + feature_timings(run) + decode_timings() \
-        + [gram_fn_timing(pp["gram"])] + spmd_step_timings(run, errs)
+        + [gram_fn_timing(pp["gram"])] + spmd_step_timings(run, errs) \
+        + [decode_dh128_row(mx["deepseek_moe_16b"]["launches"][
+            "flash_decode"])]
     wide = gram_wide_timing()
     plan = wide["plan"]
     print(f"time [{card}] rff_gram wide route at (B, F, d, N)="
@@ -3850,6 +4114,17 @@ def run_on_card() -> int:
               f"{d['sdpa']['ms']:.4f} ms, every backend that agreed (ms): "
               f"{json.dumps(d['sdpa']['table'])})"
               for cur, d in serving.items()))
+    dh128 = rows[-1]
+    for cur, d in dh128.pop("per_cur").items():
+        print(f"time [{card}] flash_decode at deepseek-moe-16b's heads "
+              f"(B={DECODE_DH128[0]}, H=K=16, dh=128, S={DECODE_DH128[-1]}, "
+              f"warm) cur={cur}: {d['ms']:.4f} ms, split plain version "
+              f"{d['plain_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms "
+              f"({d['bound_by']}); the fastest SDPA call on the same inputs "
+              f"{d['sdpa']['call']} {d['sdpa']['ms']:.4f} ms, every backend "
+              f"that agreed (ms): {json.dumps(d['sdpa']['table'])}")
+    errs[dh128["name"]] = dh128["max_abs_err"]
+    launches[dh128["name"]] = dh128["launches"]
     per_round = {r["name"]: r["ms"] / r.pop("rounds") for r in rows
                  if "rounds" in r}
     step_ms = next(r["ms"] for r in rows if r["name"] == "dekrr_step")

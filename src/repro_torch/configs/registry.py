@@ -4,7 +4,7 @@ Each ``src/repro_torch/configs/<id>.py`` exposes ``spec() -> ArchSpec``
 with its published configuration (citation in brackets) plus a
 reduced smoke variant. ``--arch <id>`` in the launchers resolves through
 ``get_arch``. The port's own copy of the reference's registry (data
-only); its model runs the dense ``attn`` configurations so far.
+only); its model runs every decoding configuration.
 """
 from __future__ import annotations
 

@@ -17,7 +17,8 @@ from repro_torch._device import resolve_device
 from repro_torch.core.dekrr import NodeData
 from repro_torch.core.rff import FeatureMap
 from repro_torch.dist.dekrr_spmd import PackedProblem
-from repro_torch.models.model import ModelConfig, Params, param_shapes
+from repro_torch.models.model import (Cache, ModelConfig, Params,
+                                      cache_spec, param_shapes)
 from repro_torch.stream.runtime import ServeSnapshot, StalenessBound
 from repro_torch.stream.updates import (StreamAux, _ingest_tables,
                                         _reverse_slots)
@@ -168,6 +169,47 @@ def lm_params_to_arrays(params: Params) -> dict:
     return {k: ({n: to_numpy(t) for n, t in v.items()}
                 if isinstance(v, dict) else to_numpy(v))
             for k, v in params.items()}
+
+
+def lm_cache_from_arrays(cfg: ModelConfig, arrays: dict, *, batch: int,
+                         max_seq: int, device=None) -> Cache:
+    """The model's decode cache from the reference's cache pytree as numpy
+    arrays (one ``slot{i}`` dict per slot, by mixer: K/V caches, the swa
+    ring's ``pos`` table, Mamba's conv window and state, RWKV's shifts and
+    state), in the layout and dtypes of `cache_spec` for ``batch`` and
+    ``max_seq``, so a decode can continue from the reference's state.
+    Raises on a missing, extra or misshapen entry."""
+    device = resolve_device(device)
+    spec = cache_spec(cfg, batch, max_seq)
+    if set(arrays) != set(spec):
+        raise ValueError(f"cache slots {sorted(arrays)} differ from "
+                         f"{sorted(spec)} of {cfg.name}")
+    cache: Cache = {}
+    for slot, entries in spec.items():
+        if set(arrays[slot]) != set(entries):
+            raise ValueError(f"{slot} cache names {sorted(arrays[slot])} "
+                             f"differ from {sorted(entries)}")
+        cache[slot] = {}
+        for name, (shape, dtype) in entries.items():
+            a = np.asarray(arrays[slot][name])
+            if a.shape != tuple(shape):
+                raise ValueError(f"cache entry {slot}.{name} has shape "
+                                 f"{a.shape}, expected {tuple(shape)}")
+            if dtype == torch.bfloat16:      # numpy has no bfloat16
+                t = torch.as_tensor(a.astype(np.float32)).to(dtype)
+            else:
+                t = torch.as_tensor(np.array(a)).to(dtype)
+            cache[slot][name] = t.to(device)
+    return cache
+
+
+def lm_cache_to_arrays(cache: Cache) -> dict:
+    """The inverse of `lm_cache_from_arrays`: the same pytree of numpy
+    arrays (bf16 entries as float32, which holds them exactly)."""
+    return {slot: {name: to_numpy(t.float() if t.dtype == torch.bfloat16
+                                  else t)
+                   for name, t in entries.items()}
+            for slot, entries in cache.items()}
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

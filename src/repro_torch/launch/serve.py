@@ -1,10 +1,12 @@
-"""Serving launcher: batched greedy decoding with a KV cache, on the card
-by default.
+"""Serving launcher: batched greedy decoding over the model's decode
+cache (KV caches, the sliding-window ring, Mamba and RWKV-6 states), on
+the card by default.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1_5_0_5b \\
       --full --batch 8 --prompt-len 32 --gen 64
 
-The weights are the port's seeded initialisation (``--seed``), not a
+Without ``--full`` the architecture's reduced configuration runs. The
+weights are the port's seeded initialisation (``--seed``), not a
 checkpoint. ``--device cpu`` runs on the CPU, where the decode attention
 runs the flash-decode kernel's plain version.
 """

@@ -2,51 +2,68 @@
 `repro.models.model`.
 
 A model is ``num_groups`` repetitions of a *period* of slots
-(``cfg.slots``); each slot is a (mixer, ffn) pair. The configuration
-(`ModelConfig`, `SlotSpec`) and the parameter shapes cover every family
-of the reference (so `analytic_param_count` holds for all ten
-architectures of the registry), but `Model` runs the ``attn`` mixer with the ``dense``
-ffn (swiglu or gelu) only: the ``swa`` ring, ``mamba``, ``rwkv``,
-``rwkv_cmix`` and ``moe`` raise `NotImplementedError` until their ROADMAP
-item (slice 10b) ports them.
+(``cfg.slots``); each slot is a (mixer, ffn) pair:
+
+  mixer ∈ {attn, swa, mamba, rwkv}      ffn ∈ {dense, moe, rwkv_cmix, none}
+
+  dense llama-style:   slots = ((attn, dense),)
+  deepseek-moe:        slots = ((attn, moe),)
+  rwkv6:               slots = ((rwkv, rwkv_cmix),)
+  jamba (1:7 + MoE/2): 8 slots, slot 0 attn, the rest mamba, odd slots
+                       moe, even slots dense
 
 Parameters keep the reference's pytree layout and its [in, out] weights
 (``x @ w``): ``{"embed": [V, d], "final_norm": [d], "lm_head": [d, V],
 "slot{i}": {name: [num_groups, ...]}}``, so carrying weights across
 (`repro_torch.interop.lm_params_from_arrays`) is a copy, not a
-transpose. Caches keep the reference's layout too:
-``{"slot{i}": {"k": [g, B, S, K, dh], "v": ...}}``, plus ``k_scale`` /
-``v_scale`` [g, B, S, K] in bf16 for the int8 cache.
+transpose. Caches keep the reference's layout too, by mixer:
+
+  attn   ``k``, ``v`` [g, B, S, K, dh] (plus ``k_scale`` / ``v_scale``
+         [g, B, S, K] in bf16 for the int8 cache);
+  swa    ``k``, ``v`` [g, B, w, K, dh], a ring over the window w, and
+         ``pos`` [g, w] int32, the position each ring slot holds
+         (INT32_MAX while unwritten: masked as padding);
+  mamba  ``conv`` [g, B, conv_width − 1, d_inner], ``state``
+         [g, B, d_inner, N] float32;
+  rwkv   ``shift_t``, ``shift_c`` [g, B, d], ``state`` [g, B, H, dh, dh]
+         float32.
 
 Two entry points:
 
-  forward(tokens)                   — full sequence, chunked attention;
+  forward(tokens)                   — full sequence, chunked attention and
+                                      the recurrences over time; returns
+                                      the MoE aux losses;
   decode_step(cache, tokens, pos)   — one token against the cache; the
                                       cache is updated in place (the
-                                      reference returns a new pytree from
-                                      ``dynamic_update_slice``) and
-                                      returned.
+                                      reference returns a new pytree) and
+                                      returned. Nothing in it reads a
+                                      value back to the host, so a step
+                                      captures into a CUDA graph.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 
 Params = dict
 Cache = dict
 
-_NOT_PORTED = {
-    "swa": "the sliding-window KV ring",
-    "mamba": "the Mamba mixer (models/ssm.py)",
-    "rwkv": "the RWKV-6 time mix (models/rwkv.py)",
-    "rwkv_cmix": "the RWKV-6 channel mix (models/rwkv.py)",
-    "moe": "the MoE ffn (models/moe.py)",
-}
+MIXERS = ("attn", "swa", "mamba", "rwkv")
+FFNS = ("dense", "moe", "rwkv_cmix", "none")
+AUX_KEYS = ("load_balance_loss", "router_z_loss")
+# a swa ring slot not yet written: chunked_attention masks this position
+# as padding
+POS_UNWRITTEN = L._POS_PAD
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +156,14 @@ class ModelConfig:
     def cdt(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
 
+    def moe_dims(self) -> moe_lib.MoEDims:
+        return moe_lib.MoEDims(
+            num_experts=self.moe_num_experts,
+            experts_per_token=self.moe_experts_per_token,
+            d_model=self.d_model, d_ff=self.d_ff,
+            num_shared_experts=self.moe_num_shared_experts,
+            capacity_factor=self.moe_capacity_factor)
+
     def reduced(self, **overrides) -> "ModelConfig":
         """Smoke-test variant: 1 period of layers, d_model ≤ 512, ≤4
         experts."""
@@ -165,18 +190,6 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a slot the port does not run yet."""
-    for slot in cfg.slots:
-        for part, ported in ((slot.mixer, "attn"), (slot.ffn, "dense")):
-            if part != ported:
-                what = _NOT_PORTED.get(part, f"the slot part {part!r}")
-                raise NotImplementedError(
-                    f"{cfg.name}: {what} ({part!r}) is not ported yet "
-                    f"(ROADMAP slice 10b); the port runs the 'attn' mixer "
-                    f"with the 'dense' ffn")
-
-
 # ============================================================== parameters
 def _slot_param_shapes(cfg: ModelConfig, slot: SlotSpec) -> dict:
     d, hd = cfg.d_model, cfg.hd
@@ -201,7 +214,8 @@ def _slot_param_shapes(cfg: ModelConfig, slot: SlotSpec) -> dict:
                       w0=(d,), wa=(d, r), wb=(r, d), u=(hh, dh),
                       gn=(d,), wo=(d, d))
     else:
-        raise ValueError(slot.mixer)
+        raise ValueError(f"{cfg.name}: unknown mixer {slot.mixer!r}; "
+                         f"expected one of {MIXERS}")
 
     if slot.ffn == "dense":
         shapes["norm_ffn"] = (d,)
@@ -223,7 +237,8 @@ def _slot_param_shapes(cfg: ModelConfig, slot: SlotSpec) -> dict:
         shapes.update(norm_ffn=(d,), mu_c=(d,), cm_r=(d, d),
                       cm_k=(d, cfg.d_ff), cm_v=(cfg.d_ff, d))
     elif slot.ffn != "none":
-        raise ValueError(slot.ffn)
+        raise ValueError(f"{cfg.name}: unknown ffn {slot.ffn!r}; expected "
+                         f"one of {FFNS}")
     return shapes
 
 
@@ -243,17 +258,43 @@ def param_shapes(cfg: ModelConfig) -> dict:
 def _normal(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
             scale: float) -> torch.Tensor:
     out = torch.randn(shape, generator=gen, device=gen.device,
-                      dtype=torch.float32) * scale
+                      dtype=torch.float32).mul_(scale)
     return out.to(dtype)
+
+
+def _fixed_param(name: str, shape: tuple, dtype: torch.dtype,
+                 device) -> torch.Tensor | None:
+    """The reference's deterministic entries (`repro.models.model.
+    init_params`): norms and ``gn`` 1, ``mu_*`` 0.5, biases, ``dt_bias``,
+    ``d_skip`` and ``u`` 0, ``a_log`` = log(1..N) along the state,
+    ``w0`` −0.6; None for an entry drawn at random (the gelu ffn's
+    ``b_up`` among them)."""
+    kw = dict(dtype=dtype, device=device)
+    if name.startswith("norm") or name == "gn":
+        return torch.ones(shape, **kw)
+    if name.startswith("mu_"):
+        return torch.full(shape, 0.5, **kw)
+    if (name.startswith("b") and name != "b_up") \
+            or name in ("dt_bias", "d_skip", "u"):
+        return torch.zeros(shape, **kw)
+    if name == "a_log":
+        # float32 log on the host: numpy rounds log(1..N) as the
+        # reference's XLA CPU log does (log 7 one ulp above torch's)
+        a0 = torch.from_numpy(np.log(np.arange(1, shape[-1] + 1,
+                                               dtype=np.float32)))
+        return a0.to(device=device, dtype=dtype).expand(shape).contiguous()
+    if name == "w0":
+        return torch.full(shape, -0.6, **kw)
+    return None
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     """Seeded initialisation on ``generator``'s device, with the
     reference's scheme: embeddings N(0, 0.02²), weights N(0, 1/fan_in),
-    norms 1, biases 0 (except the gelu ffn's ``b_up``, drawn as a
-    weight). The draws are torch's, not the reference's: parity tests
-    carry the reference's parameters across instead."""
-    check_ported(cfg)
+    and the reference's fixed values for norms, biases and the mixers'
+    deterministic entries (`_fixed_param`). The draws are torch's, not
+    the reference's: parity tests carry the reference's parameters
+    across instead."""
     d, v = cfg.d_model, cfg.vocab_size
     dev = generator.device
     params: Params = {
@@ -267,11 +308,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     for i, slot in enumerate(cfg.slots):
         slot_params = {}
         for name, shape in sorted(_slot_param_shapes(cfg, slot).items()):
-            if name.startswith("norm"):
-                p = torch.ones((g,) + shape, dtype=cfg.pdt, device=dev)
-            elif name.startswith("b") and name != "b_up":
-                p = torch.zeros((g,) + shape, dtype=cfg.pdt, device=dev)
-            else:
+            p = _fixed_param(name, (g,) + shape, cfg.pdt, dev)
+            if p is None:
                 p = _normal(generator, (g,) + shape, cfg.pdt,
                             1.0 / math.sqrt(shape[0]))
             slot_params[name] = p
@@ -332,11 +370,95 @@ def _qkv(cfg: ModelConfig, p: dict, h: torch.Tensor,
     return q, k, v.reshape(b, s, nk, hd)
 
 
-def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+def _mamba_in(p: dict, h: torch.Tensor):
+    """The Mamba mixer's projections: (x_in, z), each [..., d_inner]."""
+    x = L.rms_norm(h, p["norm_mix"])
+    return x @ p["in_x"], x @ p["in_z"]
+
+
+def _mamba_delta(p: dict, xi: torch.Tensor) -> torch.Tensor:
+    # F.softplus returns x past 20 where jax.nn.softplus adds log1p(e^−x)
+    # (< 2.1e-9, below float32's ulp there)
+    return F.softplus((xi @ p["dt_down"]) @ p["dt_up"] + p["dt_bias"])
+
+
+def _mamba_mixer(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+    xi, z = _mamba_in(p, h)
+    xi = F.silu(ssm_lib.causal_conv1d(xi, p["conv_w"]))
+    state0 = torch.zeros((h.shape[0], cfg.d_inner, cfg.ssm_state_dim),
+                         dtype=torch.float32, device=h.device)
+    y, _ = ssm_lib.ssm_chunk_scan(xi, _mamba_delta(p, xi), p["a_log"],
+                                  xi @ p["w_b"], xi @ p["w_c"], p["d_skip"],
+                                  state0, chunk=cfg.scan_chunk)
+    return (y * F.silu(z)) @ p["out"]
+
+
+def _rwkv_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                 prev: torch.Tensor | None):
+    """r, k, v, w [B, S, H, dh] and the gate g [B, S, d] of the time mix
+    from the normed x [B, S, d] (``prev`` the decode shift state)."""
+    b, s, _ = x.shape
+    hh, dh = cfg.rwkv_heads, cfg.rwkv_head_dim
+
+    def mix(mu):
+        return rwkv_lib.token_shift(x, mu, prev)
+
+    r = (mix(p["mu_r"]) @ p["wr"]).reshape(b, s, hh, dh)
+    k = (mix(p["mu_k"]) @ p["wk_t"]).reshape(b, s, hh, dh)
+    v = (mix(p["mu_v"]) @ p["wv_t"]).reshape(b, s, hh, dh)
+    g = F.silu(mix(p["mu_g"]) @ p["wg"])
+    w = rwkv_lib.data_dependent_decay(mix(p["mu_w"]), p["w0"], p["wa"],
+                                      p["wb"], hh)
+    return r, k, v, w, g
+
+
+def _rwkv_out(p: dict, out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    # rms norm as the stand-in for the per-head group norm, as the
+    # reference computes it
+    out = L.rms_norm(out.reshape(g.shape), p["gn"])
+    return (out * g) @ p["wo"]
+
+
+def _rwkv_mixer(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+    b = h.shape[0]
+    x = L.rms_norm(h, p["norm_mix"])
+    r, k, v, w, g = _rwkv_inputs(cfg, p, x, None)
+    state0 = torch.zeros((b, cfg.rwkv_heads, cfg.rwkv_head_dim,
+                          cfg.rwkv_head_dim), dtype=torch.float32,
+                         device=h.device)
+    out, _ = rwkv_lib.wkv6_chunk_scan(r, k, v, w, p["u"], state0,
+                                      chunk=cfg.scan_chunk)
+    return _rwkv_out(p, out, g)
+
+
+def _ffn(cfg: ModelConfig, slot: SlotSpec, p: dict, h: torch.Tensor,
+         aux: dict | None = None) -> torch.Tensor | None:
+    """The slot's ffn on the residual h [B, S, d] (None for ``none``);
+    MoE losses add into ``aux``."""
+    if slot.ffn == "none":
+        return None
     x = L.rms_norm(h, p["norm_ffn"])
-    if cfg.act == "swiglu":
-        return L.swiglu_mlp(x, p["w_gate"], p["w_up"], p["w_down"])
-    return L.gelu_mlp(x, p["w_up"], p["b_up"], p["w_down"], p["b_down"])
+    if slot.ffn == "dense":
+        if cfg.act == "swiglu":
+            return L.swiglu_mlp(x, p["w_gate"], p["w_up"], p["w_down"])
+        return L.gelu_mlp(x, p["w_up"], p["b_up"], p["w_down"], p["b_down"])
+    if slot.ffn == "moe":
+        b, s, d = x.shape
+        out, losses = moe_lib.moe_forward(
+            x.reshape(b * s, d), p["router"], p["moe_gate"], p["moe_up"],
+            p["moe_down"], cfg.moe_dims(),
+            shared_w_gate=p.get("sh_gate"), shared_w_up=p.get("sh_up"),
+            shared_w_down=p.get("sh_down"), groups=cfg.moe_groups,
+            shard=cfg.moe_shard)
+        if aux is not None:
+            for key, val in losses.items():
+                aux[key] = aux[key] + val if key in aux else val
+        return out.reshape(b, s, d)
+    if slot.ffn == "rwkv_cmix":
+        return rwkv_lib.channel_mix(x, p["mu_c"], p["cm_r"], p["cm_k"],
+                                    p["cm_v"])
+    raise ValueError(f"{cfg.name}: unknown ffn {slot.ffn!r}; expected one "
+                     f"of {FFNS}")
 
 
 def _quantize(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -348,15 +470,66 @@ def _quantize(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q8.to(torch.int8), scale.to(torch.bfloat16)
 
 
+def check_slots(cfg: ModelConfig) -> None:
+    """Raise ValueError for a slot whose mixer or ffn the model does not
+    know, or a ``swa`` slot without a window."""
+    for slot in cfg.slots:
+        _slot_param_shapes(cfg, slot)
+        if slot.mixer == "swa" and not cfg.sliding_window:
+            raise ValueError(f"{cfg.name}: a 'swa' slot needs "
+                             f"sliding_window")
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype: torch.dtype | None = None) -> dict:
+    """The decode cache's layout, the reference's: ``slot{i}`` to a dict
+    of entry names to (shape, dtype), by the slot's mixer (the module
+    docstring). ``dtype`` (default the compute dtype) is that of the
+    f32/bf16 K/V caches, conv windows and shift states; the recurrent
+    states are float32 whatever it is."""
+    dtype = dtype or cfg.cdt
+    g, nk, hd, d = cfg.num_groups, cfg.num_kv_heads, cfg.hd, cfg.d_model
+    f32 = torch.float32
+    spec: dict = {}
+    for i, slot in enumerate(cfg.slots):
+        if slot.mixer == "attn":
+            kv = (g, batch, max_seq, nk, hd)
+            if cfg.kv_cache_dtype == "int8":
+                c = {"k": (kv, torch.int8), "v": (kv, torch.int8),
+                     "k_scale": (kv[:-1], torch.bfloat16),
+                     "v_scale": (kv[:-1], torch.bfloat16)}
+            else:
+                c = {"k": (kv, dtype), "v": (kv, dtype)}
+        elif slot.mixer == "swa":
+            w = cfg.sliding_window
+            ring = (g, batch, w, nk, hd)
+            c = {"k": (ring, dtype), "v": (ring, dtype),
+                 "pos": ((g, w), torch.int32)}
+        elif slot.mixer == "mamba":
+            c = {"conv": ((g, batch, cfg.ssm_conv_width - 1, cfg.d_inner),
+                          dtype),
+                 "state": ((g, batch, cfg.d_inner, cfg.ssm_state_dim), f32)}
+        elif slot.mixer == "rwkv":
+            dh = cfg.rwkv_head_dim
+            c = {"shift_t": ((g, batch, d), dtype),
+                 "shift_c": ((g, batch, d), dtype),
+                 "state": ((g, batch, cfg.rwkv_heads, dh, dh), f32)}
+        else:
+            raise ValueError(f"{cfg.name}: unknown mixer {slot.mixer!r}; "
+                             f"expected one of {MIXERS}")
+        spec[f"slot{i}"] = c
+    return spec
+
+
 # ==================================================================== model
 class Model(nn.Module):
-    """A dense-attention model bound to its configuration and parameters
-    (the reference's pytree, see the module docstring). Inference only:
-    the parameters are plain tensors and nothing records gradients."""
+    """A model bound to its configuration and parameters (the reference's
+    pytree, see the module docstring). Inference only: the parameters are
+    plain tensors and nothing records gradients."""
 
     def __init__(self, cfg: ModelConfig, params: Params):
         super().__init__()
-        check_ported(cfg)
+        check_slots(cfg)
         self.cfg = cfg
         self.params = params
         # per-layer views of the group-stacked slot parameters
@@ -380,8 +553,9 @@ class Model(nn.Module):
                 positions: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, dict]:
         """tokens [B, S] and/or embeds [B, S_e, d] (embeds are prepended).
-        Returns (logits [B, S_total, V], aux-loss dict), the dict empty
-        (no MoE)."""
+        Returns (logits [B, S_total, V], aux losses): with an MoE slot
+        ``load_balance_loss`` and ``router_z_loss`` summed over the model's
+        MoE layers, else empty."""
         cfg = self.cfg
         if tokens is not None:
             h = self.params["embed"][tokens.long()].to(cfg.cdt)
@@ -389,61 +563,85 @@ class Model(nn.Module):
                 h = torch.cat([embeds.to(cfg.cdt), h], dim=1)
         else:
             h = embeds.to(cfg.cdt)
-        s = h.shape[1]
+        b, s, _ = h.shape
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=h.device)
+        per_group = []
         for layer in self._layers:
-            for p in layer:
-                q, k, v = _qkv(cfg, p, h, positions)
-                out = L.chunked_attention(
-                    q, k, v, positions, positions, causal=not cfg.is_encoder,
-                    chunk_kv=min(cfg.attn_chunk, s))
-                h = h + out.reshape(h.shape[0], s, -1) @ p["wo"]
-                h = h + _ffn(cfg, p, h)
+            aux: dict = {}
+            for slot, p in zip(cfg.slots, layer):
+                if slot.mixer in ("attn", "swa"):
+                    q, k, v = _qkv(cfg, p, h, positions)
+                    out = L.chunked_attention(
+                        q, k, v, positions, positions,
+                        causal=not cfg.is_encoder,
+                        window=(cfg.sliding_window if slot.mixer == "swa"
+                                else None),
+                        chunk_kv=min(cfg.attn_chunk, s))
+                    h = h + out.reshape(b, s, -1) @ p["wo"]
+                elif slot.mixer == "mamba":
+                    h = h + _mamba_mixer(cfg, p, h)
+                else:
+                    h = h + _rwkv_mixer(cfg, p, h)
+                out = _ffn(cfg, slot, p, h, aux)
+                if out is not None:
+                    h = h + out
+            per_group.append(aux)
         h = L.rms_norm(h, self.params["final_norm"])
-        return h @ self._head(), {}
+        aux_total = {}
+        if any(slot.ffn == "moe" for slot in cfg.slots):
+            aux_total = {key: torch.stack([a[key] for a in per_group]).sum()
+                         for key in AUX_KEYS}
+        return h @ self._head(), aux_total
 
     # ---- decode -------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int,
                    dtype: torch.dtype | None = None) -> Cache:
-        cfg = self.cfg
-        dtype = dtype or cfg.cdt
-        kw = dict(device=self.device)
-        shape = (cfg.num_groups, batch, max_seq, cfg.num_kv_heads, cfg.hd)
+        """The decode cache of every slot (`cache_spec`'s layout): zeros,
+        and the swa ``pos`` table at INT32_MAX."""
         cache: Cache = {}
-        for i in range(cfg.period):
-            if cfg.kv_cache_dtype == "int8":
-                cache[f"slot{i}"] = {
-                    "k": torch.zeros(shape, dtype=torch.int8, **kw),
-                    "v": torch.zeros(shape, dtype=torch.int8, **kw),
-                    "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
-                                           **kw),
-                    "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
-                                           **kw)}
-            else:
-                cache[f"slot{i}"] = {
-                    "k": torch.zeros(shape, dtype=dtype, **kw),
-                    "v": torch.zeros(shape, dtype=dtype, **kw)}
+        for slot, entries in cache_spec(self.cfg, batch, max_seq,
+                                        dtype).items():
+            cache[slot] = {}
+            for name, (shape, dt) in entries.items():
+                fill = POS_UNWRITTEN if name == "pos" else 0
+                cache[slot][name] = torch.full(shape, fill, dtype=dt,
+                                               device=self.device)
         return cache
 
     def decode_step(self, cache: Cache, tokens: torch.Tensor, pos: int, *,
                     backend: str = "cuda") -> tuple[torch.Tensor, Cache]:
         """One decode step: tokens [B, 1], ``pos`` this token's position
-        (the number of cached positions before it). Writes the token's
-        keys and values into ``cache`` at ``pos`` in place and returns
-        (logits [B, V], cache). ``backend`` picks the decode attention:
-        ``cuda`` (the flash-decode kernel) or ``torch`` (the plain
-        chunked attention)."""
+        (the number of tokens before it). Writes the token's keys and
+        values (attn at ``pos``, swa at ``pos % window``) and the
+        recurrent states into ``cache`` in place and returns (logits
+        [B, V], cache). ``backend`` picks the decode attention of the
+        ``attn`` slots: ``cuda`` (the flash-decode kernel) or ``torch``
+        (the plain chunked attention); ``swa`` runs the chunked attention
+        over its ring, as the reference does."""
         cfg = self.cfg
         pos = int(pos)
         h = self.params["embed"][tokens.long()].to(cfg.cdt)      # [B, 1, d]
         positions = torch.full((1,), pos, dtype=torch.int32,
                                device=h.device)
         for i, layer in enumerate(self._layers):
-            for s, p in enumerate(layer):
-                h = self._decode_attn(p, cache[f"slot{s}"], i, h, pos,
-                                      positions, backend)
-                h = h + _ffn(cfg, p, h)
+            for s, (slot, p) in enumerate(zip(cfg.slots, layer)):
+                c = cache[f"slot{s}"]
+                if slot.mixer == "attn":
+                    h = self._decode_attn(p, c, i, h, pos, positions,
+                                          backend)
+                elif slot.mixer == "swa":
+                    h = self._decode_swa(p, c, i, h, pos, positions)
+                elif slot.mixer == "mamba":
+                    h = self._decode_mamba(p, c, i, h)
+                else:
+                    h = self._decode_rwkv(p, c, i, h)
+                if slot.ffn == "rwkv_cmix":
+                    h = self._decode_cmix(p, c, i, h)
+                else:
+                    out = _ffn(cfg, slot, p, h)
+                    if out is not None:
+                        h = h + out
         h = L.rms_norm(h, self.params["final_norm"])
         return h[:, 0] @ self._head(), cache
 
@@ -470,3 +668,52 @@ class Model(nn.Module):
             kd, vd = c["k"][group], c["v"][group]
         out = L.decode_attention(q, kd, vd, cur, backend=backend)
         return h + out.reshape(b, 1, -1) @ p["wo"]
+
+    def _decode_swa(self, p: dict, c: dict, group: int, h: torch.Tensor,
+                    pos: int, positions: torch.Tensor) -> torch.Tensor:
+        """The sliding-window ring: the token's keys and values at
+        ``pos % w``, its position in the ``pos`` table, attention over the
+        ring masked by position (causal, window, unwritten)."""
+        cfg = self.cfg
+        w = cfg.sliding_window
+        ring = pos % w
+        q, k, v = _qkv(cfg, p, h, positions)
+        c["k"][group, :, ring] = k[:, 0].to(c["k"].dtype)
+        c["v"][group, :, ring] = v[:, 0].to(c["v"].dtype)
+        # from the device tensor: a Python int written here is a host copy
+        c["pos"][group, ring:ring + 1] = positions
+        out = L.chunked_attention(
+            q, c["k"][group], c["v"][group], positions, c["pos"][group],
+            causal=True, window=w, chunk_kv=min(cfg.attn_chunk, w))
+        return h + out.reshape(h.shape[0], 1, -1) @ p["wo"]
+
+    def _decode_mamba(self, p: dict, c: dict, group: int,
+                      h: torch.Tensor) -> torch.Tensor:
+        xi, z = _mamba_in(p, h[:, 0])
+        conv = c["conv"][group]
+        xin = xi[:, None, :].to(conv.dtype)
+        xi = F.silu(ssm_lib.causal_conv1d(xin, p["conv_w"], prev=conv)[:, 0])
+        y, state = ssm_lib.ssm_step(xi, _mamba_delta(p, xi), p["a_log"],
+                                    xi @ p["w_b"], xi @ p["w_c"],
+                                    p["d_skip"], c["state"][group])
+        conv.copy_(torch.cat([conv[:, 1:], xin], dim=1))
+        c["state"][group] = state
+        return h + ((y * F.silu(z)) @ p["out"])[:, None, :]
+
+    def _decode_rwkv(self, p: dict, c: dict, group: int,
+                     h: torch.Tensor) -> torch.Tensor:
+        x = L.rms_norm(h, p["norm_mix"])                        # [B, 1, d]
+        r, k, v, w, g = _rwkv_inputs(self.cfg, p, x, c["shift_t"][group])
+        out, state = rwkv_lib.wkv6_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0],
+                                        p["u"], c["state"][group])
+        c["shift_t"][group] = x[:, 0].to(c["shift_t"].dtype)
+        c["state"][group] = state
+        return h + _rwkv_out(p, out[:, None], g)
+
+    def _decode_cmix(self, p: dict, c: dict, group: int,
+                     h: torch.Tensor) -> torch.Tensor:
+        x = L.rms_norm(h, p["norm_ffn"])                        # [B, 1, d]
+        out = rwkv_lib.channel_mix(x, p["mu_c"], p["cm_r"], p["cm_k"],
+                                   p["cm_v"], c["shift_c"][group])
+        c["shift_c"][group] = x[:, 0].to(c["shift_c"].dtype)
+        return h + out

@@ -8,10 +8,12 @@ greedily until EOS or ``max_new_tokens``. Every slot of a wave steps in
 lockstep from position 0; a slot whose prompt is exhausted starts
 generating while longer prompts are still being fed.
 
-On the card the decode attention of every layer runs the flash-decode
-kernel (``backend="cuda"``); ``backend="torch"`` runs the plain chunked
-attention instead. Each step's next tokens come back to the host in one
-copy.
+On the card the decode attention of every ``attn`` layer runs the
+flash-decode kernel (``backend="cuda"``); ``backend="torch"`` runs the
+plain chunked attention instead. The other mixers (the sliding-window
+ring, Mamba, RWKV-6) and ffns (MoE, channel mix) run as the model's
+decode step runs them on either backend. Each step's next tokens come
+back to the host in one copy.
 """
 from __future__ import annotations
 

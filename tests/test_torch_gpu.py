@@ -803,6 +803,64 @@ def test_gpu_decode_step_launches_flash_decode_per_layer(cuda_device):
     assert ops.LAUNCHES["flash_decode"] == 6 * cfg.num_layers
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "deepseek_moe_16b",
+                                  "jamba_1_5_large_398b", "qwen1_5_0_5b-swa"])
+def test_gpu_mixer_decode_step_captures_into_a_graph(cuda_device, arch):
+    """The reduced MoE, Mamba, RWKV-6 and sliding-window models on the
+    card: backend cuda == backend torch at 1e-4, one flash_decode launch
+    per attn layer a step, and a step captures into a CUDA graph (no host
+    sync or host copy on the path) whose replay gives the eager bits."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model, SlotSpec, init_params
+
+    base, _, variant = arch.partition("-")
+    cfg = get_arch(base).config.reduced()
+    if variant:
+        cfg = dataclasses.replace(cfg, slots=(SlotSpec("swa", "dense"),),
+                                  sliding_window=8)
+    model = Model(cfg, init_params(
+        cfg, torch.Generator(cuda_device).manual_seed(0)))
+    toks = torch.randint(0, cfg.vocab_size, (4, 12), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    caches = {b: model.init_cache(4, 16) for b in ("cuda", "torch")}
+    with torch.inference_mode():
+        for t in range(12):
+            out = {}
+            for b in caches:
+                out[b], caches[b] = model.decode_step(
+                    caches[b], toks[:, t:t + 1], t, backend=b)
+            torch.testing.assert_close(out["cuda"], out["torch"], rtol=1e-4,
+                                       atol=1e-4 * out["torch"].abs().max())
+        attn = cfg.num_groups * sum(s.mixer == "attn" for s in cfg.slots)
+        assert ops.LAUNCHES["flash_decode"] == 12 * attn
+        cache = model.init_cache(4, 16)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            model.decode_step(cache, toks[:, :1], 0)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed, _ = model.decode_step(cache, toks[:, 1:2], 9)
+        before = {s: {n: t.clone() for n, t in c.items()}
+                  for s, c in cache.items()}
+        eager, _ = model.decode_step(cache, toks[:, 1:2], 9)
+        after = {s: {n: t.clone() for n, t in c.items()}
+                 for s, c in cache.items()}
+        for s, c in cache.items():            # the recurrent states advanced
+            for n, t in c.items():
+                t.copy_(before[s][n])
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(replayed, eager)
+    for s, c in cache.items():
+        for n, t in c.items():
+            assert torch.equal(t, after[s][n]), (s, n)
+
+
 # ------------------------------------------------------ the paper's slice
 # gram_fn_for_solver at the paper's shapes (F, d, N): Table 2's D̄ on
 # houses, twitter and wave at full N (N_j training columns), and F 100

@@ -133,19 +133,47 @@ def test_interop_round_trip_and_shape_check():
             device="cpu")
 
 
-@pytest.mark.parametrize("arch,slots", [
-    ("rwkv6_7b", None),
-    ("jamba_1_5_large_398b", None),
-    ("deepseek_moe_16b", None),
-    ("qwen1_5_0_5b", (M.SlotSpec("swa", "dense"),)),
-])
-def test_unported_slots_raise(arch, slots):
-    cfg = get_arch(arch).config.reduced()
-    if slots is not None:
-        cfg = dataclasses.replace(cfg, slots=slots, sliding_window=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 10b"):
+DECODING_ARCHS = [a for a in ref_list_archs()
+                  if ref_get_arch(a).supports_decode]
+
+
+@pytest.mark.parametrize("arch", DECODING_ARCHS + ["qwen1_5_0_5b-swa"])
+def test_every_decoding_arch_draws_and_decodes(arch):
+    """Every decoding architecture of the registry, reduced (and the
+    sliding-window variant `launch/specs.py` builds for long context),
+    draws its parameters, runs forward, decodes 2 steps with finite
+    logits and serves 3 requests through `ServeEngine` in the port."""
+    base, _, variant = arch.partition("-")
+    cfg = port_config(base)
+    if variant:
+        cfg = dataclasses.replace(
+            cfg, slots=tuple(M.SlotSpec("swa" if s.mixer == "attn"
+                                        else s.mixer, s.ffn)
+                             for s in cfg.slots), sliding_window=8)
+    model = M.Model(cfg, M.init_params(cfg, torch.Generator().manual_seed(0)))
+    toks = torch.from_numpy(tokens(base, 2, 4))
+    full, _ = model.forward(toks)
+    assert torch.isfinite(full).all()
+    cache = model.init_cache(2, 8)
+    for t in range(2):
+        logits, cache = model.decode_step(cache, toks[:, t:t + 1], t)
+        assert logits.shape == (2, cfg.vocab_size)
+        assert torch.isfinite(logits).all()
+    engine = ServeEngine(cfg, model.params, batch_size=2, max_seq=8,
+                         device="cpu")
+    done = engine.run([Request(uid=i, prompt=toks[i % 2, i:].tolist(),
+                               max_new_tokens=2) for i in range(3)])
+    assert [len(r.output) for r in done] == [2, 2, 2]
+
+
+@pytest.mark.parametrize("mixer,ffn", [("conv", "dense"), ("attn", "glu")])
+def test_unknown_mixer_or_ffn_raises(mixer, ffn):
+    cfg = dataclasses.replace(port_config("qwen1_5_0_5b"),
+                              slots=(M.SlotSpec(mixer, ffn),))
+    bad = mixer if mixer == "conv" else ffn
+    with pytest.raises(ValueError, match=bad):
         M.init_params(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 10b"):
+    with pytest.raises(ValueError, match=bad):
         M.Model(cfg, {})
 
 
