@@ -108,6 +108,25 @@
    decode step captured into a CUDA graph (no host sync) and replayed
    for its device time; tokens/s, p50/p99 per request, ms a step, the
    busy share, peak memory. The engine of step 11 is freed first.
+12a. Training (the ``train`` phase, after ``mixers``; what came before is
+   freed first): (a) qwen1.5-0.5b at full width and depth from seeded
+   f32 weights drawn on the card, ``train_loop`` for TRAIN_STEPS steps
+   on SyntheticTokenPipeline batches (B 8, S 256, seed 0, made
+   beforehand), AdamW lr 3e-4, warmup 5, remat on, deterministic
+   algorithms on: every loss finite, the mean of the last 5 below the
+   first, grad_norm > 0, every parameter moved; ms a step (host clock
+   after a sync, the median after 2 warm-up steps), tokens/s, peak
+   memory and train_mfu (6 × matmul parameters × tokens over the step
+   and 67 TFLOP/s); (b) the loop's checkpoint of the last step loaded
+   back on the card, every tensor bit-equal, and one more step from the
+   live and the loaded state bit-equal (with deterministic algorithms
+   off, the differences of one step more are printed); (c) the trained
+   weights served through ServeEngine with the checks of step 12 (8
+   requests, flash_decode 24 × steps, the step captured into a CUDA
+   graph); (d) deepseek-moe-16b at full width and 2 of its 28 layers,
+   TRAIN_MOE_STEPS steps, its load-balance and router-z losses finite
+   and > 0; (e) one step at qwen1.5-0.5b's reduced() size on the card
+   against the CPU: the loss, grad_norm and every gradient leaf.
 13. The paper's experiments (``repro_torch.paper``) at the synthetic
    stand-ins' full N: (a) Table 2's wave setting built with
    ``gram_fn=ops.gram_fn_for_solver`` (40 ``rff_gram`` launches at B 1,
@@ -186,7 +205,8 @@ non-zero, and so does a copy of the script without ``src/repro_torch``
 beside it, after one line naming where it looked. ``--cpu-rehearsal``
 runs steps 4–7, 9, 11–14 and 15 (without its (b)) on the CPU at a small
 size (the kernels' plain versions; the LLM path on the reduced
-qwen1.5-0.5b; the mixers' models reduced, the window 64; Table 2 on
+qwen1.5-0.5b; the mixers' models reduced, the window 64; the train
+phase's (a)–(c) and (e)'s CPU half reduced, 3 steps; Table 2 on
 two stand-ins at 600 samples; the stream on the rehearsal's 12 features
 a node; the benches at their reduced sizes), for the tests. ``--decode-timings [--src DIR]`` runs only
 the ``flash_decode`` timings and the two decode steps of step 11 on the
@@ -363,6 +383,41 @@ MIXER_CAPACITY = 8.0
 # flash_decode at deepseek-moe-16b's heads (H = K = 16, dh 128) at the
 # serving cache: (B, H, K, dh, S)
 DECODE_DH128 = (LLM_BATCH, 16, 16, 128, LLM_MAX_SEQ)
+
+# The train phase (repro_torch.train): qwen1.5-0.5b at full width and
+# depth from seeded f32 weights on the synthetic token pipeline, the
+# examples/train_lm.py flow (B 8, S 256, seed 0, lr 3e-4, warmup 5, the
+# cosine to the phase's last step, remat on as the config has it),
+# checkpointed at its last step and served; deepseek-moe-16b at full
+# width and 2 of its 28 layers (its MoE aux losses; 26 GB of f32 train
+# state); one reduced step on the card against the CPU.
+TRAIN_ARCH = "qwen1_5_0_5b"
+TRAIN_MOE_ARCH = "deepseek_moe_16b"
+TRAIN_MOE_LAYERS = 2
+TRAIN_BATCH = 8
+TRAIN_SEQ = 256
+TRAIN_STEPS = 30
+TRAIN_MOE_STEPS = 5
+TRAIN_LR = 3e-4
+TRAIN_WARMUP = 5
+TRAIN_UNTIMED = 2      # warm-up steps left out of the median step
+TRAIN_LAST = 5         # the mean of the last 5 losses is below the first
+TRAIN_REQUESTS = 8
+TRAIN_PROMPT = (16, 32)   # shorter than LLM_PROMPT: one wave of ~60 steps
+# card against CPU on one reduced step: tests/test_torch_train.py's
+# tolerances (loss rtol 1e-6, each gradient leaf within 1e-4 of its
+# max|g|, grad_norm rtol 1e-5)
+TRAIN_LOSS_RTOL = 1e-6
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_NORM_RTOL = 1e-5
+# the MFU's peak: f32 outside the tensor cores (TF32 stays off)
+TRAIN_PEAK_FLOPS = 67e12
+# deterministic mode needs cuBLAS's workspace configuration set before
+# the first cuBLAS call; this is the workspace PyTorch already gives
+# cuBLAS on sm_90 (4,096 KiB × 8), so no earlier phase changes
+CUBLAS_DETERMINISTIC = ":4096:8"
+TRAIN_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_train", "ckpt")
 
 # the paper's experiments (repro_torch.paper): θ of a gram_fn solver
 # against the default one, the reference's tolerance for this pairing
@@ -1981,15 +2036,15 @@ def _token_plan(wave, batch: int) -> list[list[int]]:
 
 def llm_path(device: str, cfg, *, requests: int, batch: int, max_seq: int,
              prompt=LLM_PROMPT, new_tokens=LLM_NEW_TOKENS,
-             variants=None) -> dict:
+             variants=None, params=None) -> dict:
     """The LLM serving path: ServeEngine (backend cuda) with the port's
-    seeded weights serves `requests` greedy requests twice, the repeat
-    run timed with the launch counts zeroed just before; then one request
-    alone against sequential decode_step calls, and the first wave's
-    tokens teacher-forced through decode_step on both backends and
-    through each of `variants` (a name to a function of the engine's
-    parameters giving another model, run on backend cuda; by default
-    the int8 cache)."""
+    seeded weights (or `params`) serves `requests` greedy requests twice,
+    the repeat run timed with the launch counts zeroed just before; then
+    one request alone against sequential decode_step calls, and the
+    first wave's tokens teacher-forced through decode_step on both
+    backends and through each of `variants` (a name to a function of the
+    engine's parameters giving another model, run on backend cuda; by
+    default the int8 cache)."""
     from repro_torch.models.model import Model
     from repro_torch.serve import Request, ServeEngine
 
@@ -1997,8 +2052,8 @@ def llm_path(device: str, cfg, *, requests: int, batch: int, max_seq: int,
         variants = {"int8": lambda params: Model(
             dataclasses.replace(cfg, kv_cache_dtype="int8"), params)}
 
-    engine = ServeEngine(cfg, batch_size=batch, max_seq=max_seq, seed=0,
-                         device=device, backend="cuda")
+    engine = ServeEngine(cfg, params, batch_size=batch, max_seq=max_seq,
+                         seed=0, device=device, backend="cuda")
     kw = dict(prompt=prompt, new_tokens=new_tokens)
     # the first run meets a cold model (first cuBLAS handles, allocator
     # growth); the repeat run is the one timed and counted
@@ -2388,8 +2443,10 @@ def decode_matches_forward(model, cfg, device: str, forward) -> float:
 
 
 def mixer_path(device: str, cfg, *, requests: int, batch: int,
-               max_seq: int, prompt, new_tokens: int, forward) -> dict:
-    """One model of the mixers phase: `llm_path` (for a sliding-window
+               max_seq: int, prompt, new_tokens: int, forward,
+               params=None) -> dict:
+    """One model of the mixers phase (or the train phase's trained
+    `params`): `llm_path` (for a sliding-window
     variant with its attn model as the teacher-forced variant), its
     checks, decode == forward, and on the card one decode step captured
     into a CUDA graph (a host sync on the path makes the capture raise)
@@ -2404,7 +2461,7 @@ def mixer_path(device: str, cfg, *, requests: int, batch: int,
     t0 = time.perf_counter()
     out = llm_path(device, cfg, requests=requests, batch=batch,
                    max_seq=max_seq, prompt=prompt, new_tokens=new_tokens,
-                   variants=variants)
+                   variants=variants, params=params)
     check_llm_path(out, cfg, on_card)
     model = out.pop("engine").model
     out["forward_err"] = decode_matches_forward(model, cfg, device, forward)
@@ -2506,6 +2563,463 @@ def decode_dh128_row(launches: int) -> dict:
                 plain_ms=row["plain_ms"], library_ms=row["sdpa"]["ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 launches=launches, max_abs_err=worst, per_cur=per_cur)
+
+
+# ------------------------------------------------------------- training
+def matmul_params(cfg) -> int:
+    """Parameters a token multiplies through: every weight matrix but
+    the embedding table (the head included; a tied head once), MoE
+    experts at k of E. 6 × this × tokens is a step's FLOPs."""
+    from repro_torch.models.model import param_shapes
+
+    total = 0
+    for key, shape in param_shapes(cfg).items():
+        if key == "embed":
+            total += math.prod(shape) if cfg.tie_embeddings else 0
+        elif isinstance(shape, dict):
+            for name, sh in shape.items():
+                if len(sh) < 3:                 # [groups, n]: a vector
+                    continue
+                share = (cfg.moe_experts_per_token / cfg.moe_num_experts
+                         if name.startswith("moe_") else 1.0)
+                total += int(math.prod(sh) * share)
+        elif len(shape) == 2:
+            total += math.prod(shape)
+    return total
+
+
+@contextlib.contextmanager
+def deterministic(on: bool = True):
+    """torch.use_deterministic_algorithms(on) inside, the mode before
+    restored after."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(on)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def _tensors(tree):
+    """(path, tensor) pairs of a nested dict, keys sorted."""
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            for path, t in _tensors(tree[key]):
+                yield f"{key}.{path}", t
+        else:
+            yield key, tree[key]
+
+
+def train_run(device: str, cfg, *, steps: int, ckpt_path: str | None = None
+              ) -> dict:
+    """`steps` steps of `train_loop` (log_every 1: each step's metrics
+    read back after it, so the history's wall_s are host times after a
+    sync) from seeded f32 weights drawn on `device`, over batches of
+    SyntheticTokenPipeline(seed 0) made in bulk beforehand, plus one
+    batch more; with `ckpt_path` the loop saves {"params", "opt"} at its
+    last step. Returns the state, the history and one step's figures:
+    the median ms a step after TRAIN_UNTIMED warm-up steps, tokens/s,
+    the peak device memory and the MFU."""
+    from repro_torch.data.tokens import (SyntheticTokenPipeline,
+                                         TokenPipelineConfig)
+    from repro_torch.models.model import param_count
+    from repro_torch.train.loop import train_loop
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.step import train_state_init
+
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                      total_steps=steps)
+    b, s = (TRAIN_BATCH, TRAIN_SEQ)
+    batches = list(SyntheticTokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, batch_size=b, seq_len=s,
+        seed=0)).batches(steps + 1))
+    state = train_state_init(cfg, opt, torch.Generator(device).manual_seed(0),
+                             device=device)
+    # on the host: the peak device memory is the training's alone
+    initial = {path: t.to("cpu", copy=True)
+               for path, t in _tensors(state.params)}
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    lines: list[str] = []
+    t0 = time.perf_counter()
+    state, history = train_loop(cfg, opt, iter(batches[:steps]), steps,
+                                log_every=1, log_fn=lines.append,
+                                state=state, ckpt_path=ckpt_path,
+                                ckpt_every=steps)
+    loop_s = time.perf_counter() - t0
+    walls = [h["wall_s"] for h in history]
+    per_step = [walls[0]] + [b_ - a for a, b_ in zip(walls, walls[1:])]
+    step_s = statistics.median(per_step[TRAIN_UNTIMED:])
+    unchanged = [path for path, t in _tensors(state.params)
+                 if torch.equal(t.cpu(), initial[path])]
+    del initial
+    return dict(
+        cfg=cfg, opt=opt, state=state, history=history, lines=lines,
+        extra=batches[steps], per_step=per_step, ms=step_s * 1e3,
+        tokens_s=b * s / step_s, params=param_count(state.params),
+        matmul=matmul_params(cfg),
+        mfu=6 * matmul_params(cfg) * b * s / step_s / TRAIN_PEAK_FLOPS,
+        peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+                  else None),
+        save_s=loop_s - walls[-1] if ckpt_path else None,
+        unchanged=unchanged)
+
+
+def check_train_run(r: dict, *, moe: bool) -> None:
+    """Every loss finite, grad_norm > 0, every parameter leaf moved; a
+    dense run's loss falls (the mean of the last TRAIN_LAST below the
+    first, examples/train_lm.py's check); an MoE run's aux losses are
+    present, finite and > 0 at every step."""
+    name, hist = r["cfg"].name, r["history"]
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(v) for v in losses):
+        raise PhaseError(f"train {name}: a loss is not finite: {losses}")
+    if not all(h["grad_norm"] > 0 for h in hist):
+        raise PhaseError(f"train {name}: grad_norm 0 at a step")
+    if r["unchanged"]:
+        raise PhaseError(f"train {name}: parameters did not change: "
+                         f"{r['unchanged']}")
+    if moe:
+        for key in ("load_balance_loss", "router_z_loss"):
+            vals = [h.get(key, float("nan")) for h in hist]
+            if not all(math.isfinite(v) and v > 0 for v in vals):
+                raise PhaseError(f"train {name}: {key} not finite and > 0 "
+                                 f"at every step: {vals}")
+    elif not statistics.fmean(losses[-TRAIN_LAST:]) < losses[0]:
+        raise PhaseError(f"train {name}: the loss did not fall: the first "
+                         f"{losses[0]:.4f}, the mean of the last "
+                         f"{TRAIN_LAST} {statistics.fmean(losses[-TRAIN_LAST:]):.4f}")
+
+
+def _one_more_step(r: dict, state, device: str) -> torch.Tensor:
+    """One train step of `state` on the run's extra batch; its loss."""
+    from repro_torch.train.step import make_train_step
+
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in r["extra"].items()}
+    _, m = make_train_step(r["cfg"], r["opt"])(state, batch)
+    return m["loss"]
+
+
+def checkpoint_round_trip(r: dict, device: str) -> dict:
+    """(b) The loop's checkpoint of the last step loaded back on
+    `device`: every tensor bit-equal to the live state's; then one more
+    step from the live and from the loaded state with deterministic
+    algorithms on: the same loss, parameters and moments, bit for bit.
+    From those two equal states one step more each with deterministic
+    algorithms off: the differences of loss and parameters
+    (informational). The live state has then taken two steps more."""
+    from repro_torch.train.checkpoint import load_checkpoint
+    from repro_torch.train.step import TrainState
+
+    live = r["state"]
+    t0 = time.perf_counter()
+    tree, step = load_checkpoint(TRAIN_CKPT, device=device)
+    load_s = time.perf_counter() - t0
+    if step != len(r["history"]):
+        raise PhaseError(f"checkpoint step {step}, expected "
+                         f"{len(r['history'])}")
+    want = dict(_tensors({"params": live.params, "opt": live.opt}))
+    got = dict(_tensors(tree))
+    if set(got) != set(want):
+        raise PhaseError(f"checkpoint names differ: "
+                         f"{sorted(set(got) ^ set(want))}")
+    bad = [p for p in want if not (got[p].dtype == want[p].dtype
+                                   and torch.equal(got[p], want[p]))]
+    if bad:
+        raise PhaseError(f"checkpoint round trip changed {bad}")
+    names = len(want)
+    size = sum(t.numel() * t.element_size() for t in want.values())
+    loaded = TrainState(params=tree["params"], opt=tree["opt"],
+                        step=live.step.clone())
+    del tree, got, want
+    out = repeat_steps(r, live, loaded, device, "the live and the loaded "
+                       "state")
+    del loaded
+    os.remove(TRAIN_CKPT)
+    return dict(out, load_s=load_s, names=names, bytes=size)
+
+
+def repeat_steps(r: dict, a, b, device: str, what: str) -> dict:
+    """One step each of two equal train states `a` and `b` on the run's
+    extra batch with deterministic algorithms on: the same loss,
+    parameters and moments, bit for bit, or PhaseError. Then one step
+    more each with them off: the differences of loss and parameters
+    (informational: which ops accumulate in an order the run picks)."""
+    with deterministic():
+        loss_a = _one_more_step(r, a, device)
+        loss_b = _one_more_step(r, b, device)
+    both = lambda st: {"params": st.params, "opt": st.opt}
+    moved = [p for p, t in _tensors(both(a))
+             if not torch.equal(t, leaf_of(both(b), p))]
+    if not torch.equal(loss_a, loss_b) or moved:
+        raise PhaseError(f"{r['cfg'].name}: one more step from {what} "
+                         f"differs (deterministic algorithms): loss "
+                         f"{loss_a.item()!r} vs {loss_b.item()!r}, tensors "
+                         f"{moved}")
+    with deterministic(False):
+        la = _one_more_step(r, a, device)
+        lb = _one_more_step(r, b, device)
+    return dict(loss=loss_a.item(), nondet=(
+        abs(la.item() - lb.item()),
+        max((t - leaf_of(b.params, p)).abs().max().item()
+            for p, t in _tensors(a.params))))
+
+
+def train_profile(r: dict, device: str, steps: int = 2) -> dict | None:
+    """Where a train step's time goes, by torch.profiler over `steps`
+    steps of the run's state on its extra batch (deterministic
+    algorithms on, as in the run; device kernels only, since the
+    profiler's host side slows the steps it measures): device ms and
+    kernels a step, the busy share (device ms over the run's median
+    step) and the kernels of the most device time; then the host-clock
+    ms of `steps` steps with deterministic algorithms off. None where
+    the profiler records nothing."""
+    from repro_torch.train.step import make_train_step
+
+    step = make_train_step(r["cfg"], r["opt"])
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in r["extra"].items()}
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with deterministic():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    step(r["state"], batch)
+                torch.cuda.synchronize()
+        events = prof.key_averages()
+    except Exception as exc:                      # the profiler is optional
+        print(f"profiler: not recorded ({type(exc).__name__})")
+        return None
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0))
+    kernels = [e for e in events
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and dev(e) > 0]
+    device_ms = sum(dev(e) for e in kernels) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -dev(e))[:8]
+    off = []
+    with deterministic(False):
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(r["state"], batch)
+            torch.cuda.synchronize()
+            off.append((time.perf_counter() - t0) * 1e3)
+    return dict(device_ms=device_ms, busy=device_ms / r["ms"],
+                kernels=sum(e.count for e in kernels) / steps,
+                top=[(e.key, dev(e) / 1e3 / steps, e.count // steps)
+                     for e in top], off_ms=off)
+
+
+def print_train_profile(p: dict | None, name: str, card: str) -> None:
+    if p is None:
+        return
+    print(f"train profile [{card}] {name}: {p['device_ms']:.2f} ms a step on "
+          f"the device in {p['kernels']:.0f} kernels (busy share "
+          f"{p['busy']:.3f} of the run's median step); deterministic "
+          f"algorithms off: " + ", ".join(f"{ms:.2f}" for ms in p["off_ms"])
+          + " ms a step; the kernels of most device time (ms a step, "
+          "launches): " + "; ".join(f"{k[:60]} {ms:.2f} ({n})"
+                                    for k, ms, n in p["top"]), flush=True)
+
+
+def _clone_state(state):
+    from repro_torch.train.optim import tree_map
+    from repro_torch.train.step import TrainState
+
+    return TrainState(params=tree_map(torch.clone, state.params),
+                      opt=tree_map(torch.clone, state.opt),
+                      step=state.step.clone())
+
+
+def leaf_of(tree, path: str):
+    for key in path.split("."):
+        tree = tree[key]
+    return tree
+
+
+def train_card_vs_cpu(devices: tuple) -> dict:
+    """(e) qwen1.5-0.5b at its reduced() size, the same seeded weights
+    and batch on each of `devices`: the loss and every gradient leaf
+    (`loss_and_grads`), then grad_norm of one train step; on two devices
+    the first against the second (the CPU) within the CPU tests'
+    tolerances."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import (SyntheticTokenPipeline,
+                                         TokenPipelineConfig)
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.train.optim import AdamWConfig, adamw_init, tree_map
+    from repro_torch.train.step import (TrainState, loss_and_grads,
+                                        make_train_step)
+
+    cfg = get_arch(TRAIN_ARCH).config.reduced()
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                      total_steps=TRAIN_STEPS)
+    weights = init_params(cfg, torch.Generator("cpu").manual_seed(0))
+    batch = next(iter(SyntheticTokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, batch_size=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, seed=0))))
+    runs = {}
+    for dev in devices:
+        params = tree_map(lambda t: t.to(dev, copy=True), weights)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        loss, _, grads = loss_and_grads(Model(cfg, params), params, b)
+        state = TrainState(params, adamw_init(opt, params),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        _, m = make_train_step(cfg, opt)(state, b)
+        runs[dev] = dict(loss=loss.cpu(), grad_norm=m["grad_norm"].cpu(),
+                         grads={p: g.cpu() for p, g in _tensors(grads)})
+    out = dict(loss=runs[devices[-1]]["loss"].item(), grad_err=None)
+    if len(devices) == 2:
+        got, want = runs[devices[0]], runs[devices[1]]
+        for key, rtol in (("loss", TRAIN_LOSS_RTOL),
+                          ("grad_norm", TRAIN_NORM_RTOL)):
+            if not abs(got[key] - want[key]).item() <= rtol * abs(
+                    want[key]).item():
+                raise PhaseError(f"train step card vs CPU: {key} "
+                                 f"{got[key].item()!r} vs "
+                                 f"{want[key].item()!r} (rtol {rtol:g})")
+        worst = 0.0
+        for p, w in want["grads"].items():
+            scale = w.abs().max().item()
+            err = (got["grads"][p] - w).abs().max().item()
+            if not err <= TRAIN_GRAD_TOL * scale:
+                raise PhaseError(f"train step card vs CPU: gradient {p} "
+                                 f"differs by {err:.3e}, max|g| {scale:.3e} "
+                                 f"(tolerance {TRAIN_GRAD_TOL:g} of it)")
+            worst = max(worst, err / scale if scale else err)
+        out.update(grad_err=worst,
+                   loss_rel=abs(got["loss"] - want["loss"]).item()
+                   / abs(want["loss"]).item(),
+                   norm_rel=abs(got["grad_norm"] - want["grad_norm"]).item()
+                   / abs(want["grad_norm"]).item())
+    return out
+
+
+def print_train_run(r: dict, card: str) -> None:
+    cfg, hist = r["cfg"], r["history"]
+    losses = [h["loss"] for h in hist]
+    dev = "not measured (CPU)" if r["peak_gib"] is None else (
+        f"peak {r['peak_gib']:.2f} GiB, train_mfu {r['mfu']:.4f} (6 × "
+        f"{r['matmul'] / 1e9:.4f} B matmul params × {TRAIN_BATCH * TRAIN_SEQ}"
+        f" tokens a step over {TRAIN_PEAK_FLOPS / 1e12:g} TFLOP/s f32)")
+    aux = "".join(f", {k} {hist[-1][k]:.4f}" for k in
+                  ("load_balance_loss", "router_z_loss") if k in hist[-1])
+    print(f"train [{card}] {cfg.name} ({cfg.num_layers} layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {r['params'] / 1e9:.4f} B "
+          f"params f32, remat {cfg.remat}): {len(hist)} steps of B "
+          f"{TRAIN_BATCH} × S {TRAIN_SEQ}, {r['ms']:.2f} ms a step (median "
+          f"after {TRAIN_UNTIMED}; step 1 {r['per_step'][0] * 1e3:.1f} ms), "
+          f"{r['tokens_s']:.1f} tokens/s, {dev}; loss {losses[0]:.4f} → "
+          f"{losses[-1]:.4f} (mean of the last "
+          f"{len(losses[-TRAIN_LAST:])} "
+          f"{statistics.fmean(losses[-TRAIN_LAST:]):.4f}), grad_norm "
+          f"{hist[0]['grad_norm']:.3f} → {hist[-1]['grad_norm']:.3f}, lr "
+          f"{hist[-1]['lr']:.3e}{aux}", flush=True)
+    print(f"train steps {cfg.name} ms: " + ", ".join(
+        f"{v * 1e3:.2f}" for v in r["per_step"]))
+
+
+def train_phase(device: str, card: str, *, full: bool, steps: int,
+                moe_steps: int) -> dict:
+    """The train phase: (a) TRAIN_ARCH trained (full width and depth on
+    the card, reduced with ``full=False``) under deterministic mode,
+    checkpointed at its last step by the loop; (b) the checkpoint round
+    trip; (c) the trained weights served through `mixer_path` (the
+    engine's checks, decode == forward, flash_decode launches, the
+    CUDA-graph capture); (d) TRAIN_MOE_ARCH at full width and
+    TRAIN_MOE_LAYERS layers (on the card; reduced in the rehearsal);
+    (e) one reduced step on the card against the CPU (the CPU half
+    alone in the rehearsal)."""
+    from repro_torch.configs import get_arch
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH).config
+    moe_cfg = get_arch(TRAIN_MOE_ARCH).config
+    if full:
+        moe_cfg = dataclasses.replace(moe_cfg, num_layers=TRAIN_MOE_LAYERS)
+    else:
+        cfg, moe_cfg = cfg.reduced(), moe_cfg.reduced()
+    if os.path.exists(TRAIN_CKPT):
+        os.remove(TRAIN_CKPT)
+    with deterministic():
+        r = train_run(device, cfg, steps=steps, ckpt_path=TRAIN_CKPT)
+    check_train_run(r, moe=False)
+    print_train_run(r, card)
+    ck = checkpoint_round_trip(r, device)
+    print(f"train checkpoint [{card}] {cfg.name}: {ck['names']} tensors, "
+          f"{ck['bytes'] / 1e9:.3f} GB, saved by the loop at step "
+          f"{len(r['history'])} in {r['save_s']:.2f} s, loaded in "
+          f"{ck['load_s']:.2f} s: every tensor bit-equal; one more step "
+          f"from the live and the loaded state (deterministic algorithms): "
+          f"loss {ck['loss']:.6f} from both, parameters and moments bit for "
+          f"bit; one step more from these equal states with deterministic "
+          f"algorithms off: |Δloss| {ck['nondet'][0]:.3e}, max |Δparam| "
+          f"{ck['nondet'][1]:.3e}", flush=True)
+    prof = train_profile(r, device) if device == "cuda" else None
+    print_train_profile(prof, cfg.name, card)
+    served = mixer_path(device, cfg,
+                        requests=TRAIN_REQUESTS if full else 4,
+                        batch=LLM_BATCH if full else 2,
+                        max_seq=LLM_MAX_SEQ if full else MIXER_REHEARSAL_WINDOW,
+                        prompt=TRAIN_PROMPT if full else (3, 8),
+                        new_tokens=LLM_NEW_TOKENS if full else 4,
+                        forward=MIXER_FORWARD if full else (2, 6),
+                        params=r["state"].params)
+    dev = "" if served["device_ms"] is None else (
+        f", {served['device_ms']:.3f} ms a step by CUDA-graph replay")
+    print(f"train serving [{card}] the trained {cfg.name}: {served['report'].count} "
+          f"requests, {served['steps']} decode steps, "
+          f"{served['tokens'] / served['secs']:.1f} generated tokens/s"
+          f"{dev}; checks pass (repeat run equal, one request == sequential "
+          f"decode_step, cuda vs torch {served['rel']['torch']:.3e} of "
+          f"max|logit| {served['scale']:.3f} (tolerance {LLM_LOGIT_TOL:g}), "
+          f"decode vs own forward {served['forward_err']:.3e} (rtol "
+          f"{MIXER_FORWARD_TOL[0]:g}, atol {MIXER_FORWARD_TOL[1]:g}), "
+          f"flash_decode launches {served['launches'].get('flash_decode', 0)}"
+          f" = {attn_layers(cfg) if device == 'cuda' else 0} × "
+          f"{served['steps']})", flush=True)
+    del r["state"], r["extra"]
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    moe = None
+    if full:
+        with deterministic():
+            moe = train_run(device, moe_cfg, steps=moe_steps)
+        check_train_run(moe, moe=True)
+        print_train_run(moe, card)
+        twin = _clone_state(moe["state"])
+        moe["repeat"] = repeat_steps(moe, moe["state"], twin, device,
+                                     "two copies of the state")
+        del twin
+        moe["profile"] = train_profile(moe, device)
+        print(f"train repeat [{card}] {moe_cfg.name}: one more step from two "
+              f"copies of the state bit-equal (deterministic algorithms); "
+              f"one step more with them off: |Δloss| "
+              f"{moe['repeat']['nondet'][0]:.3e}, max |Δparam| "
+              f"{moe['repeat']['nondet'][1]:.3e}", flush=True)
+        print_train_profile(moe["profile"], moe_cfg.name, card)
+        del moe["state"], moe["extra"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    cmp = train_card_vs_cpu(("cuda", "cpu") if device == "cuda"
+                            else ("cpu",))
+    if cmp["grad_err"] is not None:
+        print(f"train step card vs CPU [{card}] {TRAIN_ARCH} reduced: loss "
+              f"{cmp['loss']:.6f}, |Δloss| {cmp['loss_rel']:.3e} of it (rtol "
+              f"{TRAIN_LOSS_RTOL:g}), grad_norm {cmp['norm_rel']:.3e} (rtol "
+              f"{TRAIN_NORM_RTOL:g}), every gradient leaf within "
+              f"{cmp['grad_err']:.3e} of its max|g| (tolerance "
+              f"{TRAIN_GRAD_TOL:g})", flush=True)
+    secs = time.perf_counter() - t_phase
+    print(f"train phase: pass ({secs:.1f} s)", flush=True)
+    return dict(run=r, ckpt=ck, profile=prof, served=served, moe=moe,
+                cmp=cmp, secs=secs)
 
 
 # ------------------------------------------------------ the paper's experiments
@@ -3825,10 +4339,10 @@ def _llm_config():
 
 
 def rehearse_on_cpu() -> int:
-    """The main, async, Chebyshev, serving, LLM serving and paper paths
-    on the CPU at a small size (plain kernel versions; the LLM path on
-    qwen1.5-0.5b's reduced configuration; the paper's Table 2 on its
-    first two datasets)."""
+    """The main, async, Chebyshev, serving, LLM serving, mixers, train
+    and paper paths on the CPU at a small size (plain kernel versions;
+    the LLM and train paths on qwen1.5-0.5b's reduced configuration; the
+    paper's Table 2 on its first two datasets)."""
     run = main_path("cpu", subsample=2000, d_per_node=12, num_iters=200)
     checks = check_main_path(run)
     a = async_path(run, rounds=300)
@@ -3847,6 +4361,7 @@ def rehearse_on_cpu() -> int:
     mx = mixers_phase("cpu", "cpu", full=False, requests=4, batch=2,
                       max_seq=MIXER_REHEARSAL_WINDOW, prompt=(3, 8),
                       new_tokens=4, forward=(2, 6))
+    tr = train_phase("cpu", "cpu", full=False, steps=3, moe_steps=0)
     pp = paper_phase("cpu", subsample=600, fast=True, gram=(2000, 12))
     print_paper_phase(pp, "cpu")
     st = stream_phase(run, epochs=2, ingest=(8, 32),
@@ -3872,6 +4387,8 @@ def rehearse_on_cpu() -> int:
                    mixer_steps={k: r["steps"] for k, r in mx.items()},
                    mixer_forward_err={k: r["forward_err"]
                                       for k, r in mx.items()},
+                   train_losses=[h["loss"] for h in tr["run"]["history"]],
+                   train_cpu_loss=tr["cmp"]["loss"],
                    paper_rows=[r[:5] for r in pp["rows"]],
                    paper_krr_rse=pp["krr"]["rse"],
                    stream_rounds=[(e["warm_rounds"], e["cold_rounds"])
@@ -3893,6 +4410,9 @@ def run_on_card() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # before the first cuBLAS call: the train phase's deterministic mode
+    # checks it (PyTorch reads it once)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_DETERMINISTIC)
     card = card_line()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4047,6 +4567,10 @@ def run_on_card() -> int:
     torch.cuda.empty_cache()
     mx = mixers_phase("cuda", card, full=True, requests=LLM_REQUESTS,
                       batch=LLM_BATCH, max_seq=LLM_MAX_SEQ)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = train_phase("cuda", card, full=True, steps=TRAIN_STEPS,
+                     moe_steps=TRAIN_MOE_STEPS)
 
     pp = paper_phase("cuda", subsample=None, fast=False,
                      gram=(None, PAPER_DBAR_WAVE))

@@ -22,6 +22,8 @@ from repro_torch.models.model import (Cache, ModelConfig, Params,
 from repro_torch.stream.runtime import ServeSnapshot, StalenessBound
 from repro_torch.stream.updates import (StreamAux, _ingest_tables,
                                         _reverse_slots)
+from repro_torch.train.optim import AdamWConfig, tree_map
+from repro_torch.train.step import TrainState
 
 _ARRAY_FIELDS = ("g", "d", "s", "p", "theta_mask", "nbr_idx", "nbr_mask")
 _STREAM_TENSORS = ("binv", "zy", "st", "pt", "theta_mask", "nbr_idx",
@@ -169,6 +171,52 @@ def lm_params_to_arrays(params: Params) -> dict:
     return {k: ({n: to_numpy(t) for n, t in v.items()}
                 if isinstance(v, dict) else to_numpy(v))
             for k, v in params.items()}
+
+
+def train_state_from_arrays(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                            arrays: dict, *, device=None) -> TrainState:
+    """A train state from the reference's as numpy arrays: ``{"params":
+    …, "opt": {"m": …, "v": …, "step": …}}`` plus, optionally, the
+    state's own ``step`` (default the optimizer's). The parameters go
+    through `lm_params_from_arrays`; the moments take the parameters'
+    shapes and ``opt_cfg.moment_dtype`` (bfloat16 arrays, ml_dtypes' in
+    the reference, cross exactly)."""
+    device = resolve_device(device)
+    params = lm_params_from_arrays(cfg, arrays["params"], device=device)
+    mdt = getattr(torch, opt_cfg.moment_dtype)
+    opt = arrays["opt"]
+
+    def moment(p, a):
+        a = np.asarray(a)
+        if a.shape != tuple(p.shape):
+            raise ValueError(f"a moment has shape {a.shape}, its parameter "
+                             f"{tuple(p.shape)}")
+        if a.dtype.name == "bfloat16":       # numpy has no bfloat16
+            a = a.astype(np.float32)
+        return torch.as_tensor(np.array(a), device=device).to(mdt)
+
+    def count(a):
+        return torch.tensor(int(np.asarray(a)), dtype=torch.int32,
+                            device=device)
+
+    return TrainState(
+        params=params,
+        opt={"m": tree_map(moment, params, opt["m"]),
+             "v": tree_map(moment, params, opt["v"]),
+             "step": count(opt["step"])},
+        step=count(arrays.get("step", opt["step"])))
+
+
+def train_state_to_arrays(state: TrainState) -> dict:
+    """The inverse of `train_state_from_arrays`: ``{"params", "opt":
+    {"m", "v", "step"}, "step"}`` as numpy arrays (bfloat16 moments as
+    float32, which holds them exactly)."""
+    host = lambda t: to_numpy(t.float() if t.dtype == torch.bfloat16 else t)
+    return {"params": lm_params_to_arrays(state.params),
+            "opt": {"m": tree_map(host, state.opt["m"]),
+                    "v": tree_map(host, state.opt["v"]),
+                    "step": to_numpy(state.opt["step"])},
+            "step": to_numpy(state.step)}
 
 
 def lm_cache_from_arrays(cfg: ModelConfig, arrays: dict, *, batch: int,

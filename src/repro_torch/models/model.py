@@ -32,7 +32,14 @@ Two entry points:
 
   forward(tokens)                   — full sequence, chunked attention and
                                       the recurrences over time; returns
-                                      the MoE aux losses;
+                                      the MoE aux losses. Differentiable:
+                                      gradients flow to the leaves of the
+                                      parameter dict it is given (the
+                                      training path, `repro_torch.train`),
+                                      and with ``cfg.remat`` each layer
+                                      group is recomputed in the backward
+                                      pass, as the reference's per-group
+                                      ``jax.checkpoint``;
   decode_step(cache, tokens, pos)   — one token against the cache; the
                                       cache is updated in place (the
                                       reference returns a new pytree) and
@@ -49,6 +56,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -522,77 +530,112 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 # ==================================================================== model
+def _group_views(params: Params, cfg: ModelConfig) -> list[list[dict]]:
+    """Per-group views of the group-stacked slot parameters, [group][slot]
+    → {name: tensor}: one ``unbind`` per stacked tensor, so a backward
+    pass stacks the groups' gradients in one op."""
+    per_slot = [{name: t.unbind(0) for name, t in params[f"slot{s}"].items()}
+                for s in range(cfg.period)]
+    return [[{name: ts[i] for name, ts in slot.items()} for slot in per_slot]
+            for i in range(cfg.num_groups)]
+
+
 class Model(nn.Module):
     """A model bound to its configuration and parameters (the reference's
-    pytree, see the module docstring). Inference only: the parameters are
-    plain tensors and nothing records gradients."""
+    pytree, see the module docstring). The parameters are plain tensors,
+    not ``nn.Parameter``s. `forward` records gradients through the leaves
+    of the dict it is given (``params=``, by default the bound one); the
+    trainer hands it aliases of the bound tensors that require grad and
+    then updates the bound tensors in place
+    (`repro_torch.train.optim.adamw_update`). `decode_step` reads them
+    through per-layer views of their detached aliases, made once here:
+    those see every in-place update and record no gradient."""
 
     def __init__(self, cfg: ModelConfig, params: Params):
         super().__init__()
         check_slots(cfg)
         self.cfg = cfg
         self.params = params
-        # per-layer views of the group-stacked slot parameters
-        self._layers = [
-            [{name: t[i] for name, t in params[f"slot{s}"].items()}
-             for s in range(cfg.period)]
-            for i in range(cfg.num_groups)]
+        self._layers = _group_views(
+            {f"slot{s}": {name: t.detach() for name, t in
+                          params[f"slot{s}"].items()}
+             for s in range(cfg.period)}, cfg)
 
     @property
     def device(self) -> torch.device:
         return self.params["embed"].device
 
-    def _head(self) -> torch.Tensor:
-        head = (self.params["embed"].T if self.cfg.tie_embeddings
-                else self.params["lm_head"])
+    def _head(self, params: Params) -> torch.Tensor:
+        head = (params["embed"].T if self.cfg.tie_embeddings
+                else params["lm_head"])
         return head.to(self.cfg.cdt)
 
     # ---- full-sequence forward ----------------------------------------------
     def forward(self, tokens: torch.Tensor | None = None,
                 embeds: torch.Tensor | None = None,
-                positions: torch.Tensor | None = None
+                positions: torch.Tensor | None = None, *,
+                params: Params | None = None
                 ) -> tuple[torch.Tensor, dict]:
         """tokens [B, S] and/or embeds [B, S_e, d] (embeds are prepended).
         Returns (logits [B, S_total, V], aux losses): with an MoE slot
         ``load_balance_loss`` and ``router_z_loss`` summed over the model's
-        MoE layers, else empty."""
+        MoE layers, else empty. ``params`` (default the bound ones) are
+        the tensors the result is differentiable in. While gradients are
+        recorded and ``cfg.remat`` is set, each layer group runs under
+        ``torch.utils.checkpoint`` (non-reentrant): its activations are
+        recomputed in the backward pass, and the gradients are the same
+        bits as without it."""
         cfg = self.cfg
+        params = self.params if params is None else params
         if tokens is not None:
-            h = self.params["embed"][tokens.long()].to(cfg.cdt)
+            h = params["embed"][tokens.long()].to(cfg.cdt)
             if embeds is not None:
                 h = torch.cat([embeds.to(cfg.cdt), h], dim=1)
         else:
             h = embeds.to(cfg.cdt)
-        b, s, _ = h.shape
         if positions is None:
-            positions = torch.arange(s, dtype=torch.int32, device=h.device)
+            positions = torch.arange(h.shape[1], dtype=torch.int32,
+                                     device=h.device)
+        remat = cfg.remat and torch.is_grad_enabled()
         per_group = []
-        for layer in self._layers:
-            aux: dict = {}
-            for slot, p in zip(cfg.slots, layer):
-                if slot.mixer in ("attn", "swa"):
-                    q, k, v = _qkv(cfg, p, h, positions)
-                    out = L.chunked_attention(
-                        q, k, v, positions, positions,
-                        causal=not cfg.is_encoder,
-                        window=(cfg.sliding_window if slot.mixer == "swa"
-                                else None),
-                        chunk_kv=min(cfg.attn_chunk, s))
-                    h = h + out.reshape(b, s, -1) @ p["wo"]
-                elif slot.mixer == "mamba":
-                    h = h + _mamba_mixer(cfg, p, h)
-                else:
-                    h = h + _rwkv_mixer(cfg, p, h)
-                out = _ffn(cfg, slot, p, h, aux)
-                if out is not None:
-                    h = h + out
+        for layer in _group_views(params, cfg):
+            if remat:
+                h, aux = checkpoint(self._group, h, layer, positions,
+                                    use_reentrant=False)
+            else:
+                h, aux = self._group(h, layer, positions)
             per_group.append(aux)
-        h = L.rms_norm(h, self.params["final_norm"])
+        h = L.rms_norm(h, params["final_norm"])
         aux_total = {}
         if any(slot.ffn == "moe" for slot in cfg.slots):
             aux_total = {key: torch.stack([a[key] for a in per_group]).sum()
                          for key in AUX_KEYS}
-        return h @ self._head(), aux_total
+        return h @ self._head(params), aux_total
+
+    def _group(self, h: torch.Tensor, layer: list[dict],
+               positions: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """One layer group (a period of slots) over the residual h
+        [B, S, d]; returns the new residual and the group's MoE losses."""
+        cfg = self.cfg
+        b, s, _ = h.shape
+        aux: dict = {}
+        for slot, p in zip(cfg.slots, layer):
+            if slot.mixer in ("attn", "swa"):
+                q, k, v = _qkv(cfg, p, h, positions)
+                out = L.chunked_attention(
+                    q, k, v, positions, positions, causal=not cfg.is_encoder,
+                    window=(cfg.sliding_window if slot.mixer == "swa"
+                            else None),
+                    chunk_kv=min(cfg.attn_chunk, s))
+                h = h + out.reshape(b, s, -1) @ p["wo"]
+            elif slot.mixer == "mamba":
+                h = h + _mamba_mixer(cfg, p, h)
+            else:
+                h = h + _rwkv_mixer(cfg, p, h)
+            out = _ffn(cfg, slot, p, h, aux)
+            if out is not None:
+                h = h + out
+        return h, aux
 
     # ---- decode -------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int,
@@ -643,7 +686,7 @@ class Model(nn.Module):
                     if out is not None:
                         h = h + out
         h = L.rms_norm(h, self.params["final_norm"])
-        return h[:, 0] @ self._head(), cache
+        return h[:, 0] @ self._head(self.params), cache
 
     def _decode_attn(self, p: dict, c: dict, group: int, h: torch.Tensor,
                      pos: int, positions: torch.Tensor,

@@ -1199,3 +1199,150 @@ def test_gpu_ten_ranks_first_use_builds_each_library_once(
     for rank in per_rank:
         assert rank[0]["launches"]["dekrr_step"] == 3
         assert torch.equal(rank[0]["out"], per_rank[0][0]["out"])
+
+
+# ------------------------------------------------------------- training
+TRAIN_ARCHS = ["qwen1_5_0_5b", "deepseek_moe_16b"]
+
+
+def _train_case(arch, device):
+    """A reduced model's seeded weights (drawn on the CPU), a seeded
+    batch and AdamW, on `device`."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optim import AdamWConfig, tree_map
+
+    cfg = get_arch(arch).config.reduced()
+    weights = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 48)),
+                                device=device)
+             for k in ("tokens", "targets")}
+    params = tree_map(lambda t: t.to(device, copy=True), weights)
+    return cfg, params, batch, AdamWConfig(total_steps=10, warmup_steps=2)
+
+
+def _tree_items(tree, prefix=""):
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from _tree_items(tree[key], f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", tree[key]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_gpu_train_step_matches_the_cpu(cuda_device, arch):
+    """One reduced train step on the card against the same step on the
+    CPU, at tests/test_torch_train.py's tolerances: loss rtol 1e-6, each
+    gradient leaf within 1e-4 of its max|g|, grad_norm rtol 1e-5, and
+    the parameters within AdamW's first-step bound 2·lr (all but 0.1%
+    within 1e-6)."""
+    from repro_torch.models.model import Model
+    from repro_torch.train.optim import adamw_init
+    from repro_torch.train.step import (TrainState, loss_and_grads,
+                                        make_train_step)
+
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        cfg, params, batch, opt = _train_case(arch, dev)
+        loss, metrics, grads = loss_and_grads(Model(cfg, params), params,
+                                              batch)
+        state = TrainState(params, adamw_init(opt, params),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        state, m = make_train_step(cfg, opt)(state, batch)
+        runs[dev.type] = dict(loss=loss.cpu(), metrics=metrics, m=m,
+                              grads=dict(_tree_items(grads)),
+                              params=dict(_tree_items(state.params)))
+    got, want = runs["cuda"], runs["cpu"]
+    assert_close(got["loss"], want["loss"], rtol=1e-6)
+    assert_close(got["m"]["grad_norm"], want["m"]["grad_norm"], rtol=1e-5)
+    assert set(got["metrics"]) == set(want["metrics"])
+    for p, w in want["grads"].items():
+        g = got["grads"][p].cpu()
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max(), p
+    bound = 2 * float(want["m"]["lr"]) * (1 + 1e-3)
+    tight = total = 0
+    for p, w in want["params"].items():
+        err = (got["params"][p].cpu() - w).abs()
+        assert err.max() <= bound, p
+        tight += int((err <= 1e-6).sum())
+        total += err.numel()
+    assert tight >= 0.999 * total
+
+
+@pytest.mark.gpu
+def test_gpu_train_checkpoint_round_trips_on_the_card(cuda_device, tmp_path):
+    """A train state on the card (bf16 moments after one step) saved and
+    loaded back on the card and on the CPU: every tensor bit-equal."""
+    from repro_torch.models.model import Model
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.train.optim import AdamWConfig, adamw_init
+    from repro_torch.train.step import TrainState, make_train_step
+
+    cfg, params, batch, _ = _train_case("deepseek_moe_16b", cuda_device)
+    opt = AdamWConfig(total_steps=10, warmup_steps=2,
+                      moment_dtype="bfloat16")
+    state = TrainState(params, adamw_init(opt, params),
+                       torch.zeros((), dtype=torch.int32,
+                                   device=cuda_device))
+    state, _ = make_train_step(cfg, opt)(state, batch)
+    tree = {"params": state.params, "opt": state.opt}
+    path = save_checkpoint(str(tmp_path / "ck"), tree, step=1)
+    want = dict(_tree_items(tree))
+    for dev in (cuda_device, torch.device("cpu")):
+        got, step = load_checkpoint(path, device=dev)
+        assert step == 1
+        got = dict(_tree_items(got))
+        assert set(got) == set(want)
+        for p, w in want.items():
+            assert got[p].device.type == dev.type and got[p].dtype == w.dtype
+            assert torch.equal(got[p].cpu(), w.cpu()), p
+    assert Model(cfg, state.params).device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_gpu_train_steps_repeat_bit_for_bit_in_deterministic_mode(
+        cuda_device):
+    """Under torch.use_deterministic_algorithms(True) (in a fresh
+    process: cuBLAS's workspace setting must precede its first call), two
+    train steps from the same state give the same loss and parameters,
+    bit for bit, on the dense and the MoE model."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import torch
+from repro_torch.configs import get_arch
+from repro_torch.models.model import init_params
+from repro_torch.train.optim import AdamWConfig, adamw_init, tree_leaves, tree_map
+from repro_torch.train.step import TrainState, make_train_step
+torch.use_deterministic_algorithms(True)
+torch.backends.cuda.matmul.allow_tf32 = False
+for arch in ("qwen1_5_0_5b", "deepseek_moe_16b"):
+    cfg = get_arch(arch).config.reduced()
+    w = init_params(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator("cuda").manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 48), device="cuda",
+                              generator=g) for k in ("tokens", "targets")}
+    opt = AdamWConfig(total_steps=10, warmup_steps=2)
+    out = []
+    for _ in range(2):
+        p = tree_map(lambda t: t.to("cuda", copy=True), w)
+        s = TrainState(p, adamw_init(opt, p),
+                       torch.zeros((), dtype=torch.int32, device="cuda"))
+        for _ in range(2):
+            s, m = make_train_step(cfg, opt)(s, batch)
+        out.append((m["loss"], tree_leaves(s.params)))
+    assert torch.equal(out[0][0], out[1][0]), arch
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1])), arch
+print("deterministic: ok")
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "deterministic: ok" in out.stdout

@@ -1,5 +1,6 @@
 """The port stands alone: nothing in `src/repro_torch` or `chip_smoke.py`
-imports JAX or the JAX package `repro`."""
+imports JAX, the JAX package `repro`, or `msgpack` (the card's machine
+has none; the port's checkpoints carry their own codec)."""
 import ast
 import os
 import subprocess
@@ -9,7 +10,7 @@ import pytest
 
 from conftest import REPO_ROOT, subprocess_env
 
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _port_files():
@@ -50,9 +51,13 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models, repro_torch.configs, "
             "repro_torch.serve.engine, repro_torch.launch.serve, "
             "repro_torch.kernels.decode_attention, "
-            "repro_torch.bench.stream_bench; "
-            "import sys; bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'repro.'))]; assert not bad, bad")
+            "repro_torch.bench.stream_bench, repro_torch.data.tokens, "
+            "repro_torch.train, repro_torch.train.optim, "
+            "repro_torch.train.step, repro_torch.train.checkpoint, "
+            "repro_torch.train.loop, repro_torch.launch.train; "
+            "import sys; bad = [m for m in sys.modules if m in ('jax', "
+            "'msgpack') or m.startswith(('jax.', 'repro.', 'msgpack.'))]; "
+            "assert not bad, bad")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
                          env=subprocess_env(), capture_output=True,
                          text=True, timeout=120)
