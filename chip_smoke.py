@@ -76,9 +76,10 @@
 10. The decode-attention kernel (``flash_decode``) against its split plain
    version (the kernel's chunks, combined in chunk order) and its one-pass
    plain version at DECODE_SHAPES (2e-5), one long request (B 1, S 32,768)
-   among them; two calls give the same bits, the cache beyond cur_index
-   set to ±999 changes no bit, and a CUDA-graph replay gives the eager
-   call's bits.
+   among them, in f32 and, where dh is a multiple of 8, in bf16 (plus one
+   bf16 ulp of the output); two calls give the same bits, the cache beyond
+   cur_index set to ±999 changes no bit, and a CUDA-graph replay gives the
+   eager call's bits.
 11. LLM serving at qwen1.5-0.5b's full width and depth (24 layers,
    d_model 1024, 16 heads, vocab 151,936; the port's seeded weights, no
    checkpoint): ServeEngine(batch 8, max_seq 512, backend cuda) serves
@@ -98,8 +99,8 @@
    layers (attn with flash_decode at dh 128, the moe ffn: 64 routed
    experts top-6 + 2 shared), jamba-1.5-large at its registry reduced()
    size (attn, mamba and moe interleaved) and qwen1.5-0.5b's
-   sliding-window variant at full width and depth (every slot swa,
-   window 8,192). Each: the same requests again give the same tokens,
+   sliding-window variant at full width and 8 of its 24 layers (every
+   slot swa, window 8,192). Each: the same requests again give the same tokens,
    one request alone equals sequential decode_step calls, the first
    wave teacher-forced gives the engine's tokens and backend torch
    within LLM_LOGIT_TOL of backend cuda (the swa variant also its attn
@@ -127,6 +128,18 @@
    TRAIN_MOE_STEPS steps, its load-balance and router-z losses finite
    and > 0; (e) one step at qwen1.5-0.5b's reduced() size on the card
    against the CPU: the loss, grad_norm and every gradient leaf.
+12b. The mesh phase (``repro_torch.launch``, after ``train``): one rank of
+   an NCCL group on the card, a 1×1 (data, model) production mesh, and
+   qwen1.5-0.5b at full width and depth through ``input_specs`` (bf16
+   weights, f32 moments): 3 train steps at B 8 × S 256 with DTensor
+   parameters against the plain step from the same draws (deterministic
+   algorithms on), the peak memory beside the dry run's for the same pair
+   on a fake 1×1 mesh (``python -m repro_torch.launch.dryrun`` in a
+   subprocess) within [0.5, 2]×; then 16 serve steps at B 8 over an int8
+   cache of 32,768 positions and a bf16 one of 4,096 (filled from a seed),
+   flash_decode in bf16 on each rank's shards, 24 launches a step, each
+   step against backend torch from the same cache, and the kernel on the
+   first layer's inputs against its plain version.
 13. The paper's experiments (``repro_torch.paper``) at the synthetic
    stand-ins' full N: (a) Table 2's wave setting built with
    ``gram_fn=ops.gram_fn_for_solver`` (40 ``rff_gram`` launches at B 1,
@@ -186,7 +199,9 @@
    shape ``gram_fn_for_solver`` gives it (row ``rff_gram@gram_fn``),
    ``rff_gram``'s wide route at D_j = 600 with its two phases apart (the profiler's device
    time per kernel), and ``flash_decode`` at S 32,768 for B 8 and B 1 and
-   at the serving cache (cur 128 and 512), there both warm (one cache
+   at the serving cache (cur 128 and 512) in f32 and bf16 (rows
+   ``flash_decode@bf16``, ``flash_decode@bf16,long``, their launches the
+   mesh phase's), there both warm (one cache
    launched again) and cold (24 distinct caches launched in turn, the 805
    MB a decode step's layers pass through L2), beside the fastest SDPA
    call, and at deepseek-moe-16b's heads (H = K = 16, dh 128; row
@@ -203,7 +218,8 @@ The last line is ``{"ok": true, "device": {...}}``; any failed phase
 exits non-zero before it. Without a CUDA device the script exits
 non-zero, and so does a copy of the script without ``src/repro_torch``
 beside it, after one line naming where it looked. ``--cpu-rehearsal``
-runs steps 4–7, 9, 11–14 and 15 (without its (b)) on the CPU at a small
+runs steps 4–7, 9, 11–14 (12b on one gloo rank, reduced, without the
+dry run) and 15 (without its (b)) on the CPU at a small
 size (the kernels' plain versions; the LLM path on the reduced
 qwen1.5-0.5b; the mixers' models reduced, the window 64; the train
 phase's (a)–(c) and (e)'s CPU half reduced, 3 steps; Table 2 on
@@ -341,6 +357,10 @@ DECODE_SHAPES = (
     (8, 32, 8, 128, 512, 37), (8, 32, 8, 128, 512, 512),
     (1, 16, 16, 64, 32768, 32768), (1, 16, 16, 64, 32768, 513))
 DECODE_TOL = 2e-5     # the reference kernel's own tolerance (sum order)
+# bf16 operands: the kernel's f32 sums and the plain versions' f32 sums
+# (within DECODE_TOL) are each rounded once to bf16, so the outputs may
+# differ by one bf16 ulp (2^-7 of the value) on top of DECODE_TOL
+DECODE_TOL_BF16 = 2.0 ** -7
 DECODE_TIMING = (8, 16, 16, 64, 32768)
 DECODE_LONG = (1, 16, 16, 64, 32768)
 # distinct serving caches launched in turn for the cold timing: one per
@@ -365,15 +385,20 @@ INT8_LOGIT_TOL = 0.05
 
 # The mixers phase (repro_torch.models.{moe,ssm,rwkv} and the swa ring):
 # each model through ServeEngine at the LLM_* traffic above, seeded f32
-# weights drawn on the card. rwkv6-7b and qwen1.5-0.5b's sliding-window
-# variant (every slot swa, the registry's long-context window of 8,192,
-# as launch/specs.py builds it) at full width and depth; deepseek-moe-16b
+# weights drawn on the card. rwkv6-7b at full width and depth;
+# qwen1.5-0.5b's sliding-window variant (every slot swa, the registry's
+# long-context window of 8,192, as launch/specs.py builds it) at full
+# width and MIXER_SWA_LAYERS layers; deepseek-moe-16b
 # at full width and 8 of its 28 layers (67.5 GB of f32 weights at full
 # depth leaves no room beside the rest of the script); jamba-1.5-large at
 # its registry reduced() size (one 8-slot period at d 8192 is ~178 GB).
 MIXER_MODELS = ("rwkv6_7b", "deepseek_moe_16b", "jamba_1_5_large_398b",
                 "qwen1_5_0_5b-swa")
 MIXER_DEEPSEEK_LAYERS = 8
+# qwen1.5-0.5b's sliding-window variant at full width and 8 of its 24
+# layers: the ring's 8 masked chunks a layer a step took 150 s of the
+# script at full depth, and the mesh phase needs the room
+MIXER_SWA_LAYERS = 8
 MIXER_REHEARSAL_WINDOW = 64    # the rehearsal's window: its max_seq
 # decode == own forward, tests/test_arch_smoke.py::
 # test_decode_matches_forward: (B, S), (rtol, atol), capacity factor
@@ -418,6 +443,43 @@ TRAIN_PEAK_FLOPS = 67e12
 CUBLAS_DETERMINISTIC = ":4096:8"
 TRAIN_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "chip_train", "ckpt")
+
+# The mesh phase (slice 10d, repro_torch.launch): one rank of an NCCL group
+# on the card (NCCL refuses two ranks on one device), a 1×1 (data, model)
+# production mesh, qwen1.5-0.5b at full width and depth from
+# launch/specs.py::input_specs (bf16 parameters, f32 moments, pure DP):
+# MESH_TRAIN_STEPS train steps at B 8 × S 256 with DTensor parameters
+# against the same steps on plain tensors from the same draws (with
+# deterministic algorithms on; within MESH_LOSS_RTOL), the peak memory
+# beside the dry run's for the same pair on
+# a fake 1×1 mesh (in a subprocess) within MESH_PEAK_BAND; then the serve
+# step at B 8 over a cache of each MESH_DECODE_SEQS length (S 32,768: int8,
+# as input_specs picks past 8 GiB a device; S 4,096: bf16), filled from a
+# seed, MESH_DECODE_STEPS steps at its last positions through flash_decode
+# in bf16, each step against backend torch from a copy of the same cache.
+MESH_TRAIN = (8, 256)
+MESH_TRAIN_STEPS = 3
+# the mesh path reads the embedding through F.embedding, whose backward
+# on the card sums a repeated token's gradients in another order than the
+# plain path's index backward: step 1's loss is bit-equal, later ones
+# follow bf16 weights that may differ by a rounding (2.4e-4 measured on an
+# H100); on the CPU the two are bit-equal
+MESH_LOSS_RTOL = 1e-3
+MESH_PEAK_BAND = (0.5, 2.0)
+MESH_DECODE_BATCH = 8
+MESH_DECODE_SEQS = (32768, 4096)
+MESH_DECODE_STEPS = 16
+# backend cuda (flash_decode on bf16) against backend torch (chunked
+# attention in f32, rounded to bf16), the same cache each step: every
+# layer's attention output may differ by one bf16 rounding (2^-8), and
+# 24 layers of bf16 activations of a random-weight model carry that to
+# the logits ~10-fold (3.3-5.3% of max|logit| on an H100 over random int8
+# caches at S 32,768; 0 on the CPU at S 2,048), so the check takes 2^-3;
+# the kernel itself is held on the step's own layer-0 inputs to its plain
+# version at the kernel's tolerance (_decode_agrees)
+MESH_LOGIT_TOL = 2.0 ** -3
+MESH_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_mesh")
 
 # the paper's experiments (repro_torch.paper): θ of a gram_fn solver
 # against the default one, the reference's tolerance for this pairing
@@ -1944,42 +2006,58 @@ def gram_wide_timing() -> dict:
 
 
 # ------------------------------------------------------------ decode attention
-def _decode_operands(b, h, kh, dh, s, seed):
+def _decode_operands(b, h, kh, dh, s, seed, dtype=torch.float32):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     kw = dict(dtype=torch.float32, device="cuda", generator=gen)
-    return (torch.randn((b, 1, h, dh), **kw),
-            torch.randn((b, s, kh, dh), **kw),
-            torch.randn((b, s, kh, dh), **kw))
+    return tuple(t.to(dtype) for t in (torch.randn((b, 1, h, dh), **kw),
+                                       torch.randn((b, s, kh, dh), **kw),
+                                       torch.randn((b, s, kh, dh), **kw)))
+
+
+def _decode_agrees(got, want, dtype) -> bool:
+    """|got − want| ≤ DECODE_TOL·(1 + |want|), plus one bf16 ulp of want
+    for bf16 operands."""
+    got, want = got.float(), want.float()
+    bound = DECODE_TOL * (1 + want.abs())
+    if dtype == torch.bfloat16:
+        bound = bound + DECODE_TOL_BF16 * want.abs()
+    return bool(torch.isfinite(got).all() and ((got - want).abs()
+                                               <= bound).all())
 
 
 def flash_decode_phase() -> dict[str, float]:
     """The decode-attention kernel against its split plain version (the
     kernel's chunks, merged in chunk order) and its one-pass plain version
-    on the card at DECODE_SHAPES, |got − plain| ≤ DECODE_TOL·(1 + |plain|);
-    at each shape a second call gives the same bits and, with a stale tail,
-    the cache set to ±999 beyond cur_index gives the same output bit for
-    bit; at one long request a CUDA-graph replay gives the eager call's
-    bits. Returns the largest error."""
+    on the card at DECODE_SHAPES in f32 and, where dh is a multiple of 8,
+    in bf16 (`_decode_agrees`); at each shape a second call gives the same
+    bits and, with a stale tail, the cache set to ±999 beyond cur_index
+    gives the same output bit for bit; at one long request a CUDA-graph
+    replay gives the eager call's bits, in both types. Returns the largest
+    error of each type."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (
         flash_decode_reference, flash_decode_split_reference)
 
-    worst = 0.0
-    for b, h, kh, dh, s, cur in DECODE_SHAPES:
-        case = f"B={b} H={h} K={kh} dh={dh} S={s} cur={cur}"
-        q, k, v = _decode_operands(b, h, kh, dh, s, seed=s + cur)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = [(c, torch.float32) for c in DECODE_SHAPES] + [
+        (c, torch.bfloat16) for c in DECODE_SHAPES if c[3] % 8 == 0]
+    for (b, h, kh, dh, s, cur), dtype in cases:
+        case = f"B={b} H={h} K={kh} dh={dh} S={s} cur={cur} {dtype}"
+        q, k, v = _decode_operands(b, h, kh, dh, s, seed=s + cur,
+                                   dtype=dtype)
         got = ops.flash_decode(q, k, v, cur)
+        if got.dtype != dtype:
+            raise PhaseError(f"flash_decode {case}: returned {got.dtype}")
         lens = torch.full((b * kh,), cur, dtype=torch.int32, device="cuda")
         for plain in (flash_decode_split_reference, flash_decode_reference):
             want = plain(q, k, v, lens)
             torch.cuda.synchronize()
-            err = (got - want).abs()
-            if not (torch.isfinite(got).all()
-                    and (err <= DECODE_TOL * (1 + want.abs())).all()):
+            err = (got.float() - want.float()).abs()
+            if not _decode_agrees(got, want, dtype):
                 raise PhaseError(f"flash_decode {case}: disagrees with "
-                                 f"{plain.__name__} beyond {DECODE_TOL:g} "
+                                 f"{plain.__name__} beyond its tolerance "
                                  f"(max abs err {err.max().item():.3e})")
-            worst = max(worst, err.max().item())
+            worst[dtype] = max(worst[dtype], err.max().item())
         if not torch.equal(ops.flash_decode(q, k, v, cur), got):
             raise PhaseError(f"flash_decode {case}: two calls gave other bits")
         if cur < s:
@@ -1989,28 +2067,31 @@ def flash_decode_phase() -> dict[str, float]:
                 raise PhaseError(f"flash_decode {case}: the cache beyond "
                                  f"cur_index changed the output")
     b, h, kh, dh, s = DECODE_LONG
-    q, k, v = _decode_operands(b, h, kh, dh, s, seed=3)
-    eager = ops.flash_decode(q, k, v, s)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        ops.flash_decode(q, k, v, s)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        replayed = ops.flash_decode(q, k, v, s)
-    for _ in range(2):
-        replayed.zero_()
-        graph.replay()
-        torch.cuda.synchronize()
-        if not torch.equal(replayed, eager):
-            raise PhaseError("flash_decode: a CUDA-graph replay gave other "
-                             "bits than the eager call")
-    print(f"flash_decode phase: pass ({len(DECODE_SHAPES)} shapes, max abs "
-          f"err {worst:.3e} against the split and one-pass plain versions, "
-          f"two calls, the stale tail and graph replays bit for bit)",
-          flush=True)
-    return {"flash_decode": worst}
+    for dtype in worst:
+        q, k, v = _decode_operands(b, h, kh, dh, s, seed=3, dtype=dtype)
+        eager = ops.flash_decode(q, k, v, s)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ops.flash_decode(q, k, v, s)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = ops.flash_decode(q, k, v, s)
+        for _ in range(2):
+            replayed.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(replayed, eager):
+                raise PhaseError(f"flash_decode {dtype}: a CUDA-graph replay "
+                                 f"gave other bits than the eager call")
+    print(f"flash_decode phase: pass ({len(cases)} shapes and types, max "
+          f"abs err {worst[torch.float32]:.3e} in f32, "
+          f"{worst[torch.bfloat16]:.3e} in bf16 against the split and "
+          f"one-pass plain versions, two calls, the stale tail and graph "
+          f"replays bit for bit)", flush=True)
+    return {"flash_decode": worst[torch.float32],
+            "flash_decode@bf16": worst[torch.bfloat16]}
 
 
 # ------------------------------------------------------------- LLM serving
@@ -2182,7 +2263,9 @@ def sdpa_yardsticks(q, k, v, want, cur: int) -> dict:
     enable_gqa, and the plain call on the views up to cur (H = K here),
     each under every SDPA backend that takes it, beside the plain call on
     contiguous [B, K, cur, dh] copies (another layout, timed for reference
-    only). Only calls within DECODE_TOL·(1 + |want|) of `want` count.
+    only). Only calls within DECODE_TOL·(1 + |want|) of `want` count
+    (bf16: plus one bf16 ulp of want and of max|v|, since SDPA rounds each
+    probability to bf16 before its product with V).
     Returns {"ms": fastest on the same inputs, "call": its label, "table":
     {label: {backend: ms}}, "default": {label: kernels the default
     dispatch launched}}."""
@@ -2203,11 +2286,14 @@ def sdpa_yardsticks(q, k, v, want, cur: int) -> dict:
     backends = [getattr(SDPBackend, n) for n in (
         "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
         if hasattr(SDPBackend, n)]
-    want_t = want.transpose(1, 2)
+    want_t = want.transpose(1, 2).float()
+    bound = DECODE_TOL * (1 + want_t.abs())
+    if q.dtype == torch.bfloat16:
+        vmax = v[:, :cur].abs().max().float()
+        bound = bound + DECODE_TOL_BF16 * (want_t.abs() + vmax)
 
     def agrees(got):
-        return bool((got - want_t).abs().le(
-            DECODE_TOL * (1 + want_t.abs())).all())
+        return bool((got.float() - want_t).abs().le(bound).all())
 
     def table(calls):
         out = {}
@@ -2250,16 +2336,18 @@ def sdpa_yardsticks(q, k, v, want, cur: int) -> dict:
     return dict(ms=best[0], call=best[1], table=same, default=default)
 
 
-def decode_kernel_ms(b, h, kh, dh, s, cur, *, caches: int = 1) -> dict:
+def decode_kernel_ms(b, h, kh, dh, s, cur, *, caches: int = 1,
+                     dtype=torch.float32) -> dict:
     """flash_decode_cuda by CUDA events at (B, H, K, dh, S) and cur over
     `caches` distinct caches launched in turn (1: the same cache again,
     warm in L2 where it fits; DECODE_COLD_CACHES: each launch finds its
     cache evicted by the others'), beside the least time the card could
     take: K and V up to cur read once, q and lens read, out written, the
-    two products (softmax arithmetic not counted)."""
+    two products (softmax arithmetic not counted; f32 FMAs in both
+    types)."""
     from repro_torch.kernels.decode_attention import flash_decode_cuda
 
-    sets = [_decode_operands(b, h, kh, dh, s, seed=1 + i)
+    sets = [_decode_operands(b, h, kh, dh, s, seed=1 + i, dtype=dtype)
             for i in range(caches)]
     q = sets[0][0]
     lens = torch.full((b * kh,), cur, dtype=torch.int32, device="cuda")
@@ -2270,27 +2358,37 @@ def decode_kernel_ms(b, h, kh, dh, s, cur, *, caches: int = 1) -> dict:
         qi, ki, vi = next(turn)
         flash_decode_cuda(qi, ki, vi, lens, out)
 
-    bms, by = bound_ms(2 * b * cur * kh * dh * 4 + nbytes(q, lens, out),
-                       4 * b * h * cur * dh, torch.float32)
+    bms, by = bound_ms(2 * b * cur * kh * dh * q.element_size()
+                       + nbytes(q, lens, out), 4 * b * h * cur * dh,
+                       torch.float32)
     ms = cuda_ms(launch, reps=max(20, 2 * caches))
     return dict(ms=ms, bound_ms=bms, bound_by=by, operands=sets[0],
                 lens=lens, out=out)
 
 
-def decode_timings(*, yardsticks: bool = True) -> list[dict]:
+def decode_timings(*, yardsticks: bool = True,
+                   bf16: bool = True) -> list[dict]:
     """The decode-attention kernel by CUDA events at DECODE_TIMING (the
     registry's decode_32k length, cur = S) and DECODE_LONG (one long
     request), each beside its plain version (the split one, the kernel's
     chunks) and the fastest scaled_dot_product_attention call on the same
     inputs (`sdpa_yardsticks`); and at the serving cache (S = LLM_MAX_SEQ,
     cur a quarter of it and all of it) warm and cold beside the fastest
-    SDPA call there (warm). Without `yardsticks`, the kernel's times
-    only."""
+    SDPA call there (warm); in f32 and, with `bf16`, in bf16 (rows
+    ``flash_decode@bf16``, ``flash_decode@bf16,long``: the same shapes,
+    the bound at 2 bytes a value). Without `yardsticks`, the kernel's
+    times only."""
     rows = []
-    for name, (b, h, kh, dh, s) in (("flash_decode", DECODE_TIMING),
-                                    ("flash_decode@long", DECODE_LONG)):
-        t = decode_kernel_ms(b, h, kh, dh, s, s)
-        row = dict(name=name, kernel="flash_decode", route="cuda",
+    f32, b16 = torch.float32, torch.bfloat16
+    cases = [("flash_decode", DECODE_TIMING, f32),
+             ("flash_decode@long", DECODE_LONG, f32)]
+    if bf16:
+        cases += [("flash_decode@bf16", DECODE_TIMING, b16),
+                  ("flash_decode@bf16,long", DECODE_LONG, b16)]
+    for name, (b, h, kh, dh, s), dtype in cases:
+        t = decode_kernel_ms(b, h, kh, dh, s, s, dtype=dtype)
+        row = dict(name=name, kernel=("flash_decode" if dtype == f32 else
+                                      "flash_decode@bf16"), route="cuda",
                    source="src/repro_torch/kernels/csrc/flash_decode.cu",
                    replaces="src/repro/kernels/decode_attention.py:89",
                    shape=[b, h, kh, dh, s, s], ms=t["ms"],
@@ -2306,18 +2404,21 @@ def decode_timings(*, yardsticks: bool = True) -> list[dict]:
             row["library_ms"] = row["sdpa"]["ms"]
         rows.append(row)
         del t
-    serving = {}
-    for cur in (LLM_MAX_SEQ // 4, LLM_MAX_SEQ):
-        shape = (LLM_BATCH, 16, 16, 64, LLM_MAX_SEQ, cur)
-        warm = decode_kernel_ms(*shape)
-        cold = decode_kernel_ms(*shape, caches=DECODE_COLD_CACHES)
-        serving[cur] = dict(warm_ms=warm["ms"], cold_ms=cold["ms"],
-                            bound_ms=warm["bound_ms"])
-        if yardsticks:
-            q, k, v = warm["operands"]
-            serving[cur]["sdpa"] = sdpa_yardsticks(q, k, v, warm["out"], cur)
-        del warm, cold
-    rows[0]["serving"] = serving
+    for dtype, row in ((f32, rows[0]), (b16, rows[2]))[:1 + bf16]:
+        serving = {}
+        for cur in (LLM_MAX_SEQ // 4, LLM_MAX_SEQ):
+            shape = (LLM_BATCH, 16, 16, 64, LLM_MAX_SEQ, cur)
+            warm = decode_kernel_ms(*shape, dtype=dtype)
+            cold = decode_kernel_ms(*shape, caches=DECODE_COLD_CACHES,
+                                    dtype=dtype)
+            serving[cur] = dict(warm_ms=warm["ms"], cold_ms=cold["ms"],
+                                bound_ms=warm["bound_ms"])
+            if yardsticks:
+                q, k, v = warm["operands"]
+                serving[cur]["sdpa"] = sdpa_yardsticks(q, k, v, warm["out"],
+                                                       cur)
+            del warm, cold
+        row["serving"] = serving
     return rows
 
 
@@ -2354,7 +2455,7 @@ def decode_timings_only(src: str | None) -> int:
 
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = decode_timings(yardsticks=False)
+    rows = decode_timings(yardsticks=False, bf16=False)
     model = _decode_model()
     step_ms = graph_step_ms(model, LLM_BATCH, LLM_MAX_SEQ,
                             LLM_MAX_SEQ // 4 - 1)
@@ -2373,9 +2474,10 @@ def decode_timings_only(src: str | None) -> int:
 
 # ------------------------------------------------------- the other mixers
 def mixer_config(name: str, *, full: bool):
-    """The configuration of a MIXER_MODELS entry: on the card rwkv6-7b and
-    qwen1.5-0.5b's sliding-window variant at full width and depth,
-    deepseek-moe-16b at full width and MIXER_DEEPSEEK_LAYERS layers, jamba
+    """The configuration of a MIXER_MODELS entry: on the card rwkv6-7b at
+    full width and depth, qwen1.5-0.5b's sliding-window variant at full
+    width and MIXER_SWA_LAYERS layers, deepseek-moe-16b at full width and
+    MIXER_DEEPSEEK_LAYERS layers, jamba
     at its registry reduced() size; ``full=False`` (the rehearsal): every
     one reduced, the window at MIXER_REHEARSAL_WINDOW."""
     from repro_torch.configs import get_arch
@@ -2394,6 +2496,8 @@ def mixer_config(name: str, *, full: bool):
                                       s.ffn) for s in cfg.slots),
             sliding_window=(spec.long_context_window if full
                             else MIXER_REHEARSAL_WINDOW))
+        if full:
+            cfg = dataclasses.replace(cfg, num_layers=MIXER_SWA_LAYERS)
     return cfg
 
 
@@ -4319,6 +4423,187 @@ def spmd_step_timings(run: dict, errs: dict) -> list[dict]:
     return rows
 
 
+# ------------------------------------------------------------------- mesh
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_decode(rules, spec, seq: int, device: str, *, batch: int,
+                steps: int) -> dict:
+    """The serve step of input_specs at B ``batch`` over a cache of
+    ``seq`` positions through `repro_torch.launch.mesh_cases.
+    decode_steps` (filled from a seed; ``steps`` steps on backend cuda,
+    each against backend torch from the same cache; the kernel on the
+    first layer's inputs against its plain version by `_decode_agrees`),
+    raising if that kernel check fails."""
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch.mesh_cases import decode_steps
+    from repro_torch.launch.specs import input_specs
+
+    pair = input_specs(spec, ShapeSpec("mesh", seq, batch, "decode"), rules,
+                       device=device)
+    res = decode_steps(pair, steps, device, seed=seq, agrees=_decode_agrees)
+    res.update(seq=seq, layers=attn_layers(pair["cfg"]))
+    res.pop("logits")
+    del pair
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    if not res["kernel_ok"]:
+        raise PhaseError(f"mesh: S {seq}: flash_decode on layer 0's inputs "
+                         f"differs from its plain version by "
+                         f"{res['kernel_err']:.3e}")
+    return res
+
+
+def mesh_phase(card: str, device: str = "cuda", *, full: bool = True,
+               train=MESH_TRAIN, steps: int = MESH_TRAIN_STEPS,
+               decode_batch: int = MESH_DECODE_BATCH,
+               decode_seqs=MESH_DECODE_SEQS,
+               decode_steps: int = MESH_DECODE_STEPS) -> dict:
+    """The ``mesh`` phase (MESH_* above), on the card over one NCCL rank;
+    ``device="cpu"`` (the rehearsal) over one gloo rank, the model
+    reduced, without the dry run's memory comparison (no device memory to
+    measure). Returns the measurements; raises PhaseError on any failed
+    check."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import mesh_cases
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.sharding import ShardingRules
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    b, seq = train
+    out_dir = os.path.join(MESH_OUT, "dryrun")
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         TRAIN_ARCH, "--shape", "train_4k", "--batch", str(b), "--seq",
+         str(seq), "--mesh", "1x1", "--out", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=SRC_DIR)) if on_card else None
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        spec = get_arch(TRAIN_ARCH)
+        if not full:
+            spec = dc.replace(spec, config=spec.config.reduced())
+        data = mesh_cases.batches(spec.config.vocab_size, b, seq, steps)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        with deterministic(True):
+            pair = mesh_cases.mesh_pair(
+                TRAIN_ARCH, data=1, model=1, batch=b, seq=seq,
+                reduced=not full, device=device, steps=steps)
+            t0 = time.perf_counter()
+            state, losses = mesh_cases.run_steps(
+                pair["fn"], pair["args"][0], data, pair["in_shardings"][1],
+                device)
+            if on_card:
+                torch.cuda.synchronize()
+            mesh_s = time.perf_counter() - t0
+        peak = ((torch.cuda.max_memory_allocated() - base) / 2**30
+                if on_card else None)
+        meta = {k: pair[k] for k in ("cfg", "opt_cfg")}
+        placed = (str(tuple(state.params["embed"].placements)),
+                  pair["rules"].policy, pair["cfg"].param_dtype)
+        del state, pair
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        with deterministic(True):
+            fn, plain = mesh_cases.plain_pair(meta, device=device)
+            _, plain_losses = mesh_cases.run_steps(fn, plain, data,
+                                                   device=device)
+        del plain
+        gc.collect()
+        worst = max(abs(a - w) / abs(w) for a, w in zip(losses,
+                                                        plain_losses))
+        if not all(math.isfinite(x) for x in losses) \
+                or worst > MESH_LOSS_RTOL:
+            raise PhaseError(f"mesh: the 1x1 mesh's losses {losses} differ "
+                             f"from the plain step's {plain_losses} beyond "
+                             f"rtol {MESH_LOSS_RTOL:g}")
+        dry_rec = ratio = dry_peak = None
+        if on_card:
+            torch.cuda.empty_cache()
+            _, derr = dry.communicate(timeout=600)
+            if dry.returncode != 0:
+                raise PhaseError(f"mesh: the dry run failed:\n"
+                                 f"{derr[-2000:]}")
+            path = os.path.join(out_dir, f"1x1_{TRAIN_ARCH}_train_4k@b{b}"
+                                         f"s{seq}.json")
+            with open(path) as f:
+                dry_rec = json.load(f)
+            dry_peak = dry_rec["peak_memory_per_device"] / 2**30
+            ratio = dry_peak / peak
+            if not MESH_PEAK_BAND[0] <= ratio <= MESH_PEAK_BAND[1]:
+                raise PhaseError(f"mesh: the dry run's peak {dry_peak:.2f} "
+                                 f"GiB is {ratio:.3f}x the measured "
+                                 f"{peak:.2f} GiB, outside {MESH_PEAK_BAND}")
+        rules = ShardingRules(make_production_mesh(data=1, model=1))
+        decodes = [mesh_decode(rules, spec, s, device, batch=decode_batch,
+                               steps=decode_steps) for s in decode_seqs]
+    finally:
+        dist.destroy_process_group()
+        if dry is not None and dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    want_kv = {32768: "int8", 4096: "bfloat16"} if full else {}
+    for d in decodes:
+        if d["kv"] != want_kv.get(d["seq"], d["kv"]) \
+                or d["cdt"] != "bfloat16":
+            raise PhaseError(f"mesh: S {d['seq']} ran a {d['kv']} cache in "
+                             f"{d['cdt']}")
+        if d["launches"] != d["layers"] * decode_steps or not d["finite"]:
+            raise PhaseError(f"mesh: S {d['seq']}: {d['launches']} "
+                             f"flash_decode launches, expected "
+                             f"{d['layers']} × {decode_steps}")
+        if d["rel"] > MESH_LOGIT_TOL:
+            raise PhaseError(f"mesh: S {d['seq']}: backend cuda's logits "
+                             f"differ from backend torch's by {d['rel']:.3e} "
+                             f"of max|logit|, past {MESH_LOGIT_TOL:g}")
+    res = dict(losses=losses, plain_losses=plain_losses, worst=worst,
+               peak=peak, dry_peak=dry_peak, ratio=ratio, mesh_s=mesh_s,
+               placed=placed, decodes=decodes,
+               launches=sum(d["launches"] for d in decodes),
+               secs=time.perf_counter() - t_phase)
+    mem = ("not measured (CPU)" if peak is None else
+           f"peak {peak:.3f} GiB measured, dry run {dry_peak:.3f} GiB "
+           f"(ratio {ratio:.3f}, band {MESH_PEAK_BAND}; dry run traced in "
+           f"{dry_rec['trace_s']} s)")
+    size = "full width and depth" if full else "reduced"
+    print(f"mesh [{card}] train {TRAIN_ARCH} ({size}; embed placements, "
+          f"policy, dtype {placed}; "
+          f"1x1 mesh over one rank): {steps} steps at B {b} x S {seq} in "
+          f"{mesh_s:.2f} s, losses {losses} vs plain {plain_losses} (max "
+          f"rel diff {worst:.3e}, "
+          f"{'bit-equal' if losses == plain_losses else 'not bit-equal'}); "
+          f"{mem}", flush=True)
+    for d in decodes:
+        print(f"mesh [{card}] decode S {d['seq']} ({d['kv']} cache, "
+              f"{d['cache_gb']:.3f} GB) B {decode_batch}: {decode_steps} "
+              f"steps, {d['step_ms']:.2f} ms a step (host clock, backend "
+              f"cuda), flash_decode launches {d['launches']} = "
+              f"{d['layers']} layers × {decode_steps}, cuda vs torch max "
+              f"|dlogit| {d['rel']:.3e} of max|logit| {d['scale']:.3f} "
+              f"(tolerance {MESH_LOGIT_TOL:g}); flash_decode on layer 0's "
+              f"inputs vs its plain version max abs err "
+              f"{d['kernel_err']:.3e}", flush=True)
+    print(f"mesh phase: pass ({res['secs']:.1f} s)", flush=True)
+    return res
+
+
 # ------------------------------------------------------------------- main
 def package_missing(src: str) -> bool:
     """True, after one line on stderr naming where it looked, when the
@@ -4362,6 +4647,8 @@ def rehearse_on_cpu() -> int:
                       max_seq=MIXER_REHEARSAL_WINDOW, prompt=(3, 8),
                       new_tokens=4, forward=(2, 6))
     tr = train_phase("cpu", "cpu", full=False, steps=3, moe_steps=0)
+    mesh = mesh_phase("cpu", "cpu", full=False, train=(4, 32), steps=2,
+                      decode_batch=2, decode_seqs=(64,), decode_steps=3)
     pp = paper_phase("cpu", subsample=600, fast=True, gram=(2000, 12))
     print_paper_phase(pp, "cpu")
     st = stream_phase(run, epochs=2, ingest=(8, 32),
@@ -4389,6 +4676,9 @@ def rehearse_on_cpu() -> int:
                                       for k, r in mx.items()},
                    train_losses=[h["loss"] for h in tr["run"]["history"]],
                    train_cpu_loss=tr["cmp"]["loss"],
+                   mesh_losses=mesh["losses"],
+                   mesh_decode=[(d["seq"], d["launches"], d["rel"])
+                                for d in mesh["decodes"]],
                    paper_rows=[r[:5] for r in pp["rows"]],
                    paper_krr_rse=pp["krr"]["rse"],
                    stream_rounds=[(e["warm_rounds"], e["cold_rounds"])
@@ -4571,6 +4861,9 @@ def run_on_card() -> int:
     torch.cuda.empty_cache()
     tr = train_phase("cuda", card, full=True, steps=TRAIN_STEPS,
                      moe_steps=TRAIN_MOE_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(card)
 
     pp = paper_phase("cuda", subsample=None, fast=False,
                      gram=(None, PAPER_DBAR_WAVE))
@@ -4593,6 +4886,7 @@ def run_on_card() -> int:
         "dekrr_step_masked"], dekrr_async_solve=a_launches[
         "dekrr_async_solve"], dekrr_cheb_solve=c_launches["dekrr_cheb_solve"],
         flash_decode=llm["launches"]["flash_decode"], **serve_launches)
+    launches["flash_decode@bf16"] = mesh["launches"]
     launches["rff_gram@gram_fn"] = pp["gram"]["launches"]["rff_gram"]
     for k in ("dekrr_step", "dekrr_step_masked"):
         launches[f"{k}@spmd"] = sp_checks["launches"][k]
@@ -4619,8 +4913,10 @@ def run_on_card() -> int:
                   f"d=148, N={SERVE_N}): one launch {r['ms']:.4f} ms; the "
                   f"same wave as {J_NODES} single-node launches: "
                   f"{r.pop('per_node_ms'):.4f} ms")
-    decode = [r for r in rows if r.get("kernel") == "flash_decode"]
-    serving = decode[0].pop("serving")
+    decode = [r for r in rows
+              if r.get("kernel") in ("flash_decode", "flash_decode@bf16")]
+    serving = {r["name"]: r.pop("serving") for r in decode
+               if "serving" in r}
     for r in decode:
         sdpa = r.pop("sdpa")
         print(f"time [{card}] {r['name']} yardstick at (B, H, K, dh, S, "
@@ -4629,15 +4925,17 @@ def run_on_card() -> int:
               f"backend that agreed (ms): {json.dumps(sdpa['table'])}; "
               f"kernels of the default dispatch: "
               f"{json.dumps(sdpa['default'])}")
-    print(f"time [{card}] flash_decode at the serving cache (B={LLM_BATCH}, "
-          f"H=K=16, dh=64, S={LLM_MAX_SEQ}; warm: one cache launched again, "
-          f"cold: {DECODE_COLD_CACHES} caches launched in turn): " + "; ".join(
-              f"cur={cur}: warm {d['warm_ms']:.4f} ms, cold "
-              f"{d['cold_ms']:.4f} ms (bound {d['bound_ms']:.4f} ms; the "
-              f"fastest SDPA call, warm, {d['sdpa']['call']} "
-              f"{d['sdpa']['ms']:.4f} ms, every backend that agreed (ms): "
-              f"{json.dumps(d['sdpa']['table'])})"
-              for cur, d in serving.items()))
+    for row_name, served in serving.items():
+        print(f"time [{card}] {row_name} at the serving cache (B={LLM_BATCH}, "
+              f"H=K=16, dh=64, S={LLM_MAX_SEQ}; warm: one cache launched "
+              f"again, cold: {DECODE_COLD_CACHES} caches launched in turn): "
+              + "; ".join(
+                  f"cur={cur}: warm {d['warm_ms']:.4f} ms, cold "
+                  f"{d['cold_ms']:.4f} ms (bound {d['bound_ms']:.4f} ms; the "
+                  f"fastest SDPA call, warm, {d['sdpa']['call']} "
+                  f"{d['sdpa']['ms']:.4f} ms, every backend that agreed "
+                  f"(ms): {json.dumps(d['sdpa']['table'])})"
+                  for cur, d in served.items()))
     dh128 = rows[-1]
     for cur, d in dh128.pop("per_cur").items():
         print(f"time [{card}] flash_decode at deepseek-moe-16b's heads "

@@ -23,7 +23,7 @@ Budget table (bytes a block; one H100, sm_90):
                          G: 3·(2·64·36 + 32)·it)                     (tiles, b)
   rff_features       2·(16·WR·(32+p) + 32·(8·NT·WC+p))·it   1        (⌈N/cols⌉, ⌈D/rows⌉, J)
   serve_wave         rff_features' at the wave's shape      1        the same
-  flash_decode       (stages·2·tile·dh + hb·dh)·4           1        (rows·⌈G/hb⌉, chunks)
+  flash_decode       (stages·2·tile·dh + hb·dh)·itemsize    1        (rows·⌈G/hb⌉, chunks)
 
 Terms: K the slot count (≥ 1: the wrapper pads an edgeless graph to one
 slot), D the padded feature count, Dy the output width; the round kernel
@@ -303,20 +303,24 @@ def estimate_serve_wave(*, j: int, d_feat: int, n: int, itemsize: int = 8,
 
 
 def estimate_flash_decode(*, rows: int, groups: int, dh: int,
-                          s: int = 1) -> SmemEstimate:
+                          s: int = 1, itemsize: int = 4) -> SmemEstimate:
     """The decode-attention kernel (`csrc/flash_decode.cu`, `smem_bytes`)
     at `decode_plan`'s tiling for ``rows`` (batch, kv head) rows of
     ``groups`` query heads: a ring of K and V stages and the block's
-    query rows, in float32; grid (rows·head blocks, chunks of S)."""
+    query rows, in the operands' type (itemsize 4 in f32, 2 in bf16);
+    grid (rows·head blocks, chunks of S)."""
     from repro_torch.kernels.decode_attention import (decode_smem_bytes,
                                                       decode_tiling)
 
-    ppg, tile, stages, tiles, head_block = decode_tiling(groups, dh)
+    ppg, tile, stages, tiles, head_block = decode_tiling(groups, dh,
+                                                         itemsize)
     chunks = -(-max(s, 1) // (tiles * tile))
     return SmemEstimate(
-        kernel="flash_decode", formula="(stages*2*tile*dh + hb*dh)*4",
-        detail=f"({stages}*2*{tile}*{dh} + {head_block}*{dh})*4",
-        bytes=decode_smem_bytes(ppg, stages, head_block, dh),
+        kernel="flash_decode",
+        formula="(stages*2*tile*dh + hb*dh)*itemsize",
+        detail=(f"({stages}*2*{tile}*{dh} + {head_block}*{dh})"
+                f"*{itemsize}"),
+        bytes=decode_smem_bytes(ppg, stages, head_block, dh, itemsize),
         limit=SMEM_LIMITS["flash_decode"],
         grids=((max(rows, 1) * -(-max(groups, 1) // head_block), chunks,
                 1),))
@@ -365,6 +369,8 @@ PATH_SHAPES = (
     ("serve_wave", dict(j=10, d_feat=200, n=16, itemsize=2)),
     ("flash_decode", dict(rows=128, groups=1, dh=64, s=512)),
     ("flash_decode", dict(rows=16, groups=1, dh=64, s=32_768)),
+    ("flash_decode", dict(rows=128, groups=1, dh=64, s=32_768, itemsize=2)),
+    ("flash_decode", dict(rows=16, groups=1, dh=64, s=32_768, itemsize=2)),
 )
 _ESTIMATES = {
     "dekrr_step": estimate_dekrr_step,
@@ -436,9 +442,10 @@ def launcher_bytes(kernel: str, shape: dict, sms: int = H100_SMS) -> int:
     if kernel == "flash_decode":
         from repro_torch.kernels.decode_attention import decode_plan
 
-        plan = decode_plan(shape["rows"], shape["groups"], shape["dh"])
+        item = shape.get("itemsize", 4)
+        plan = decode_plan(shape["rows"], shape["groups"], shape["dh"], item)
         return _build.library("flash_decode").flash_decode_smem_bytes(
-            plan.ppg, plan.stages, plan.head_block, plan.dh)
+            plan.ppg, plan.stages, plan.head_block, plan.dh, item)
     raise ValueError(f"unknown kernel {kernel!r}")
 
 

@@ -16,10 +16,18 @@
 // the final divide is by max(l, 1e-30). No position at or past len is
 // read, so the stale tail of the cache changes no bit of the output.
 //
-// Bound on the card: by bytes. K and V up to len are read once (B·K·len·dh
-// ·4 B each) against 4·B·H·len·dh flops, ~1 flop a byte at G = 1, far below
-// the H100's ~20 f32 flops a byte. At B = 8, K = 16, dh = 64, len = 32,768
-// that is 2.15 GB (0.64 ms at 3.35 TB/s); at B = 1 it is 268 MB (0.080 ms)
+// Two entries: flash_decode_f32 (f32 q, K, V, out) and flash_decode_bf16
+// (bf16 q, K, V, out), as the reference's kernel takes q.dtype. The bf16
+// ring stages the cache's bf16 bytes as they are (a 16-byte copy is 8
+// values) and each lane widens its 4 values to f32 in registers; scores,
+// m, l, acc and the cross-chunk partials stay f32 in both, and the bf16
+// output is rounded once, at the end.
+//
+// Bound on the card: by bytes. K and V up to len are read once
+// (B·K·len·dh·itemsize B each) against 4·B·H·len·dh flops, ~1 flop a byte
+// at G = 1 in f32 (2 in bf16), far below the H100's ~20 f32 flops a byte.
+// At B = 8, K = 16, dh = 64, len = 32,768 that is 2.15 GB in f32 (0.64 ms
+// at 3.35 TB/s), half in bf16; at B = 1 it is 268 MB (0.080 ms) in f32
 // over only 16 rows, so the rows alone cannot fill 132 SMs.
 //
 // Split. Each row's positions are cut into chunks of `chunk` positions
@@ -70,6 +78,7 @@
 // near the card's practical rate; with few rows (one long request) a fixed
 // latency stays: a launch's first loads, the last blocks, each streaming
 // alone behind its ring's two tiles in flight, and the rows' merges.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -84,18 +93,40 @@ constexpr int kMaxSmem = 232448;            // per block on sm_90
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
-size_t smem_bytes(int ppg, int stages, int head_block, int dh) {
-  // ring [stages][K, V][tile][dh], q [head_block][dh]; tile = 32 · ppg
+size_t smem_bytes(int ppg, int stages, int head_block, int dh, int item) {
+  // ring [stages][K, V][tile][dh], q [head_block][dh] in the operands'
+  // type; tile = 32 · ppg
   return (size_t(stages) * 2 * (ppg * kLaneGroups) * dh +
-          size_t(head_block) * dh) * sizeof(float);
+          size_t(head_block) * dh) * size_t(item);
 }
 
+// 4 values of a row from shared memory, widened to f32
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <typename T>
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
+  const T* q;
+  const T* k;
+  const T* v;
   const int* lens;
-  float* out;
+  T* out;
   float* ws;            // partials [rows, chunks, G, 2 + dh]
   unsigned* counters;   // [rows · head blocks], zero between calls
   long long k_sb, k_ss, v_sb, v_ss;  // element strides: batch, position
@@ -139,12 +170,13 @@ __device__ __forceinline__ float4 shfl_xor4(float4 a, int off) {
                      __shfl_xor_sync(kFull, a.w, off));
 }
 
-// NV: float4 columns a lane holds (⌈dh / 32⌉ rounded up to 1, 2, 4, 8);
-// GB: query heads a block takes.
-template <int NV, int GB>
+// T: the operands' type (float, bf16); NV: 4-value columns a lane holds
+// (⌈dh / 32⌉ rounded up to 1, 2, 4, 8); GB: query heads a block takes.
+template <typename T, int NV, int GB>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const Params p) {
+flash_decode_kernel(const Params<T> p) {
   extern __shared__ float4 smem4[];
+  constexpr int kVec = 16 / sizeof(T);  // values a 16-byte copy moves
   __shared__ int is_last;
   const int hb = p.head_blocks;
   const int row = blockIdx.x / hb, hx = blockIdx.x % hb;
@@ -153,7 +185,7 @@ flash_decode_kernel(const Params p) {
   const int start = chunk_id * p.chunk;
   if (start >= len) return;
 
-  const int dh = p.dh, dv = dh / 4, G = p.groups;
+  const int dh = p.dh, dv = dh / 4, dc = dh / kVec, G = p.groups;
   const int g0 = hx * GB;
   const int ng = min(GB, G - g0);
   const int end = min(start + p.chunk, len);
@@ -161,46 +193,46 @@ flash_decode_kernel(const Params p) {
   const int tile = ppg * kLaneGroups;  // positions per ring stage
   const int n_tiles = (end - start + tile - 1) / tile;
   const int n_active = (len + p.chunk - 1) / p.chunk;
-  const int stage_f4 = 2 * tile * dv;  // K tile, then V tile
-  float4* ring = smem4;                 // [stages][2][tile][dv]
-  float4* qs = ring + p.stages * stage_f4;  // [GB][dv]
+  const int stage = 2 * tile * dh;      // K tile, then V tile, in values
+  T* ring = reinterpret_cast<T*>(smem4);     // [stages][2][tile][dh]
+  T* qs = ring + p.stages * stage;           // [GB][dh]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = tid / kLanes, sub = tid % kLanes;
   const int b = row / p.n_kv, kv = row % p.n_kv;
-  const float* kbase = p.k + b * p.k_sb + (long long)kv * dh;
-  const float* vbase = p.v + b * p.v_sb + (long long)kv * dh;
+  const T* kbase = p.k + b * p.k_sb + (long long)kv * dh;
+  const T* vbase = p.v + b * p.v_sb + (long long)kv * dh;
   const long long qrow = ((long long)row * G + g0) * dh;
 
   // q joins the first tile's commit group
-  for (int i = tid; i < ng * dv; i += kThreads)
-    cp_async16(qs + i, reinterpret_cast<const float4*>(p.q + qrow) + i);
+  for (int i = tid; i < ng * dc; i += kThreads)
+    cp_async16(qs + kVec * i, p.q + qrow + kVec * i);
 
-  // This thread's copies of a tile: float4 tid + 256·r of its K and V
-  // rows (tile·dv / kThreads = ppg·dh / 32 ≤ ppg·NV of them), at fixed
-  // offsets from the tile's first position; a copy past the tile never
-  // passes `end`.
+  // This thread's copies of a tile: 16-byte copy tid + 256·r of its K and
+  // V rows (tile·dc / kThreads = ppg·dh·itemsize / 128 ≤ ppg·NV of them),
+  // at fixed offsets from the tile's first position; a copy past the tile
+  // never passes `end`.
   int cj[kMaxPPG * NV];
   long long ko[kMaxPPG * NV], vo[kMaxPPG * NV];
 #pragma unroll
   for (int r = 0; r < kMaxPPG * NV; ++r) {
     const int idx = tid + kThreads * r;
-    const int j = idx / dv, col = idx - j * dv;
-    cj[r] = idx < tile * dv ? j : p.chunk;
-    ko[r] = j * p.k_ss + 4 * col;
-    vo[r] = j * p.v_ss + 4 * col;
+    const int j = idx / dc, col = idx - j * dc;
+    cj[r] = idx < tile * dc ? j : p.chunk;
+    ko[r] = j * p.k_ss + kVec * col;
+    vo[r] = j * p.v_ss + kVec * col;
   }
   auto load = [&](int t) {
-    float4* dst = ring + (t % p.stages) * stage_f4;
+    T* dst = ring + (t % p.stages) * stage;
     const int base = start + t * tile;
-    const float* kt = kbase + base * p.k_ss;
-    const float* vt = vbase + base * p.v_ss;
+    const T* kt = kbase + base * p.k_ss;
+    const T* vt = vbase + base * p.v_ss;
 #pragma unroll
     for (int r = 0; r < kMaxPPG * NV; ++r) {
       if (base + cj[r] < end) {
         const int idx = tid + kThreads * r;
-        cp_async16(dst + idx, kt + ko[r]);
-        cp_async16(dst + tile * dv + idx, vt + vo[r]);
+        cp_async16(dst + kVec * idx, kt + ko[r]);
+        cp_async16(dst + tile * dh + kVec * idx, vt + vo[r]);
       }
     }
   };
@@ -237,12 +269,12 @@ flash_decode_kernel(const Params p) {
 #pragma unroll
         for (int i = 0; i < NV; ++i) {
           const int col = sub + kLanes * i;
-          qr[g][i] = g < ng && col < dv ? qs[g * dv + col]
+          qr[g][i] = g < ng && col < dv ? load4(qs + g * dh + 4 * col)
                                         : make_float4(0.f, 0.f, 0.f, 0.f);
         }
     }
     // this lane group's positions of the tile: grp, grp + 32
-    const float4* stage = ring + (t % p.stages) * stage_f4;
+    const T* st = ring + (t % p.stages) * stage;
     bool valid[kMaxPPG];
     float4 kr[kMaxPPG][NV], vr[kMaxPPG][NV];
 #pragma unroll
@@ -253,8 +285,9 @@ flash_decode_kernel(const Params p) {
       for (int i = 0; i < NV; ++i) {
         const int col = sub + kLanes * i;
         const bool in = pp < ppg && col < dv;
-        kr[pp][i] = in ? stage[j * dv + col] : make_float4(0.f, 0.f, 0.f, 0.f);
-        vr[pp][i] = in ? stage[(tile + j) * dv + col]
+        kr[pp][i] = in ? load4(st + j * dh + 4 * col)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+        vr[pp][i] = in ? load4(st + (tile + j) * dh + 4 * col)
                        : make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
@@ -269,7 +302,7 @@ flash_decode_kernel(const Params p) {
         for (int i = 0; i < NV; ++i) {
           const int col = sub + kLanes * i;
           if (col < dv) {
-            const float4 a = kQInRegs ? qr[g][i] : qs[g * dv + col];
+            const float4 a = kQInRegs ? qr[g][i] : load4(qs + g * dh + 4 * col);
             s[pp] = fmaf(a.x, kr[pp][i].x, s[pp]);
             s[pp] = fmaf(a.y, kr[pp][i].y, s[pp]);
             s[pp] = fmaf(a.z, kr[pp][i].z, s[pp]);
@@ -359,7 +392,7 @@ flash_decode_kernel(const Params p) {
       a = fmaf(r[2 + d], e, a);
     }
     if (n_active == 1) {
-      p.out[qrow + idx] = a / fmaxf(sum, 1e-30f);
+      store(p.out + qrow + idx, a / fmaxf(sum, 1e-30f));
     } else {
       float* part =
           p.ws + (((long long)row * p.chunks + chunk_id) * G + g0 + g) * rec;
@@ -418,7 +451,7 @@ flash_decode_kernel(const Params p) {
       }
     }
     if (R == 1) {
-      p.out[qrow + col] = a / fmaxf(sum, 1e-30f);
+      store(p.out + qrow + col, a / fmaxf(sum, 1e-30f));
     } else {
       states[3 * idx] = mr;
       states[3 * idx + 1] = sum;
@@ -437,14 +470,14 @@ flash_decode_kernel(const Params p) {
       sum = fmaf(st[1], e, sum);
       a = fmaf(st[2], e, a);
     }
-    p.out[qrow + col] = a / fmaxf(sum, 1e-30f);
+    store(p.out + qrow + col, a / fmaxf(sum, 1e-30f));
   }
 }
 
-template <int NV, int GB>
-cudaError_t launch(const Params& prm, dim3 grid, size_t smem,
+template <typename T, int NV, int GB>
+cudaError_t launch(const Params<T>& prm, dim3 grid, size_t smem,
                    cudaStream_t stream) {
-  auto kernel = flash_decode_kernel<NV, GB>;
+  auto kernel = flash_decode_kernel<T, NV, GB>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -454,51 +487,40 @@ cudaError_t launch(const Params& prm, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
-template <int NV>
-cudaError_t launch_heads(const Params& prm, int head_block, dim3 grid,
+template <typename T, int NV>
+cudaError_t launch_heads(const Params<T>& prm, int head_block, dim3 grid,
                          size_t smem, cudaStream_t stream) {
   switch (head_block) {
-    case 1: return launch<NV, 1>(prm, grid, smem, stream);
-    case 2: return launch<NV, 2>(prm, grid, smem, stream);
-    case 4: return launch<NV, 4>(prm, grid, smem, stream);
+    case 1: return launch<T, NV, 1>(prm, grid, smem, stream);
+    case 2: return launch<T, NV, 2>(prm, grid, smem, stream);
+    case 4: return launch<T, NV, 4>(prm, grid, smem, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// q [B, K·G, dh] and out contiguous; k/v at element strides (k_sb, k_ss) /
-// (v_sb, v_ss) over batch and position, head stride dh, dh contiguous,
-// 16-byte aligned; lens [B·K] int32 in [1, chunks·chunk]; ws at least
-// B·K·chunks·G·(2 + dh) floats; counters B·K·⌈G / head_block⌉ zeroed
-// uint32 (the kernel leaves them zeroed). ppg 1 or 2 (a tile of 32·ppg
-// positions), chunk a multiple of the tile, stages 3 or 4, head_block 1, 2
-// or 4 (kernels/decode_attention.py::decode_plan).
-// Launches on `stream`.
-int flash_decode_f32(const void* q, const void* k, const void* v,
-                     const void* lens, void* out, void* ws, void* counters,
-                     long long k_sb, long long k_ss, long long v_sb,
-                     long long v_ss, int batch, int n_kv, int groups, int dh,
-                     int ppg, int chunk, int chunks, int stages,
-                     int head_block, double scale, void* stream) {
-  if (batch <= 0 || n_kv <= 0 || groups <= 0 || dh <= 0 || dh % 4 ||
+template <typename T>
+int run(const void* q, const void* k, const void* v, const void* lens,
+        void* out, void* ws, void* counters, long long k_sb, long long k_ss,
+        long long v_sb, long long v_ss, int batch, int n_kv, int groups,
+        int dh, int ppg, int chunk, int chunks, int stages, int head_block,
+        double scale, void* stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (batch <= 0 || n_kv <= 0 || groups <= 0 || dh <= 0 || dh % kVec ||
       dh > 256 || ppg < 1 || ppg > kMaxPPG || chunk <= 0 ||
       chunk % (ppg * kLaneGroups) || chunks <= 0 || chunks > 65535 ||
       (stages != 3 && stages != 4))
     return int(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(ppg, stages, head_block, dh);
+  const size_t smem = smem_bytes(ppg, stages, head_block, dh, sizeof(T));
   if (smem > size_t(kMaxSmem)) return int(cudaErrorInvalidValue);
   const int head_blocks = (groups + head_block - 1) / head_block;
   const long long blocks_x = (long long)batch * n_kv * head_blocks;
   if (blocks_x > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  Params prm;
-  prm.q = static_cast<const float*>(q);
-  prm.k = static_cast<const float*>(k);
-  prm.v = static_cast<const float*>(v);
+  Params<T> prm;
+  prm.q = static_cast<const T*>(q);
+  prm.k = static_cast<const T*>(k);
+  prm.v = static_cast<const T*>(v);
   prm.lens = static_cast<const int*>(lens);
-  prm.out = static_cast<float*>(out);
+  prm.out = static_cast<T*>(out);
   prm.ws = static_cast<float*>(ws);
   prm.counters = static_cast<unsigned*>(counters);
   prm.k_sb = k_sb;
@@ -517,18 +539,54 @@ int flash_decode_f32(const void* q, const void* k, const void* v,
   const dim3 grid(static_cast<unsigned>(blocks_x),
                   static_cast<unsigned>(chunks));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nv4 = (dh / 4 + kLanes - 1) / kLanes;  // float4 columns a lane
+  const int nv4 = (dh / 4 + kLanes - 1) / kLanes;  // 4-value columns a lane
   const int hb = head_block;
-  if (nv4 <= 1) return int(launch_heads<1>(prm, hb, grid, smem, st));
-  if (nv4 <= 2) return int(launch_heads<2>(prm, hb, grid, smem, st));
-  if (nv4 <= 4) return int(launch_heads<4>(prm, hb, grid, smem, st));
-  return int(launch_heads<8>(prm, hb, grid, smem, st));
+  if (nv4 <= 1) return int(launch_heads<T, 1>(prm, hb, grid, smem, st));
+  if (nv4 <= 2) return int(launch_heads<T, 2>(prm, hb, grid, smem, st));
+  if (nv4 <= 4) return int(launch_heads<T, 4>(prm, hb, grid, smem, st));
+  return int(launch_heads<T, 8>(prm, hb, grid, smem, st));
 }
 
-// Dynamic shared memory of a block, as the launcher computes it
-// (repro_torch.analysis.smem checks the same formula before any launch).
-int flash_decode_smem_bytes(int ppg, int stages, int head_block, int dh) {
-  return int(smem_bytes(ppg, stages, head_block, dh));
+}  // namespace
+
+extern "C" {
+
+// q [B, K·G, dh] and out contiguous; k/v at element strides (k_sb, k_ss) /
+// (v_sb, v_ss) over batch and position, head stride dh, dh contiguous,
+// 16-byte aligned; lens [B·K] int32 in [1, chunks·chunk]; ws at least
+// B·K·chunks·G·(2 + dh) floats; counters B·K·⌈G / head_block⌉ zeroed
+// uint32 (the kernel leaves them zeroed). ppg 1 or 2 (a tile of 32·ppg
+// positions), chunk a multiple of the tile, stages 3 or 4, head_block 1, 2
+// or 4 (kernels/decode_attention.py::decode_plan). dh a multiple of the
+// values one 16-byte copy moves: 4 in f32, 8 in bf16. Launches on `stream`.
+int flash_decode_f32(const void* q, const void* k, const void* v,
+                     const void* lens, void* out, void* ws, void* counters,
+                     long long k_sb, long long k_ss, long long v_sb,
+                     long long v_ss, int batch, int n_kv, int groups, int dh,
+                     int ppg, int chunk, int chunks, int stages,
+                     int head_block, double scale, void* stream) {
+  return run<float>(q, k, v, lens, out, ws, counters, k_sb, k_ss, v_sb,
+                    v_ss, batch, n_kv, groups, dh, ppg, chunk, chunks, stages,
+                    head_block, scale, stream);
+}
+
+int flash_decode_bf16(const void* q, const void* k, const void* v,
+                      const void* lens, void* out, void* ws, void* counters,
+                      long long k_sb, long long k_ss, long long v_sb,
+                      long long v_ss, int batch, int n_kv, int groups, int dh,
+                      int ppg, int chunk, int chunks, int stages,
+                      int head_block, double scale, void* stream) {
+  return run<__nv_bfloat16>(q, k, v, lens, out, ws, counters, k_sb, k_ss,
+                            v_sb, v_ss, batch, n_kv, groups, dh, ppg, chunk,
+                            chunks, stages, head_block, scale, stream);
+}
+
+// Dynamic shared memory of a block, as the launcher computes it, for
+// operands of `itemsize` bytes (repro_torch.analysis.smem checks the same
+// formula before any launch).
+int flash_decode_smem_bytes(int ppg, int stages, int head_block, int dh,
+                            int itemsize) {
+  return int(smem_bytes(ppg, stages, head_block, dh, itemsize));
 }
 
 }  // extern "C"

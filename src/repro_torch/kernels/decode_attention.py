@@ -13,7 +13,9 @@ backend ``cuda``):
 for q [B, 1, H, dh], k/v caches [B, S, K, dh] (GQA: query head
 h = kv·G + g, G = H / K) and per-(batch, kv head) lengths ``lens``
 [B·K] int32, positions ≥ len masked with the finite −1e30 and the sum
-floored at 1e-30 before the divide.
+floored at 1e-30 before the divide. The operands are f32 or bf16 (one
+type for all, the output's too); the arithmetic is f32 in both, as the
+reference's kernel keeps m, l and acc in f32 for bf16 operands.
 
 The kernel (`csrc/flash_decode.cu`) splits each (batch, kv head) row's
 positions into chunks of `decode_plan`'s length, a function of dh alone,
@@ -64,6 +66,7 @@ class DecodePlan:
     rows: int
     groups: int
     dh: int
+    itemsize: int       # bytes of an operand value: 4 (f32) or 2 (bf16)
     chunk: int          # positions per block, a multiple of `tile`
     ppg: int            # positions a lane group takes from a tile (1, 2)
     tile: int           # positions per ring stage, 32·ppg
@@ -112,15 +115,17 @@ class DecodePlan:
         return self.blocks(s) / (sms * self.blocks_per_sm)
 
 
-def decode_tiling(groups: int, dh: int) -> tuple[int, int, int, int, int]:
+def decode_tiling(groups: int, dh: int, itemsize: int = 4
+                  ) -> tuple[int, int, int, int, int]:
     """(ppg, tile, stages, tiles a chunk, head_block) of `decode_plan`
-    for ``groups`` query heads at head size ``dh`` (any dh ≥ 1: the
-    budget check reads it for shapes the card would refuse too)."""
+    for ``groups`` query heads at head size ``dh`` and operands of
+    ``itemsize`` bytes (any dh ≥ 1: the budget check reads it for shapes
+    the card would refuse too)."""
     dh = max(1, dh)
-    ppg = 2 if 2 * 2 * DECODE_LANE_GROUPS * dh * 4 \
+    ppg = 2 if 2 * 2 * DECODE_LANE_GROUPS * dh * itemsize \
         <= DECODE_PAIR_STAGE_BYTES else 1
     tile = ppg * DECODE_LANE_GROUPS
-    stage_bytes = 2 * tile * dh * 4
+    stage_bytes = 2 * tile * dh * itemsize
     stages = 4 if stage_bytes <= 16 << 10 else 3
     tiles = max(1, min(DECODE_MAX_CHUNK_TILES,
                        DECODE_CHUNK_BYTES // stage_bytes))
@@ -130,30 +135,42 @@ def decode_tiling(groups: int, dh: int) -> tuple[int, int, int, int, int]:
 
 
 def decode_smem_bytes(ppg: int, stages: int, head_block: int,
-                      dh: int) -> int:
+                      dh: int, itemsize: int = 4) -> int:
     """Shared memory of a block in the layout of csrc/flash_decode.cu
     (`smem_bytes`): the ring [stages][K, V][32·ppg][dh] and the block's
-    query rows [head_block][dh], in float32."""
-    return (stages * 2 * ppg * DECODE_LANE_GROUPS * dh + head_block * dh) * 4
+    query rows [head_block][dh], in the operands' type."""
+    return (stages * 2 * ppg * DECODE_LANE_GROUPS * dh + head_block * dh) \
+        * itemsize
+
+
+def decode_vector(itemsize: int) -> int:
+    """Values one 16-byte copy moves: 4 in f32, 8 in bf16. dh, and the
+    caches' batch and position strides, are multiples of it."""
+    return 16 // itemsize
 
 
 @functools.lru_cache(maxsize=None)
-def decode_plan(rows: int, groups: int, dh: int) -> DecodePlan:
+def decode_plan(rows: int, groups: int, dh: int,
+                itemsize: int = 4) -> DecodePlan:
     """Launch plan of `flash_decode`: 256 threads a block, eight lanes a
     position, so 32 lane groups; each takes two positions of a ring stage
     while such a stage (64 positions of K and V) is at most 32 KB
-    (dh ≤ 64), else one; 4 stages while a stage is at most 16 KB, else 3;
-    a chunk of as many tiles as make 256 KB of K and V (512 positions at
-    dh 64, 256 at dh 128), at least one and at most 64; query heads in
-    blocks of 1, 2 or 4. The chunk depends on dh alone, never on S or on
-    the row lengths, so views of any length and graph replays with new
-    lengths cut the same chunks."""
-    if rows <= 0 or groups <= 0 or dh <= 0 or dh % 4:
+    (dh ≤ 64 in f32, ≤ 128 in bf16), else one; 4 stages while a stage is
+    at most 16 KB, else 3; a chunk of as many tiles as make 256 KB of K
+    and V (512 positions at dh 64 in f32, 1,024 in bf16; 256 at dh 128 in
+    f32), at least one and at most 64; query heads in blocks of 1, 2 or
+    4. The chunk depends on dh and the operands' type alone, never on S
+    or on the row lengths, so views of any length and graph replays with
+    new lengths cut the same chunks."""
+    vec = decode_vector(itemsize) if itemsize in (2, 4) else 0
+    if rows <= 0 or groups <= 0 or dh <= 0 or not vec or dh % vec:
         raise ValueError(f"decode_plan: rows {rows}, groups {groups} and "
-                         f"head_dim {dh} must be positive, head_dim a "
-                         f"multiple of 4")
-    ppg, tile, stages, tiles, head_block = decode_tiling(groups, dh)
-    smem = decode_smem_bytes(ppg, stages, head_block, dh)
+                         f"head_dim {dh} must be positive, the itemsize 4 "
+                         f"or 2 (got {itemsize}) and head_dim a multiple "
+                         f"of {vec or 4}")
+    ppg, tile, stages, tiles, head_block = decode_tiling(groups, dh,
+                                                         itemsize)
+    smem = decode_smem_bytes(ppg, stages, head_block, dh, itemsize)
     if smem > DECODE_SMEM_LIMIT:
         raise SmemBudgetError(
             f"decode_plan: head_dim {dh} needs {smem} bytes of shared "
@@ -161,7 +178,8 @@ def decode_plan(rows: int, groups: int, dh: int) -> DecodePlan:
     per_sm = min(DECODE_THREADS_PER_SM // DECODE_THREADS,
                  DECODE_SMEM_PER_SM // (smem + DECODE_SMEM_RESERVED))
     return DecodePlan(
-        rows=rows, groups=groups, dh=dh, chunk=tiles * tile, ppg=ppg,
+        rows=rows, groups=groups, dh=dh, itemsize=itemsize,
+        chunk=tiles * tile, ppg=ppg,
         tile=tile, stages=stages, head_block=head_block,
         head_blocks=-(-groups // head_block), threads=DECODE_THREADS,
         smem_bytes=smem, blocks_per_sm=per_sm)
@@ -172,7 +190,12 @@ def flash_decode_reference(q: torch.Tensor, k: torch.Tensor,
                            lens: torch.Tensor) -> torch.Tensor:
     """Plain version of the kernel's function: q [B, 1, H, dh], k/v
     [B, S, K, dh], lens [B·K] int → [B, 1, H, dh] in q's dtype, over the
-    whole cache in one pass (scores masked at positions ≥ len)."""
+    whole cache in one pass (scores masked at positions ≥ len). bf16
+    operands are computed in f32 and the output rounded to bf16 once,
+    the kernel's contract."""
+    if q.dtype == torch.bfloat16:
+        return flash_decode_reference(q.float(), k.float(), v.float(),
+                                      lens).to(q.dtype)
     b, _, h, dh = q.shape
     s, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -197,13 +220,16 @@ def flash_decode_split_reference(q: torch.Tensor, k: torch.Tensor,
     combined in chunk order, M = max_c m_c, out = Σ_c e^{m_c − M}·acc_c /
     max(Σ_c e^{m_c − M}·l_c, 1e-30). The kernel forms the same partials
     and folds them in another fixed order (`csrc/flash_decode.cu`), so the
-    two agree to the rounding of the sums. Shapes as
-    `flash_decode_reference`."""
+    two agree to the rounding of the sums. Shapes and dtypes as
+    `flash_decode_reference` (bf16 in f32, the output rounded once)."""
     b, _, h, dh = q.shape
     s, kh = k.shape[1], k.shape[2]
     g = h // kh
     if chunk is None:
-        chunk = decode_plan(b * kh, g, dh).chunk
+        chunk = decode_plan(b * kh, g, dh, q.element_size()).chunk
+    if q.dtype == torch.bfloat16:
+        return flash_decode_split_reference(
+            q.float(), k.float(), v.float(), lens, chunk=chunk).to(q.dtype)
     n = -(-s // chunk)
     pad = n * chunk - s
     qg = q.reshape(b, kh, g, dh)
@@ -257,20 +283,23 @@ def _row_counters(device: torch.device, count: int) -> torch.Tensor:
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       lens: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch the kernel on checked CUDA f32 tensors (q and out
-    contiguous [B, 1, H, dh]; k/v [B, S, K, dh] with dh and the head axis
-    contiguous, 16-byte aligned; lens [B·K] int32 in [1, S]), writing out
-    on the current stream. The partials' workspace comes from
-    `torch.empty`; the ticket table is the device's (`_row_counters`)."""
+    """Launch the kernel on checked CUDA f32 or bf16 tensors of one type
+    (q and out contiguous [B, 1, H, dh]; k/v [B, S, K, dh] with dh and
+    the head axis contiguous, 16-byte aligned; lens [B·K] int32 in
+    [1, S]), writing out on the current stream. The partials' workspace
+    (f32) comes from `torch.empty`; the ticket table is the device's
+    (`_row_counters`)."""
     b, _, h, dh = q.shape
     s, kh = k.shape[1], k.shape[2]
-    plan = decode_plan(b * kh, h // kh, dh)
+    plan = decode_plan(b * kh, h // kh, dh, q.element_size())
     ws = torch.empty(max(1, plan.workspace(s)), dtype=torch.float32,
                      device=q.device)
     counters = _row_counters(q.device, plan.counters)
     lib = _build.library("flash_decode")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.flash_decode_f32(
+    entry = (lib.flash_decode_bf16 if q.dtype == torch.bfloat16
+             else lib.flash_decode_f32)
+    code = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
         out.data_ptr(), ws.data_ptr(), counters.data_ptr(), k.stride(0),
         k.stride(1), v.stride(0), v.stride(1), b, kh, h // kh, dh,

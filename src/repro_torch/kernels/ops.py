@@ -296,6 +296,7 @@ def rff_features_lowp_batched(omega: torch.Tensor, bias: torch.Tensor,
 
 # ------------------------------------------------------------------ decode
 FLASH_DECODE_MAX_HEAD_DIM = 256
+FLASH_DECODE_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -304,13 +305,16 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     """Single-token decode attention: q [B, 1, H, dh] against k/v caches
     [B, S, K, dh] (GQA: H % K == 0) whose first ``cur_index`` positions
     are valid, ``cur_index`` a scalar in [1, S] (a tensor is read to the
-    host). Returns [B, 1, H, dh] in q's dtype. Float64 operands are cast
-    to float32 and the result back, as the reference does.
+    host). Returns [B, 1, H, dh] in q's dtype. The operands share one
+    dtype of f32, bf16 and f64; float64 operands are cast to float32 and
+    the result back, as the reference does; bf16 caches are read as they
+    are (the kernel widens each value in registers), never copied.
 
-    On CUDA the kernel takes f32 with dh a multiple of 4 up to 256, q
-    contiguous, and caches whose head and dh axes are contiguous (any
-    batch and position strides, multiples of 4) at 16-byte aligned
-    addresses; anything else raises."""
+    On CUDA the kernel takes f32 or bf16 with dh a multiple of 4 (f32) or
+    8 (bf16) up to 256, q contiguous, and caches whose head and dh axes
+    are contiguous (any batch and position strides, multiples of 4 or 8
+    values: 16 bytes) at 16-byte aligned addresses; anything else
+    raises, naming the operand."""
     name = "flash_decode"
     if q.ndim != 4 or k_cache.ndim != 4 or q.shape[1] != 1:
         raise ValueError(f"{name}: q {tuple(q.shape)} and k_cache "
@@ -324,31 +328,40 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"{name}: {h} query heads do not group over {kh} "
                          f"kv heads")
     on_cuda = _on_cuda(name, q, k_cache, v_cache)
-    out_dtype = _check_floats(name, q, k_cache, v_cache)
+    dtypes = {t.dtype for t in (q, k_cache, v_cache)}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in FLASH_DECODE_DTYPES:
+        raise TypeError(f"{name}: q, k_cache and v_cache must share one "
+                        f"dtype of {FLASH_DECODE_DTYPES}, got "
+                        f"{sorted(map(str, dtypes))}")
+    out_dtype = dtypes.pop()
     cur = int(cur_index)
     if not 1 <= cur <= s:
         raise ValueError(f"{name}: cur_index {cur} lies outside [1, {s}]")
-    smem.estimate_flash_decode(rows=b * kh, groups=h // kh, dh=dh,
-                               s=s).check()
     if out_dtype == torch.float64:
         q, k_cache, v_cache = (t.float() for t in (q, k_cache, v_cache))
+    item = q.element_size()
+    smem.estimate_flash_decode(rows=b * kh, groups=h // kh, dh=dh, s=s,
+                               itemsize=item).check()
     lens = torch.full((b * kh,), cur, dtype=torch.int32, device=q.device)
     if not on_cuda:
         _count_plain(name)
         return flash_decode_reference(q, k_cache, v_cache,
                                       lens).to(out_dtype)
     _check_contiguous(name, q=q)
-    if dh % 4 or dh > FLASH_DECODE_MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {dh} must be a multiple of 4 "
-                         f"up to {FLASH_DECODE_MAX_HEAD_DIM}")
+    vec = 16 // item
+    if dh % vec or dh > FLASH_DECODE_MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {dh} must be a multiple of "
+                         f"{vec} up to {FLASH_DECODE_MAX_HEAD_DIM} in "
+                         f"{q.dtype}")
     for key, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.stride(3) != 1 or t.stride(2) != dh:
             raise ValueError(f"{name}: {key} must have contiguous head and "
                              f"dh axes, got strides {t.stride()}")
-        if t.stride(0) % 4 or t.stride(1) % 4 or t.data_ptr() % 16:
+        if t.stride(0) % vec or t.stride(1) % vec or t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must be 16-byte aligned with "
                              f"batch and position strides that are "
-                             f"multiples of 4, got strides {t.stride()}")
+                             f"multiples of {vec} in {t.dtype}, got "
+                             f"strides {t.stride()}")
     if q.data_ptr() % 16:
         raise ValueError(f"{name}: q must be 16-byte aligned")
     out = torch.empty_like(q)

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models import spmd
 
 _NEG_INF = -1e30   # finite mask value: keeps fully-masked rows NaN-free
 _POS_PAD = torch.iinfo(torch.int32).max   # position of chunk padding
@@ -81,7 +82,27 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     heads (H % K == 0). Masks: causal (q_pos ≥ kv_pos), sliding window
     (q_pos − kv_pos < window), kv positions ≥ ``kv_valid_len``, and the
     chunk padding. Softmax statistics are carried in float32.
+
+    DTensor operands (a mesh) run on their local shards
+    (`_sharded_attention`).
     """
+    if spmd.is_dtensor(q) or spmd.is_dtensor(k):
+        return _sharded_attention(q, k, v, q_positions, kv_positions,
+                                  causal=causal, window=window,
+                                  chunk_kv=chunk_kv,
+                                  kv_valid_len=kv_valid_len)
+    m, l, acc = _attention_partial(q, k, v, q_positions, kv_positions,
+                                   causal=causal, window=window,
+                                   chunk_kv=chunk_kv,
+                                   kv_valid_len=kv_valid_len)
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.to(q.dtype)
+
+
+def _attention_partial(q, k, v, q_positions, kv_positions, *, causal,
+                       window, chunk_kv, kv_valid_len):
+    """The online-softmax state (m, l [B, Sq, H], acc [B, Sq, H, dh],
+    float32) of `chunked_attention` over the keys it is given."""
     b, sq, h, dh = q.shape
     _, skv, kh, _ = k.shape
     if h % kh:
@@ -122,8 +143,35 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           p.reshape(b, sq, kh, g, chunk_kv), vc)
         acc = acc * alpha[..., None] + pv.reshape(b, sq, h, dh)
         m = m_new
-    out = acc / torch.clamp_min(l[..., None], 1e-30)
-    return out.to(q.dtype)
+    return m, l, acc
+
+
+def _sharded_attention(q, k, v, q_positions, kv_positions, *, causal,
+                       window, chunk_kv, kv_valid_len):
+    """`chunked_attention` on a mesh: q, k and v redistributed to
+    `spmd.attention_layout` (batch over the data axes, heads over
+    ``model`` where it divides them), the attention of each rank's shard
+    computed locally; keys sharded by sequence (a long cache) give
+    partials that merge across those mesh dims
+    (`spmd.combine_partials`). Returns a DTensor in q's layout."""
+    qpl, kpl, seq = spmd.attention_layout(q, k)
+    mesh = (q if spmd.is_dtensor(q) else k).device_mesh
+    ql, kl, vl = spmd.local_shards((q, k, v), (qpl, kpl, kpl))
+    q_pos = q_positions.full_tensor() if spmd.is_dtensor(q_positions) \
+        else q_positions
+    kv_pos = kv_positions.full_tensor() if spmd.is_dtensor(kv_positions) \
+        else kv_positions
+    if seq:
+        lo = spmd.local_range(k, 1)[0]
+        kv_pos = kv_pos[lo:lo + kl.shape[1]]
+    m, l, acc = _attention_partial(
+        ql, kl, vl, q_pos, kv_pos, causal=causal, window=window,
+        chunk_kv=min(chunk_kv, kl.shape[1]), kv_valid_len=kv_valid_len)
+    if seq:
+        out = spmd.combine_partials(m, l, acc, mesh, qpl, seq, q.shape)
+    else:
+        out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return spmd.wrap(out.to(q.dtype), mesh, qpl, q.shape)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -137,6 +185,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     `chunked_attention` with the query at position ``cur_index − 1`` and
     one chunk spanning the cache, as the reference's decode step does."""
     if backend == "cuda":
+        if spmd.is_dtensor(k_cache) or spmd.is_dtensor(q):
+            return _sharded_flash_decode(q, k_cache, v_cache, cur_index)
         return ops.flash_decode(q, k_cache, v_cache, cur_index)
     if backend != "torch":
         raise ValueError(f"decode_attention: unknown backend {backend!r}; "
@@ -147,6 +197,37 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     q_pos = torch.full((1,), cur - 1, dtype=torch.int32, device=q.device)
     return chunked_attention(q, k_cache, v_cache, q_pos, kv_pos,
                              causal=True, chunk_kv=s, kv_valid_len=cur)
+
+
+def _sharded_flash_decode(q, k_cache, v_cache, cur_index):
+    """`ops.flash_decode` on a mesh: on each rank's shards of caches
+    placed by batch or kv heads, or replicated, with q brought to the
+    same layout (q is one token; the caches are never moved). The output
+    is wrapped in the caches' placements. Any other placement of a cache
+    (by sequence, by head_dim, partial) raises, naming it: the kernel
+    takes whole rows of positions."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if not spmd.is_dtensor(t):
+            raise TypeError(f"decode_attention: q is a DTensor and {name} "
+                            f"is not; put both on the mesh")
+        for i, pl in enumerate(t.placements):
+            ok = type(pl) is Replicate or (type(pl) is Shard
+                                           and pl.dim in (0, 2))
+            if not ok:
+                raise ValueError(
+                    f"decode_attention(backend='cuda'): flash_decode takes "
+                    f"caches placed by batch (dim 0) or kv heads (dim 2), or "
+                    f"replicated; {name} has {pl} on mesh dim "
+                    f"{t.device_mesh.mesh_dim_names[i]!r}")
+    if tuple(v_cache.placements) != tuple(k_cache.placements):
+        raise ValueError(f"decode_attention: k_cache {k_cache.placements} "
+                         f"and v_cache {v_cache.placements} differ")
+    mesh, pl = k_cache.device_mesh, tuple(k_cache.placements)
+    ql, kl, vl = spmd.local_shards((q, k_cache, v_cache), (pl, pl, pl))
+    out = ops.flash_decode(ql, kl, vl, cur_index)
+    return spmd.wrap(out, mesh, pl, q.shape)
 
 
 # --------------------------------------------------------------------- MLP

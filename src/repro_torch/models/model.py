@@ -61,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import spmd
 from repro_torch.models import ssm as ssm_lib
 
 Params = dict
@@ -121,9 +122,11 @@ class ModelConfig:
     attn_chunk: int = 1024
     scan_chunk: int = 128             # time chunk for ssm/rwkv scans
     remat: bool = True
-    # the reference's sharding and dry-run analysis switches; the port
-    # keeps them so configurations compare field for field, and ignores
-    # them (one device, eager)
+    # the activations' spec on a mesh, (batch, sequence, d) axes: the
+    # residual is redistributed to it after the embedding and after each
+    # layer group (`repro_torch.models.spmd.constrain`); ignored on plain
+    # tensors. ``analysis_unroll`` is the reference's dry-run switch, kept
+    # so configurations compare field for field (the port never scans)
     act_shard: tuple | None = None
     analysis_unroll: bool = False
     citation: str = ""
@@ -363,24 +366,35 @@ def active_param_count(cfg: ModelConfig) -> int:
 
 
 # ================================================================= slot apply
+def _norm_in(cfg: ModelConfig, h: torch.Tensor,
+             weight: torch.Tensor) -> torch.Tensor:
+    """The normed input [B, S, d] of a mixer or ffn; on a mesh whose
+    activations shard the sequence (``act_shard``), gathered over it
+    first, so the column-sharded projections see whole sequences."""
+    x = L.rms_norm(h, weight)
+    if cfg.act_shard is not None and cfg.act_shard[1] is not None:
+        x = spmd.constrain(x, (cfg.act_shard[0], None, None))
+    return x
+
+
 def _qkv(cfg: ModelConfig, p: dict, h: torch.Tensor,
          positions: torch.Tensor):
-    b, s, _ = h.shape
     nh, nk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    x = L.rms_norm(h, p["norm_mix"])
+    x = _norm_in(cfg, h, p["norm_mix"])
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = L.apply_rope(q.reshape(b, s, nh, hd), positions, cfg.rope_theta)
-    k = L.apply_rope(k.reshape(b, s, nk, hd), positions, cfg.rope_theta)
-    return q, k, v.reshape(b, s, nk, hd)
+    q = L.apply_rope(spmd.split_last(q, nh, hd), positions, cfg.rope_theta)
+    k = L.apply_rope(spmd.split_last(k, nk, hd), positions, cfg.rope_theta)
+    return q, k, spmd.split_last(v, nk, hd)
 
 
-def _mamba_in(p: dict, h: torch.Tensor):
+def _mamba_in(cfg: ModelConfig, p: dict, h: torch.Tensor):
     """The Mamba mixer's projections: (x_in, z), each [..., d_inner]."""
-    x = L.rms_norm(h, p["norm_mix"])
+    x = _norm_in(cfg, h, p["norm_mix"]) if h.ndim == 3 \
+        else L.rms_norm(h, p["norm_mix"])
     return x @ p["in_x"], x @ p["in_z"]
 
 
@@ -391,13 +405,28 @@ def _mamba_delta(p: dict, xi: torch.Tensor) -> torch.Tensor:
 
 
 def _mamba_mixer(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
-    xi, z = _mamba_in(p, h)
+    xi, z = _mamba_in(cfg, p, h)
     xi = F.silu(ssm_lib.causal_conv1d(xi, p["conv_w"]))
-    state0 = torch.zeros((h.shape[0], cfg.d_inner, cfg.ssm_state_dim),
-                         dtype=torch.float32, device=h.device)
-    y, _ = ssm_lib.ssm_chunk_scan(xi, _mamba_delta(p, xi), p["a_log"],
-                                  xi @ p["w_b"], xi @ p["w_c"], p["d_skip"],
-                                  state0, chunk=cfg.scan_chunk)
+
+    def scan(xi, delta, a_log, b_t, c_t, d_skip):
+        state0 = torch.zeros((xi.shape[0], xi.shape[2],
+                              cfg.ssm_state_dim), dtype=torch.float32,
+                             device=xi.device)
+        return ssm_lib.ssm_chunk_scan(xi, delta, a_log, b_t, c_t, d_skip,
+                                      state0, chunk=cfg.scan_chunk)[0]
+
+    args = (xi, _mamba_delta(p, xi), p["a_log"], xi @ p["w_b"],
+            xi @ p["w_c"], p["d_skip"])
+    if not spmd.is_dtensor(xi):
+        y = scan(*args)
+    else:
+        lay = spmd.Layout(xi, cfg.d_inner)
+        inner = lay.placements(3, batch=0, inner=2)
+        y = spmd.local_call(
+            scan, lay.mesh, args,
+            (inner, inner, lay.placements(2, inner=0),
+             lay.placements(3, batch=0), lay.placements(3, batch=0),
+             lay.placements(1, inner=0)), (inner,), (xi.shape,))
     return (y * F.silu(z)) @ p["out"]
 
 
@@ -405,15 +434,14 @@ def _rwkv_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor,
                  prev: torch.Tensor | None):
     """r, k, v, w [B, S, H, dh] and the gate g [B, S, d] of the time mix
     from the normed x [B, S, d] (``prev`` the decode shift state)."""
-    b, s, _ = x.shape
     hh, dh = cfg.rwkv_heads, cfg.rwkv_head_dim
 
     def mix(mu):
         return rwkv_lib.token_shift(x, mu, prev)
 
-    r = (mix(p["mu_r"]) @ p["wr"]).reshape(b, s, hh, dh)
-    k = (mix(p["mu_k"]) @ p["wk_t"]).reshape(b, s, hh, dh)
-    v = (mix(p["mu_v"]) @ p["wv_t"]).reshape(b, s, hh, dh)
+    r = spmd.split_last(mix(p["mu_r"]) @ p["wr"], hh, dh)
+    k = spmd.split_last(mix(p["mu_k"]) @ p["wk_t"], hh, dh)
+    v = spmd.split_last(mix(p["mu_v"]) @ p["wv_t"], hh, dh)
     g = F.silu(mix(p["mu_g"]) @ p["wg"])
     w = rwkv_lib.data_dependent_decay(mix(p["mu_w"]), p["w0"], p["wa"],
                                       p["wb"], hh)
@@ -423,19 +451,29 @@ def _rwkv_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor,
 def _rwkv_out(p: dict, out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     # rms norm as the stand-in for the per-head group norm, as the
     # reference computes it
-    out = L.rms_norm(out.reshape(g.shape), p["gn"])
+    out = L.rms_norm(spmd.merge_last(out), p["gn"])
     return (out * g) @ p["wo"]
 
 
 def _rwkv_mixer(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
-    b = h.shape[0]
-    x = L.rms_norm(h, p["norm_mix"])
+    x = _norm_in(cfg, h, p["norm_mix"])
     r, k, v, w, g = _rwkv_inputs(cfg, p, x, None)
-    state0 = torch.zeros((b, cfg.rwkv_heads, cfg.rwkv_head_dim,
-                          cfg.rwkv_head_dim), dtype=torch.float32,
-                         device=h.device)
-    out, _ = rwkv_lib.wkv6_chunk_scan(r, k, v, w, p["u"], state0,
-                                      chunk=cfg.scan_chunk)
+
+    def scan(r, k, v, w, u):
+        state0 = torch.zeros((r.shape[0], r.shape[2], cfg.rwkv_head_dim,
+                              cfg.rwkv_head_dim), dtype=torch.float32,
+                             device=r.device)
+        return rwkv_lib.wkv6_chunk_scan(r, k, v, w, u, state0,
+                                        chunk=cfg.scan_chunk)[0]
+
+    if not spmd.is_dtensor(r):
+        out = scan(r, k, v, w, p["u"])
+    else:
+        lay = spmd.Layout(r, cfg.rwkv_heads)
+        heads = lay.placements(4, batch=0, inner=2)
+        out = spmd.local_call(scan, lay.mesh, (r, k, v, w, p["u"]),
+                              (heads,) * 4 + (lay.placements(2, inner=0),),
+                              (heads,), (r.shape,))
     return _rwkv_out(p, out, g)
 
 
@@ -445,7 +483,7 @@ def _ffn(cfg: ModelConfig, slot: SlotSpec, p: dict, h: torch.Tensor,
     MoE losses add into ``aux``."""
     if slot.ffn == "none":
         return None
-    x = L.rms_norm(h, p["norm_ffn"])
+    x = _norm_in(cfg, h, p["norm_ffn"])
     if slot.ffn == "dense":
         if cfg.act == "swiglu":
             return L.swiglu_mlp(x, p["w_gate"], p["w_up"], p["w_down"])
@@ -565,10 +603,38 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.params["embed"].device
 
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """The token embeddings [B, S, d] in the compute dtype; on a mesh
+        the table's FSDP shards gathered first, read through
+        ``F.embedding`` (DTensor's masked lookup of a vocab-sharded
+        table; its backward sums a repeated token's gradients in another
+        order than the plain path's index backward), and the result
+        placed by ``act_shard``'s batch entry."""
+        table = params["embed"]
+        if not spmd.is_dtensor(table):
+            return table[tokens.long()].to(self.cfg.cdt)
+        h = F.embedding(tokens.long(), spmd.unshard(table)).to(self.cfg.cdt)
+        return self._constrain(h, batch_only=True)
+
+    def _constrain(self, h: torch.Tensor, *, batch_only: bool = False
+                   ) -> torch.Tensor:
+        spec = self.cfg.act_shard
+        if spec is None:
+            return h
+        return spmd.constrain(h, (spec[0], None, None) if batch_only
+                              else spec)
+
+    def _add(self, h: torch.Tensor, branch: torch.Tensor) -> torch.Tensor:
+        """The residual h plus a mixer's or ffn's output; on a mesh the
+        output (a partial sum over ``model`` after its row-sharded
+        projection) is first reduced to ``act_shard``'s layout, in the
+        compute dtype."""
+        return h + self._constrain(branch)
+
     def _head(self, params: Params) -> torch.Tensor:
         head = (params["embed"].T if self.cfg.tie_embeddings
                 else params["lm_head"])
-        return head.to(self.cfg.cdt)
+        return spmd.unshard(head).to(self.cfg.cdt)
 
     # ---- full-sequence forward ----------------------------------------------
     def forward(self, tokens: torch.Tensor | None = None,
@@ -585,10 +651,14 @@ class Model(nn.Module):
         ``torch.utils.checkpoint`` (non-reentrant): its activations are
         recomputed in the backward pass, and the gradients are the same
         bits as without it."""
-        cfg = self.cfg
         params = self.params if params is None else params
+        with spmd.implicit(spmd.on_mesh(params["embed"], tokens, embeds)):
+            return self._forward(params, tokens, embeds, positions)
+
+    def _forward(self, params, tokens, embeds, positions):
+        cfg = self.cfg
         if tokens is not None:
-            h = params["embed"][tokens.long()].to(cfg.cdt)
+            h = self._embed(params, tokens)
             if embeds is not None:
                 h = torch.cat([embeds.to(cfg.cdt), h], dim=1)
         else:
@@ -605,7 +675,7 @@ class Model(nn.Module):
             else:
                 h, aux = self._group(h, layer, positions)
             per_group.append(aux)
-        h = L.rms_norm(h, params["final_norm"])
+        h = _norm_in(cfg, h, params["final_norm"])
         aux_total = {}
         if any(slot.ffn == "moe" for slot in cfg.slots):
             aux_total = {key: torch.stack([a[key] for a in per_group]).sum()
@@ -617,9 +687,9 @@ class Model(nn.Module):
         """One layer group (a period of slots) over the residual h
         [B, S, d]; returns the new residual and the group's MoE losses."""
         cfg = self.cfg
-        b, s, _ = h.shape
+        s = h.shape[1]
         aux: dict = {}
-        for slot, p in zip(cfg.slots, layer):
+        for slot, p in zip(cfg.slots, spmd.unshard_layer(layer)):
             if slot.mixer in ("attn", "swa"):
                 q, k, v = _qkv(cfg, p, h, positions)
                 out = L.chunked_attention(
@@ -627,15 +697,15 @@ class Model(nn.Module):
                     window=(cfg.sliding_window if slot.mixer == "swa"
                             else None),
                     chunk_kv=min(cfg.attn_chunk, s))
-                h = h + out.reshape(b, s, -1) @ p["wo"]
+                h = self._add(h, spmd.merge_last(out) @ p["wo"])
             elif slot.mixer == "mamba":
-                h = h + _mamba_mixer(cfg, p, h)
+                h = self._add(h, _mamba_mixer(cfg, p, h))
             else:
-                h = h + _rwkv_mixer(cfg, p, h)
+                h = self._add(h, _rwkv_mixer(cfg, p, h))
             out = _ffn(cfg, slot, p, h, aux)
             if out is not None:
-                h = h + out
-        return h, aux
+                h = self._add(h, out)
+        return self._constrain(h), aux
 
     # ---- decode -------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int,
@@ -662,13 +732,17 @@ class Model(nn.Module):
         ``attn`` slots: ``cuda`` (the flash-decode kernel) or ``torch``
         (the plain chunked attention); ``swa`` runs the chunked attention
         over its ring, as the reference does."""
+        with spmd.implicit(spmd.on_mesh(self.params["embed"], tokens)):
+            return self._decode_step(cache, tokens, int(pos), backend)
+
+    def _decode_step(self, cache, tokens, pos, backend):
         cfg = self.cfg
-        pos = int(pos)
-        h = self.params["embed"][tokens.long()].to(cfg.cdt)      # [B, 1, d]
+        h = self._embed(self.params, tokens)                     # [B, 1, d]
         positions = torch.full((1,), pos, dtype=torch.int32,
                                device=h.device)
         for i, layer in enumerate(self._layers):
-            for s, (slot, p) in enumerate(zip(cfg.slots, layer)):
+            for s, (slot, p) in enumerate(zip(cfg.slots,
+                                              spmd.unshard_layer(layer))):
                 c = cache[f"slot{s}"]
                 if slot.mixer == "attn":
                     h = self._decode_attn(p, c, i, h, pos, positions,
@@ -684,7 +758,7 @@ class Model(nn.Module):
                 else:
                     out = _ffn(cfg, slot, p, h)
                     if out is not None:
-                        h = h + out
+                        h = self._add(h, out)
         h = L.rms_norm(h, self.params["final_norm"])
         return h[:, 0] @ self._head(self.params), cache
 
@@ -692,25 +766,26 @@ class Model(nn.Module):
                      pos: int, positions: torch.Tensor,
                      backend: str) -> torch.Tensor:
         cfg = self.cfg
-        b = h.shape[0]
         cur = pos + 1
         q, k, v = _qkv(cfg, p, h, positions)
         if cfg.kv_cache_dtype == "int8":
             for name, t in (("k", k), ("v", v)):
                 q8, scale = _quantize(t)
-                c[name][group, :, pos] = q8[:, 0]
-                c[f"{name}_scale"][group, :, pos] = scale[:, 0]
+                spmd.assign(c[name], (group, slice(None), pos), q8[:, 0])
+                spmd.assign(c[f"{name}_scale"], (group, slice(None), pos),
+                            scale[:, 0])
             # dequantize the valid prefix only: the positions beyond it
             # are masked, so the function is the reference's
             kd, vd = (c[n][group, :, :cur].to(cfg.cdt)
                       * c[f"{n}_scale"][group, :, :cur, :, None].to(cfg.cdt)
                       for n in ("k", "v"))
         else:
-            c["k"][group, :, pos] = k[:, 0].to(c["k"].dtype)
-            c["v"][group, :, pos] = v[:, 0].to(c["v"].dtype)
+            for name, t in (("k", k), ("v", v)):
+                spmd.assign(c[name], (group, slice(None), pos),
+                            t[:, 0].to(c[name].dtype))
             kd, vd = c["k"][group], c["v"][group]
         out = L.decode_attention(q, kd, vd, cur, backend=backend)
-        return h + out.reshape(b, 1, -1) @ p["wo"]
+        return self._add(h, spmd.merge_last(out) @ p["wo"])
 
     def _decode_swa(self, p: dict, c: dict, group: int, h: torch.Tensor,
                     pos: int, positions: torch.Tensor) -> torch.Tensor:
@@ -721,42 +796,64 @@ class Model(nn.Module):
         w = cfg.sliding_window
         ring = pos % w
         q, k, v = _qkv(cfg, p, h, positions)
-        c["k"][group, :, ring] = k[:, 0].to(c["k"].dtype)
-        c["v"][group, :, ring] = v[:, 0].to(c["v"].dtype)
+        for name, t in (("k", k), ("v", v)):
+            spmd.assign(c[name], (group, slice(None), ring),
+                        t[:, 0].to(c[name].dtype))
         # from the device tensor: a Python int written here is a host copy
-        c["pos"][group, ring:ring + 1] = positions
+        spmd.assign(c["pos"], (group, slice(ring, ring + 1)), positions)
         out = L.chunked_attention(
             q, c["k"][group], c["v"][group], positions, c["pos"][group],
             causal=True, window=w, chunk_kv=min(cfg.attn_chunk, w))
-        return h + out.reshape(h.shape[0], 1, -1) @ p["wo"]
+        return self._add(h, spmd.merge_last(out) @ p["wo"])
 
     def _decode_mamba(self, p: dict, c: dict, group: int,
                       h: torch.Tensor) -> torch.Tensor:
-        xi, z = _mamba_in(p, h[:, 0])
+        xi, z = _mamba_in(self.cfg, p, h[:, 0])
         conv = c["conv"][group]
         xin = xi[:, None, :].to(conv.dtype)
         xi = F.silu(ssm_lib.causal_conv1d(xin, p["conv_w"], prev=conv)[:, 0])
-        y, state = ssm_lib.ssm_step(xi, _mamba_delta(p, xi), p["a_log"],
-                                    xi @ p["w_b"], xi @ p["w_c"],
-                                    p["d_skip"], c["state"][group])
+        args = (xi, _mamba_delta(p, xi), p["a_log"], xi @ p["w_b"],
+                xi @ p["w_c"], p["d_skip"], c["state"][group])
+        if not spmd.is_dtensor(xi):
+            y, state = ssm_lib.ssm_step(*args)
+        else:
+            lay = spmd.Layout(xi, self.cfg.d_inner)
+            inner = lay.placements(2, batch=0, inner=1)
+            st = lay.placements(3, batch=0, inner=1)
+            y, state = spmd.local_call(
+                ssm_lib.ssm_step, lay.mesh, args,
+                (inner, inner, lay.placements(2, inner=0),
+                 lay.placements(2, batch=0), lay.placements(2, batch=0),
+                 lay.placements(1, inner=0), st), (inner, st),
+                (xi.shape, args[-1].shape))
         conv.copy_(torch.cat([conv[:, 1:], xin], dim=1))
-        c["state"][group] = state
-        return h + ((y * F.silu(z)) @ p["out"])[:, None, :]
+        spmd.assign(c["state"], (group,), state)
+        return self._add(h, ((y * F.silu(z)) @ p["out"])[:, None, :])
 
     def _decode_rwkv(self, p: dict, c: dict, group: int,
                      h: torch.Tensor) -> torch.Tensor:
         x = L.rms_norm(h, p["norm_mix"])                        # [B, 1, d]
         r, k, v, w, g = _rwkv_inputs(self.cfg, p, x, c["shift_t"][group])
-        out, state = rwkv_lib.wkv6_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0],
-                                        p["u"], c["state"][group])
-        c["shift_t"][group] = x[:, 0].to(c["shift_t"].dtype)
-        c["state"][group] = state
-        return h + _rwkv_out(p, out[:, None], g)
+        args = (r[:, 0], k[:, 0], v[:, 0], w[:, 0], p["u"],
+                c["state"][group])
+        if not spmd.is_dtensor(r):
+            out, state = rwkv_lib.wkv6_step(*args)
+        else:
+            lay = spmd.Layout(args[0], self.cfg.rwkv_heads)
+            heads = lay.placements(3, batch=0, inner=1)
+            st = lay.placements(4, batch=0, inner=1)
+            out, state = spmd.local_call(
+                rwkv_lib.wkv6_step, lay.mesh, args,
+                (heads,) * 4 + (lay.placements(2, inner=0), st),
+                (heads, st), (args[0].shape, args[-1].shape))
+        spmd.assign(c["shift_t"], (group,), x[:, 0].to(c["shift_t"].dtype))
+        spmd.assign(c["state"], (group,), state)
+        return self._add(h, _rwkv_out(p, out[:, None], g))
 
     def _decode_cmix(self, p: dict, c: dict, group: int,
                      h: torch.Tensor) -> torch.Tensor:
         x = L.rms_norm(h, p["norm_ffn"])                        # [B, 1, d]
         out = rwkv_lib.channel_mix(x, p["mu_c"], p["cm_r"], p["cm_k"],
                                    p["cm_v"], c["shift_c"][group])
-        c["shift_c"][group] = x[:, 0].to(c["shift_c"].dtype)
-        return h + out
+        spmd.assign(c["shift_c"], (group,), x[:, 0].to(c["shift_c"].dtype))
+        return self._add(h, out)

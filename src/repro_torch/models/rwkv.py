@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import spmd
+
 DECAY_RATE_MIN = 1e-6    # w = exp(−rate) < 1 when exp(log_w) underflows
 DECAY_RATE_MAX = 80.0    # w > 0 when exp(log_w) overflows
 
@@ -70,13 +72,27 @@ def data_dependent_decay(x: torch.Tensor, w0: torch.Tensor,
                          num_heads: int) -> torch.Tensor:
     """w_t = exp(−exp(w0 + tanh(x W_a) W_b)) ∈ (0, 1); x [B, S, d] →
     [B, S, H, dh]. The rate exp(log_w) is clamped to [1e-6, 80] in
-    float32 so w stays inside the open interval."""
-    b, s, d = x.shape
-    log_w = w0[None, None, :] + torch.tanh(x @ w_a) @ w_b
-    rate = torch.clamp(torch.exp(log_w.float()), DECAY_RATE_MIN,
-                       DECAY_RATE_MAX)
-    return torch.exp(-rate).reshape(b, s, num_heads, d // num_heads) \
-        .to(x.dtype)
+    float32 so w stays inside the open interval. On a mesh each rank
+    computes its batch shard and its heads' slice of d (the low-rank
+    bottleneck whole), so no gradient of the bottleneck is split over
+    the sequence."""
+    def decay(x, w0, w_a, w_b):
+        log_w = w0[None, None, :] + torch.tanh(x @ w_a) @ w_b
+        rate = torch.clamp(torch.exp(log_w.float()), DECAY_RATE_MIN,
+                           DECAY_RATE_MAX)
+        heads = num_heads * w_b.shape[-1] // x.shape[-1]
+        return torch.exp(-rate).reshape(*x.shape[:-1], heads, -1) \
+            .to(x.dtype)
+
+    if not spmd.is_dtensor(x):
+        return decay(x, w0, w_a, w_b)
+    lay = spmd.Layout(x, num_heads)
+    out = lay.placements(4, batch=0, inner=2)
+    return spmd.local_call(
+        decay, lay.mesh, (x, w0, w_a, w_b),
+        (lay.placements(3, batch=0), lay.placements(1, inner=0),
+         lay.placements(2), lay.placements(2, inner=1)), (out,),
+        ((*x.shape[:-1], num_heads, x.shape[-1] // num_heads),))
 
 
 def token_shift(x: torch.Tensor, mu: torch.Tensor,

@@ -15,9 +15,10 @@ The msgpack codec is the port's own, a small pure-Python one for the
 subset the format uses, with msgpack-python's ``packb(use_bin_type=True)``
 choices: the smallest encoding of each int, str8/bin8 and up, float64
 for floats. Array bytes stream straight from the tensor to the file and
-back, so a checkpoint of several GB is never copied whole in memory. The
-mesh-aware restore of the reference (``shardings=``) belongs to the mesh
-launcher (ROADMAP queue 1 item 7).
+back, so a checkpoint of several GB is never copied whole in memory.
+``load_checkpoint(shardings=)`` restores onto a mesh: each leaf becomes
+a DTensor of its (mesh, placements), as the reference's
+``jax.device_put`` places it.
 """
 from __future__ import annotations
 
@@ -46,6 +47,8 @@ def _host_array(t) -> tuple[str, list, np.ndarray]:
     """(dtype name, shape, C-contiguous numpy array of the bytes) of a
     tensor or numpy array."""
     if isinstance(t, torch.Tensor):
+        if hasattr(t, "full_tensor"):         # a DTensor: the whole array
+            t = t.full_tensor()
         t = t.detach().to("cpu").contiguous()
         name = _DTYPES.get(t.dtype)
         if name is None:
@@ -241,11 +244,34 @@ def _decode(node, device: torch.device):
     return node
 
 
-def load_checkpoint(path: str, *, device=None) -> tuple[Tree, int | None]:
+def load_checkpoint(path: str, *, shardings: Tree | None = None,
+                    device=None) -> tuple[Tree, int | None]:
     """The tree and step of a checkpoint (the port's or the
     reference's), arrays as tensors on ``device`` (the card unless the
-    caller names another)."""
-    device = resolve_device(device)
+    caller names another). With ``shardings`` (a tree of (mesh,
+    placements) over the checkpoint's tree, or a subtree of it;
+    `repro_torch.launch.sharding.make_shardings`) each array leaf it
+    covers is distributed as a DTensor of that layout; a None leaf stays
+    a plain tensor."""
+    tree, step = _load(path, resolve_device(device))
+    if shardings is not None:
+        tree = _distribute_over(tree, shardings)
+    return tree, step
+
+
+def _distribute_over(tree: Tree, shardings: Tree) -> Tree:
+    from repro_torch.launch.sharding import distribute
+
+    if isinstance(tree, dict) and isinstance(shardings, dict):
+        return {key: (_distribute_over(value, shardings[key])
+                      if key in shardings else value)
+                for key, value in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return distribute(tree, shardings)
+    return tree
+
+
+def _load(path: str, device: torch.device) -> tuple[Tree, int | None]:
     with open(path, "rb") as f:
         buf = bytearray(os.fstat(f.fileno()).st_size)
         f.readinto(buf)

@@ -5,9 +5,11 @@ The loss is float32 whatever the model's dtype: the logits are cast for
 the per-token logsumexp and gather, as the reference does. No function
 here reads a value back to the host: the metrics stay device tensors.
 
-The reference's ``grad_specs`` (a GSPMD pin of the gradients to the
-parameters' sharding) has no meaning on one card; it belongs to the
-mesh launcher (ROADMAP queue 1 item 7).
+On a mesh (`repro_torch.launch.specs.input_specs`) the parameters,
+moments and batch are DTensors: the loss's per-token part runs on each
+rank's shard of the logits (`_nll`), and ``grad_specs`` redistributes the
+gradients to the parameters' placements before AdamW, the counterpart of
+the reference's ``with_sharding_constraint`` on the gradients.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import dataclasses
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.models import spmd
 from repro_torch.models.model import Model, ModelConfig, Params, init_params
 from repro_torch.train.optim import (AdamWConfig, adamw_init, adamw_update,
                                      tree_leaves, tree_map)
@@ -58,10 +61,7 @@ def lm_loss(model: Model, params: Params, batch: dict
     logits, aux = model.forward(batch.get("tokens"), batch.get("embeds"),
                                 params=params)
     targets = batch["targets"]
-    logits = logits[:, -targets.shape[1]:, :].float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
-    nll = lse - gold
+    nll = _nll(logits[:, -targets.shape[1]:, :], targets)
     mask = batch.get("loss_mask")
     mask = torch.ones_like(nll) if mask is None else mask.float()
     loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
@@ -73,6 +73,62 @@ def lm_loss(model: Model, params: Params, batch: dict
     return total, {"ce_loss": loss, **aux}
 
 
+def _token_nll(logits: torch.Tensor, targets: torch.Tensor
+               ) -> torch.Tensor:
+    """logsumexp − the target's logit, in float32, per token."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return lse - gold
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token negative log-likelihood [B, S] of logits [B, S, V]. On
+    a mesh each rank takes its shard of the logits as they lie (batch and
+    sequence shards kept; a vocab shard on ``model`` kept too, its
+    log-sum-exp and target logit merged across the vocab shards by
+    DTensor max and sum reductions), so no logits move."""
+    if not spmd.is_dtensor(logits):
+        return _token_nll(logits, targets)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = logits.device_mesh
+    lpl, tpl, vocab = [], [], []
+    for i, pl in enumerate(logits.placements):
+        if type(pl) is Shard and pl.dim in (0, 1):
+            lpl.append(pl)
+            tpl.append(pl)
+        elif type(pl) is Shard and pl.dim == 2:
+            lpl.append(pl)
+            tpl.append(Replicate())
+            vocab.append(i)
+        else:
+            lpl.append(Replicate())
+            tpl.append(Replicate())
+    lg, tg = spmd.local_shards((logits, targets), (lpl, tpl))
+    shape = tuple(logits.shape[:2])
+    if not vocab:
+        return spmd.wrap(_token_nll(lg, tg), mesh, tpl, shape)
+
+    def reduce(local, op):
+        pl = [Partial(op) if i in vocab else p for i, p in enumerate(tpl)]
+        return spmd.wrap(local, mesh, pl, shape).redistribute(
+            mesh, tuple(tpl))
+
+    lg = lg.float()
+    lo = spmd.local_range(logits, 2)[0]
+    m = reduce(lg.amax(dim=-1).detach(), "max").to_local()
+    sum_exp = reduce(torch.exp(lg - m[..., None]).sum(dim=-1), "sum")
+    idx = tg.long() - lo
+    inside = (idx >= 0) & (idx < lg.shape[-1])
+    gold = torch.where(inside, lg.gather(
+        -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0],
+        torch.zeros_like(m))
+    gold = reduce(gold, "sum")
+    lse = torch.log(sum_exp.to_local()) + m
+    return spmd.wrap(lse, mesh, tpl, shape) - gold
+
+
 def loss_and_grads(model: Model, params: Params, batch: dict
                    ) -> tuple[torch.Tensor, dict, Params]:
     """`lm_loss` and its gradient in every parameter leaf (zeros for a
@@ -81,7 +137,7 @@ def loss_and_grads(model: Model, params: Params, batch: dict
     record nothing. Returns (loss, metrics, grads), all detached."""
     alias = tree_map(lambda t: t.detach().requires_grad_(), params)
     leaves = tree_leaves(alias)
-    with torch.enable_grad():
+    with torch.enable_grad(), spmd.implicit(spmd.on_mesh(leaves[0])):
         loss, metrics = lm_loss(model, alias, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = iter([torch.zeros_like(p) if g is None else g
@@ -98,23 +154,41 @@ def _unflatten(tree, leaves):
     return next(leaves)
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    grad_specs=None):
     """Returns ``train_step(state, batch) → (state, metrics)``: the loss
     and its gradients (`loss_and_grads`), then `adamw_update`. The step
     updates ``state`` in place (parameters, moments and counts; the
     reference returns a new state) and returns it. The metrics ``loss``,
     ``ce_loss``, the aux losses, ``grad_norm`` and ``lr`` are device
-    tensors."""
+    tensors.
+
+    ``grad_specs`` (a tree of (mesh, placements) like the parameters',
+    `repro_torch.launch.sharding.make_shardings`) redistributes each
+    DTensor gradient to its parameter's placements before the update, so
+    a gradient summed over the batch shards lands in its parameter's
+    FSDP shard; plain gradients pass as they are."""
     def train_step(state: TrainState, batch: dict
                    ) -> tuple[TrainState, dict]:
         model = Model(cfg, state.params)
         loss, metrics, grads = loss_and_grads(model, state.params, batch)
-        _, _, opt_metrics = adamw_update(opt_cfg, state.params, grads,
-                                         state.opt)
-        state.step = state.step + 1
+        on_mesh = spmd.is_dtensor(loss)
+        if grad_specs is not None:
+            grads = tree_map(_place_grad, grads, grad_specs)
+        with spmd.implicit(on_mesh):
+            _, _, opt_metrics = adamw_update(opt_cfg, state.params, grads,
+                                             state.opt)
+            state.step = state.step + 1
         return state, {**metrics, **opt_metrics, "loss": loss}
 
     return train_step
+
+
+def _place_grad(grad: torch.Tensor, sharding) -> torch.Tensor:
+    if sharding is None or not spmd.is_dtensor(grad):
+        return grad
+    mesh, placements = sharding
+    return spmd.to_placements(grad, placements)
 
 
 def make_serve_step(cfg: ModelConfig):

@@ -312,9 +312,28 @@ def test_launcher_defaults_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])
-def test_launcher_refuses_a_mesh(mesh):
-    with pytest.raises(SystemExit, match="item 7"):
-        train_cli.main(["--mesh", mesh, "--device", "cpu"])
+def test_launcher_refuses_a_mesh(mesh, capsys):
+    """``--mesh single|multi`` trains on a production mesh over the
+    launched group (here this process, one gloo rank) and refuses a mesh
+    the group does not fill, naming both sizes: ``single`` trains on a
+    1×1 grid and refuses the default 16×16 (256 ranks); ``multi`` needs
+    2·data·model ranks, 2 at the smallest."""
+    small = ["--steps", "2", "--batch", "2", "--seq", "16", "--device", "cpu"]
+    if mesh == "single":
+        history = train_cli.main(["--mesh", mesh, "--data", "1", "--model",
+                                  "1"] + small)
+        out = capsys.readouterr().out
+        assert "mesh {'data': 1, 'model': 1} over 1 rank(s), policy dp" in out
+        assert [h["step"] for h in history] == [1]
+        assert np.isfinite(history[0]["loss"])
+        with pytest.raises(ValueError, match="needs 256 ranks.*has 1"):
+            train_cli.main(["--mesh", mesh] + small)
+    else:
+        with pytest.raises(ValueError, match="needs 2 ranks.*has 1"):
+            train_cli.main(["--mesh", mesh, "--data", "1", "--model", "1"]
+                           + small)
+        with pytest.raises(ValueError, match="needs 512 ranks.*has 1"):
+            train_cli.main(["--mesh", mesh] + small)
 
 
 def test_launcher_checkpoints_every_200_steps(tmp_path):

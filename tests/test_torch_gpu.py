@@ -780,6 +780,60 @@ def test_gpu_flash_decode_refuses_what_the_kernel_does_not_take(
     assert ops.LAUNCHES["flash_decode"] == 0
 
 
+# bf16: the kernel's f32 sums rounded once to bf16, against the plain
+# versions' f32 sums rounded once: one bf16 ulp of the output (2^-7) plus
+# the f32 tolerance
+BF16_ULP = 2.0 ** -7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kh,dh,s,cur", [
+    c for c in DECODE_SHAPES + SPLIT_SHAPES if c[3] % 8 == 0] + [
+    (8, 16, 16, 64, 32768, 32768), (1, 16, 16, 64, 32768, 32768),
+    (1, 16, 16, 64, 4096, 1025)])
+def test_gpu_flash_decode_bf16_matches_plain(cuda_device, b, h, kh, dh, s,
+                                             cur):
+    """The bf16 entry (bf16 K/V staged as they are, f32 arithmetic)
+    against its split and one-pass plain versions, two calls giving the
+    same bits."""
+    from repro_torch.kernels.decode_attention import (
+        flash_decode_reference, flash_decode_split_reference)
+
+    q, k, v = (t.bfloat16() for t in decode_case(b, h, kh, dh, s, s + cur,
+                                                 cuda_device))
+    got = ops.flash_decode(q, k, v, cur)
+    lens = torch.full((b * kh,), cur, dtype=torch.int32, device=cuda_device)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    for plain in (flash_decode_split_reference, flash_decode_reference):
+        want = plain(q, k, v, lens).float()
+        err = (got.float() - want).abs()
+        bound = BF16_ULP * want.abs() + DECODE_TOL * (1 + want.abs())
+        assert bool((err <= bound).all()), (plain.__name__, err.max())
+    assert torch.equal(ops.flash_decode(q, k, v, cur), got)
+    assert ops.LAUNCHES["flash_decode"] == 2
+
+
+@pytest.mark.gpu
+def test_gpu_flash_decode_bf16_refuses_what_it_cannot_copy(cuda_device):
+    """16-byte copies are 8 bf16 values: dh and the caches' batch and
+    position strides must be multiples of 8, and nothing is cast."""
+    q, k, v = (t.bfloat16() for t in decode_case(1, 4, 2, 36, 16, 0,
+                                                 cuda_device))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.flash_decode(q, k, v, 8)
+    q, k, v = (t.bfloat16() for t in decode_case(1, 4, 2, 32, 16, 0,
+                                                 cuda_device))
+    big = torch.zeros((1, 17, 2, 32), dtype=torch.bfloat16,
+                      device=cuda_device)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.flash_decode(q, big.view(-1)[4:4 + 16 * 64].view(1, 16, 2, 32),
+                         v, 8)
+    with pytest.raises(TypeError, match="share one dtype"):
+        ops.flash_decode(q, k.float(), v, 8)
+    assert ops.LAUNCHES["flash_decode"] == 0
+
+
 @pytest.mark.gpu
 def test_gpu_decode_step_launches_flash_decode_per_layer(cuda_device):
     """A reduced model's decode step on the card launches the kernel once
