@@ -190,6 +190,24 @@
    N) and the multi-output bench, into one registry written as JSONL
    under ``build/chip_bench/`` and rendered by ``repro_torch.obs``; (e)
    the provenance block naming the card and its power limit.
+15a. The remaining modules (the ``tools`` phase, after ``bench``): (a)
+   the accel bench (``repro_torch.bench.accel_bench``) on houses at full
+   N (D_j 30, c_nei 0.005·N): rounds to 1e-3 … 1e-6 plain and Chebyshev
+   with the bytes of each, dispatches of the Chebyshev and fused async
+   solves on every backend held to {torch 0, cuda R, cuda_fused 1},
+   cuda_fused θ == cuda θ bit for bit, solve µs a backend, and
+   ``dekrr_cheb_solve``, ``dekrr_async_solve``, ``dekrr_step`` and
+   ``rff_gram`` launched; (b) the kernel bench at its three CASES (f32,
+   B 1): ``rff_gram`` against its plain version at the f32 tolerance,
+   two launches bit for bit, then kernel, plain and yardstick ms beside
+   the bounds (rows ``rff_gram@kernel_bench``); (c) the analysis bench,
+   clean; (d) the quickstart example on the card against the CPU from
+   one set of CPU draws (rtol 1e-9); (e) the readout example's pooled
+   features against the CPU's (1e-5 of max|·|, f32), its RSEs printed;
+   (f) the perf probe on the mesh phase's pair in a subprocess, started
+   after (c) so that its trace shares the host only with (d) and (e),
+   which time nothing; its totals == the dry run's record, and
+   ``make_report``'s row of the pair.
 16. Launch counts of each path and run, zeroed just before it, and
    ``pack_problem`` repeated warm.
 17. Kernel times by CUDA events (timed on the device, behind a spin that
@@ -219,7 +237,8 @@ exits non-zero before it. Without a CUDA device the script exits
 non-zero, and so does a copy of the script without ``src/repro_torch``
 beside it, after one line naming where it looked. ``--cpu-rehearsal``
 runs steps 4–7, 9, 11–14 (12b on one gloo rank, reduced, without the
-dry run) and 15 (without its (b)) on the CPU at a small
+dry run), 15 (without its (b)) and 15a (without (f); the accel bench at
+300 samples, the readout at 128 × 16) on the CPU at a small
 size (the kernels' plain versions; the LLM path on the reduced
 qwen1.5-0.5b; the mixers' models reduced, the window 64; the train
 phase's (a)–(c) and (e)'s CPU half reduced, 3 steps; Table 2 on
@@ -235,6 +254,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import math
@@ -271,7 +291,6 @@ GRAM_SHAPES = ((10, 200, 148, 3180), (40, 200, 148, 3180), (2, 200, 148, 21),
                (1, 1100, 148, 700))
 # the wide route timed at the main path's own-block call with D_j = 600
 GRAM_WIDE_TIMING = (10, 600, 148, 3180)
-SPIN_CYCLES = 20_000_000    # ~10 ms at the H100's ~1.98 GHz SM clock
 
 # The paper's Table 2 `wave` setting.
 J_NODES = 10
@@ -481,6 +500,15 @@ MESH_LOGIT_TOL = 2.0 ** -3
 MESH_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build", "chip_mesh")
 
+# the tools phase: the accel, kernel and analysis benches, the examples,
+# the perf probe and make_report (repro_torch.bench, .examples,
+# .experiments)
+TOOLS_READOUT = (600, 32)       # the readout example's sequences × tokens
+TOOLS_RTOL = 1e-9               # the quickstart, card against CPU (f64)
+TOOLS_FEATURE_TOL = 1e-5        # pooled logits, card against CPU (f32)
+TOOLS_ACCEL_LAUNCHES = ("dekrr_cheb_solve", "dekrr_async_solve",
+                        "dekrr_step", "rff_gram")
+
 # the paper's experiments (repro_torch.paper): θ of a gram_fn solver
 # against the default one, the reference's tolerance for this pairing
 # (tests/test_kernels_rff.py::test_gram_fn_for_solver_integration)
@@ -519,22 +547,10 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
 
 
 def cuda_ms(fn, *, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn by CUDA events. The device spins ~10 ms
-    before the start event, so the host has queued the timed launches by
-    then: a launch shorter than its host-side call is timed on the
-    device, not at the pace the host enqueues it."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    """Mean device ms of fn by CUDA events, the device spun before the
+    timed launches (`repro_torch.bench.common.event_ms`)."""
+    from repro_torch.bench.common import event_ms
+    return event_ms(fn, reps=reps, warmup=warmup)
 
 
 def paired_ms(kernel, yardstick, *, pairs: int = CHAIN_PAIRS, reps: int,
@@ -4604,6 +4620,247 @@ def mesh_phase(card: str, device: str = "cuda", *, full: bool = True,
     return res
 
 
+# ------------------------------------------------------------------ tools
+def kernel_bench_rows(device: str, fast: bool) -> list[dict]:
+    """(b) `repro_torch.bench.kernel_bench` at its CASES, one case a run
+    with the launch counts zeroed just before it. On the card each case
+    is first held to its plain version (the f32 tolerance, two launches
+    bit for bit; those launches do not count) and its row carries the
+    kernels line's keys, and `reference_bound_us`: kernel_bench's own
+    `h100_bound_us`, from the reference's formulas (the full Gram, where
+    `bound_ms` counts its upper triangle); on the CPU the bench times the
+    plain version."""
+    from repro_torch.bench import kernel_bench
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rff_gram_ref
+
+    on_card = device == "cuda"
+    rows = []
+    for case in kernel_bench.CASES[:1] if fast else kernel_bench.CASES:
+        f, dim, n = case
+        om, bi, x, y = kernel_bench.operands(*case, device)
+        scale = math.sqrt(2.0 / f)
+        err = None
+        if on_card:
+            first = ops.rff_gram(om, bi, x, y, scale=scale)
+            second = ops.rff_gram(om, bi, x, y, scale=scale)
+            want = rff_gram_ref(om, bi, x, y, scale=scale)
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                raise PhaseError(f"tools (b) rff_gram at {case}: two "
+                                 f"launches differ")
+            err = max(compare(f"tools (b) rff_gram {part} at {case}", got,
+                              w, torch.float32)
+                      for part, got, w in zip(("G", "zy"), first, want))
+            torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        row = kernel_bench.run(fast=fast, device=device,
+                               cases=[case])["rows"][0]
+        launches = ops.launch_counts()["rff_gram"]
+        if on_card and launches == 0:
+            raise PhaseError(f"tools (b): the kernel bench never launched "
+                             f"rff_gram at {case}")
+        # the projection and the Gram's upper triangle; each operand read
+        # once, G and zy written once
+        bms, by = bound_ms(nbytes(om, bi, x, y) + (f * f + f) * 4,
+                           2 * f * dim * n + f * (f + 1) * n, torch.float32)
+        rows.append(dict(
+            name="rff_gram@kernel_bench", route="cuda",
+            source="src/repro_torch/kernels/csrc/rff_gram.cu",
+            replaces="src/repro/kernels/rff_gram.py:70", shape=list(case),
+            launches=launches, max_abs_err=err, ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=bms, bound_by=by,
+            library_ms=row["library_ms"],
+            reference_bound_us=row["h100_bound_us"]))
+    return rows
+
+
+def readout_features(device: str, num_seqs: int, seq: int) -> dict:
+    """(e) The readout example on ``device`` from CPU draws of the
+    backbone's weights and tokens (seeds 0 and 1, as the example's)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.examples import decentralized_readout
+    from repro_torch.models.model import init_params
+
+    cfg = get_arch("smollm_135m").config.reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (num_seqs, seq),
+                           generator=torch.Generator().manual_seed(1))
+    params = {k: ({n: t.to(device) for n, t in v.items()}
+                  if isinstance(v, dict) else v.to(device))
+              for k, v in params.items()}
+    return decentralized_readout.run(device=device, params=params,
+                                     tokens=tokens)
+
+
+def tools_phase(card: str, device: str = "cuda", *,
+                subsample: int | None = None, fast: bool = False,
+                readout=TOOLS_READOUT) -> dict:
+    """The ``tools`` phase: (a) the accel bench (houses at ``subsample``
+    samples, None: full N), its dispatches on every backend against the
+    contract, cuda_fused θ == cuda θ bit for bit and the path's launches;
+    (b) the kernel bench (`kernel_bench_rows`); (c) the analysis bench,
+    clean; (d) the quickstart on ``device`` against the CPU from one set
+    of CPU draws (rtol 1e-9); (e) the readout's pooled features against
+    the CPU's (1e-5 of max|·|); (f) on the card, the perf probe in a
+    subprocess on the mesh phase's pair (started after (c): its trace
+    loads the host), its totals against the dry-run
+    record the mesh phase wrote, and make_report's row of that pair.
+    Raises PhaseError on any failed check."""
+    from repro_torch.bench import accel_bench, analysis_bench
+    from repro_torch.examples import quickstart
+    from repro_torch.experiments import make_report
+    from repro_torch.kernels import ops
+    from repro_torch.obs.dispatch import round_dispatches
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    dry_dir = os.path.join(MESH_OUT, "dryrun")
+    b, seq = MESH_TRAIN
+    shape = f"train_4k@b{b}s{seq}"
+    probe_json = os.path.join(MESH_OUT, "probe.json")
+    probe, out = None, {}
+    try:
+        acc, acc_s, acc_launches = _launched(lambda: accel_bench.run(
+            fast=fast, device=device, subsample=subsample))
+        iters = acc["solve_us"]["num_iters"]
+        for backend, counts in acc["round_dispatches"].items():
+            want = round_dispatches(backend, iters)
+            if set(counts.values()) != {want}:
+                raise PhaseError(f"tools (a): {backend} dispatches {counts}"
+                                 f", the contract is {want}")
+        if acc["theta_max_abs_diff_vs_cuda"]["cuda_fused"] != 0.0:
+            raise PhaseError(f"tools (a): cuda_fused θ ≠ cuda θ: "
+                             f"{acc['theta_max_abs_diff_vs_cuda']}")
+        if on_card and not all(acc_launches[k]
+                               for k in TOOLS_ACCEL_LAUNCHES):
+            raise PhaseError(f"tools (a): a kernel of the accel path never "
+                             f"launched: {acc_launches}")
+        out.update(accel=acc, accel_s=acc_s, accel_launches=acc_launches)
+        out["kernel_rows"] = kernel_bench_rows(device, fast)
+        out["analysis"] = analysis_bench.run()
+
+        # (f)'s trace loads the host: it starts once (a)-(c) are timed
+        if on_card:
+            probe = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.experiments.perf_probe",
+                 "--arch", TRAIN_ARCH, "--shape", "train_4k", "--mesh",
+                 "1x1", "--batch", str(b), "--seq", str(seq),
+                 "--json-out", probe_json],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=dict(os.environ, PYTHONPATH=SRC_DIR))
+        fmaps, dkla_fmap = quickstart.draw_maps("cpu")
+        qs_cpu = quickstart.run("cpu", fmaps=fmaps, dkla_fmap=dkla_fmap)
+        qs = (quickstart.run(device, fmaps=fmaps, dkla_fmap=dkla_fmap)
+              if on_card else qs_cpu)
+        for key, want in qs_cpu.items():
+            if not math.isclose(qs[key], want, rel_tol=TOOLS_RTOL):
+                raise PhaseError(f"tools (d): quickstart {key} {qs[key]!r} "
+                                 f"on {device}, {want!r} on the CPU")
+        out["quickstart"] = (qs, qs_cpu)
+
+        ro = readout_features(device, *readout)
+        ro_cpu = readout_features("cpu", *readout) if on_card else ro
+        scale = ro_cpu["feats"].abs().max().item()
+        feat_err = (ro["feats"].cpu() - ro_cpu["feats"]).abs().max().item()
+        if not feat_err <= TOOLS_FEATURE_TOL * scale:
+            raise PhaseError(f"tools (e): pooled features differ from the "
+                             f"CPU's by {feat_err:.3e}, past "
+                             f"{TOOLS_FEATURE_TOL:g} of {scale:.3e}")
+        out["readout"] = dict(card=ro, cpu=ro_cpu, err=feat_err,
+                              scale=scale, shape=readout)
+
+        if on_card:
+            _, perr = probe.communicate(timeout=600)
+            if probe.returncode != 0:
+                raise PhaseError(f"tools (f): the perf probe failed:\n"
+                                 f"{perr[-2000:]}")
+            with open(probe_json) as f:
+                got = json.load(f)
+            with open(os.path.join(dry_dir, f"1x1_{TRAIN_ARCH}_{shape}"
+                                            f".json")) as f:
+                rec = json.load(f)
+            want = {"peak": rec["peak_memory_per_device"],
+                    "flops": rec["flops_per_device"],
+                    "hbm": rec["bytes_per_device"],
+                    "coll": rec["collective_bytes_per_device"]}
+            if got != want:
+                raise PhaseError(f"tools (f): the probe's totals {got} "
+                                 f"differ from the dry run's {want}")
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                make_report.table("1x1", dry_dir)
+            row = [line for line in text.getvalue().splitlines()
+                   if line.startswith(f"| {TRAIN_ARCH} | {shape} | run |")]
+            if len(row) != 1:
+                raise PhaseError(f"tools (f): make_report has no row of "
+                                 f"{TRAIN_ARCH} × {shape}")
+            out.update(probe=got, report_row=row[0])
+    finally:
+        if probe is not None and probe.poll() is None:
+            probe.kill()
+            probe.wait()
+    out["secs"] = time.perf_counter() - t_phase
+    return out
+
+
+def print_tools_phase(t: dict, card: str) -> None:
+    acc = t["accel"]
+    print(f"tools [{card}] (a) accel {acc['dataset']} N={acc['n_train']} "
+          f"(d_feat {acc['d_feat']}, interval "
+          f"[{acc['spectral_interval'][0]:.6f}, "
+          f"{acc['spectral_interval'][1]:.6f}], {acc['bytes_per_round']} "
+          f"bytes a round) in {t['accel_s']:.2f} s: " + "; ".join(
+              f"tol {r['tol']:g} plain {r['rounds_plain']} / Chebyshev "
+              f"{r['rounds_chebyshev']} rounds ({r['speedup']}x)"
+              for r in acc["rounds_to_tolerance"]))
+    print(f"tools [{card}] (a) dispatches "
+          f"{json.dumps(acc['round_dispatches'])}; solve µs at "
+          f"{acc['solve_us']['num_iters']} rounds: " + ", ".join(
+              f"{b} {acc['solve_us'][b]:.1f}" for b in
+              ("torch", "cuda", "cuda_fused"))
+          + f"; θ max |Δ| vs cuda "
+          f"{json.dumps(acc['theta_max_abs_diff_vs_cuda'])}; launches "
+          f"{json.dumps({k: v for k, v in t['accel_launches'].items() if v})}")
+    for r in t["kernel_rows"]:
+        timed = ("plain only (CPU)" if r["ms"] is None else
+                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                 f"yardstick {r['library_ms']:.4f} ms, bound "
+                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err "
+                 f"{r['max_abs_err']:.3e}, {r['launches']} launches")
+        print(f"tools [{card}] (b) kernel_bench rff_gram (F, d, N)="
+              f"{tuple(r['shape'])} f32: {timed}; kernel_bench's "
+              f"h100_bound_us (the full 2F²N Gram) "
+              f"{r['reference_bound_us']:.1f}"
+              + ("" if r["ms"] is not None else
+                 f", plain {r['plain_ms']:.4f} ms"))
+    print(f"tools [{card}] (c) analysis clean: " + ", ".join(
+        f"{k} {v['seconds']:.2f} s" for k, v in t["analysis"].items()))
+    qs, qs_cpu = t["quickstart"]
+    print(f"tools [{card}] (d) quickstart: DeKRR-DDRF RSE {qs['rse']!r}, "
+          f"limit point {qs['limit_rse']!r}, spectral radius "
+          f"{qs['rho']!r}, DKLA RSE {qs['dkla_rse']!r} (CPU: "
+          f"{json.dumps(qs_cpu)}; rtol {TOOLS_RTOL:g})")
+    ro = t["readout"]
+    print(f"tools [{card}] (e) readout (smollm-135m reduced, "
+          f"{ro['shape'][0]} × {ro['shape'][1]} tokens): pooled "
+          f"features max |card − CPU| {ro['err']:.3e} of max "
+          f"{ro['scale']:.3e}; on the device's own draws of w_true, the "
+          f"noise and the DDRF pools: readout RSE {ro['card']['rse']:.4f}, "
+          f"node 9 local-only {ro['card']['local_rse']:.3f} → consensus "
+          f"{ro['card']['consensus_rse']:.3f} (the CPU's draws: "
+          f"{ro['cpu']['rse']:.4f}, {ro['cpu']['local_rse']:.3f} → "
+          f"{ro['cpu']['consensus_rse']:.3f})")
+    if "probe" in t:
+        p = t["probe"]
+        print(f"tools [{card}] (f) perf probe {TRAIN_ARCH} × train_4k at "
+              f"1x1, B {MESH_TRAIN[0]} × S {MESH_TRAIN[1]}: peak "
+              f"{p['peak'] / 2**30:.3f} GiB, {p['flops']:.4e} flops, "
+              f"{p['hbm']:.4e} bytes (unfused), collectives "
+              f"{json.dumps(p['coll'])} == the dry run's record; "
+              f"make_report: {t['report_row']}")
+    print(f"tools phase: pass ({t['secs']:.1f} s)", flush=True)
+
+
 # ------------------------------------------------------------------- main
 def package_missing(src: str) -> bool:
     """True, after one line on stderr naming where it looked, when the
@@ -4659,6 +4916,9 @@ def rehearse_on_cpu() -> int:
     b = bench_phase(run, a, c, fast=True, serve_counts=(64, 32, 2),
                     out_dir=os.path.join(BENCH_OUT, "cpu"))
     print_bench_phase(b, "cpu")
+    tl = tools_phase("cpu", "cpu", subsample=300, fast=True,
+                     readout=(128, 16))
+    print_tools_phase(tl, "cpu")
     summary = dict(rounds=run["rounds"], rse=run["rse"],
                    launches=run["launches"], exact_err=checks["exact_err"],
                    rho=checks["rho"], async_err=a_checks["err"],
@@ -4687,6 +4947,10 @@ def rehearse_on_cpu() -> int:
                    stream_serve_err=st["serve_err"],
                    bench_dispatch=[(r["path"], r["backend"], r["chunk"],
                                     r["dispatches"]) for r in b["dispatch"]],
+                   tools_ladder=[(r["tol"], r["rounds_plain"],
+                                  r["rounds_chebyshev"]) for r in
+                                 tl["accel"]["rounds_to_tolerance"]],
+                   tools_quickstart=tl["quickstart"][0],
                    spmd_wire=sp_checks["wire"],
                    spmd_launches=sp_checks["launches"])
     print(json.dumps({"cpu_rehearsal": summary}))
@@ -4881,6 +5145,8 @@ def run_on_card() -> int:
     b = bench_phase(run, a, c, fast=False, serve_counts=BENCH_SERVE,
                     out_dir=BENCH_OUT)
     print_bench_phase(b, card)
+    tools = tools_phase(card)
+    print_tools_phase(tools, card)
 
     launches = dict(run["launches"], dekrr_step_masked=a_launches[
         "dekrr_step_masked"], dekrr_async_solve=a_launches[
@@ -4967,6 +5233,7 @@ def run_on_card() -> int:
               f"{row['plain_ms']:.4f} ms, torch yardstick "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']})")
+    rows += tools["kernel_rows"]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -14,6 +14,12 @@ of the port, and their runner (`python -m repro_torch.bench.run`).
                           answer within its attached bound
 * stream_bench.py       — the streaming runtime (ingest, refresh, warm
                           solves, serving from a live stream)
+* accel_bench.py        — rounds and bytes to each tolerance, plain
+                          against Chebyshev; the fused chains' dispatches
+* kernel_bench.py       — `rff_gram` at the reference's CASES beside the
+                          H100 bound and the shared-memory budget
+* analysis_bench.py     — the static checks' passes, timed
+* roofline.py           — the dry run's roofline table
 * common.py             — device sync, host timing, the H100 peaks, JSON
 * run.py                — the runner: every suite in a span of one
                           registry, JSONL and bench JSON with provenance

@@ -15,6 +15,7 @@ from repro_torch.obs.metrics import perf_clock
 # f32 and f64 peaks (f64 on the tensor cores, f32 outside them).
 H100_BYTES_PER_S = 3.35e12
 H100_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+SPIN_CYCLES = 20_000_000    # ~10 ms at the H100's ~1.98 GHz SM clock
 
 
 def device_name(device: torch.device) -> str:
@@ -38,6 +39,26 @@ def time_us(fn, reps: int, device: torch.device) -> float:
         fn()
     sync(device)
     return (perf_clock() - t0) / reps * 1e6
+
+
+def event_ms(fn, *, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device ms of ``fn`` on the card by CUDA events, after
+    ``warmup`` calls. The device spins ~10 ms before the start event, so
+    the host has queued the timed launches by then: a launch shorter than
+    its host-side call is timed on the device, not at the pace the host
+    enqueues it (``chip_smoke.py``'s method)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def median_us(fn, reps: int, device: torch.device) -> float:

@@ -3,13 +3,17 @@ counterpart of `benchmarks/run.py`. Prints ``name,us_per_call,derived``
 CSV.
 
     python -m repro_torch.bench.run [--fast] [--only NAME[,NAME...]] \
-        [--device cpu] [--subsample N|full] [--out-dir DIR]
+        [--device cpu] [--subsample N|full] [--out-dir DIR] \
+        [--dryrun-dir DIR]
 
-Suites: the paper's experiments (`repro_torch.paper`: table2, fig1–fig4,
-comm, convergence, ablation, at ``--subsample`` samples a dataset), the
-stream bench, and the step, solve, async, chebyshev, multiout and serve
-benches of this package. They run on the CUDA card unless ``--device``
-names another device.
+Suites, in the reference's order: the paper's experiments
+(`repro_torch.paper`: table2, fig1–fig4, comm, convergence, ablation, at
+``--subsample`` samples a dataset), then the chebyshev, accel, kernel,
+step, solve, async, multiout, stream and serve benches of this package,
+the roofline table of the dry run's JSON under ``--dryrun-dir`` (default
+``build/dryrun``; a pair that was not traced prints a ``missing`` row),
+and the analysis bench (the static checks, CPU only). They run on the
+CUDA card unless ``--device`` names another device.
 
 Observability (`repro_torch.obs`): every suite runs inside a host-side
 span (``bench.<name>``) recorded into one `Registry`, beside the benches'
@@ -30,6 +34,8 @@ import sys
 import traceback
 from pathlib import Path
 
+from repro_torch.bench import roofline
+
 REPO_ROOT = Path(__file__).resolve().parents[3]
 DEFAULT_OUT_DIR = REPO_ROOT / "build" / "bench"
 
@@ -38,11 +44,14 @@ def _subsample(text: str) -> int | None:
     return None if text == "full" else int(text)
 
 
-def suites() -> dict:
-    """name → fn(fast, device, subsample, out, registry), in run order."""
-    from repro_torch.bench import (async_gossip_bench, chebyshev_bench,
-                                   multiout_bench, serve_bench, solve_bench,
-                                   step_kernel_bench, stream_bench)
+def suites(dryrun_dir: str = roofline.DEFAULT_DRYRUN_DIR) -> dict:
+    """name → fn(fast, device, subsample, out, registry), in run order;
+    ``roofline`` reads the dry run's JSON under ``dryrun_dir``."""
+    from repro_torch.bench import (accel_bench, analysis_bench,
+                                   async_gossip_bench, chebyshev_bench,
+                                   kernel_bench, multiout_bench, serve_bench,
+                                   solve_bench, step_kernel_bench,
+                                   stream_bench)
     from repro_torch.paper import (ablation_ddrf, comm_costs,
                                    convergence_curve, fig1_noniid_y,
                                    fig2_noniid_xnorm, fig3_imbalanced,
@@ -67,6 +76,10 @@ def suites() -> dict:
         "convergence": paper(convergence_curve.run),
         "ablation": paper(ablation_ddrf.run),
         "chebyshev": bench(chebyshev_bench.run),
+        "accel": lambda fast, device, subsample, out, registry:
+            accel_bench.run(fast=fast, device=device, out=out,
+                            registry=registry, subsample=subsample),
+        "kernel": bench(kernel_bench.run),
         "step": bench(step_kernel_bench.run),
         "solve": bench(solve_bench.run),
         "async": bench(async_gossip_bench.run),
@@ -74,6 +87,9 @@ def suites() -> dict:
         "stream": lambda fast, device, subsample, out, registry:
             stream_bench.run(fast=fast, out=out, device=device),
         "serve": bench(serve_bench.run),
+        "roofline": lambda fast, device, subsample, out, registry:
+            roofline.run(dryrun_dir, out_dir=os.path.dirname(out)),
+        "analysis": bench(analysis_bench.run),
     }
 
 
@@ -94,6 +110,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out-dir", default=str(DEFAULT_OUT_DIR),
                     help="directory of run.jsonl and the benches' JSON "
                          "(default build/bench/)")
+    ap.add_argument("--dryrun-dir", default=roofline.DEFAULT_DRYRUN_DIR,
+                    help="directory of the dry run's JSON that the "
+                         "roofline suite reads (default build/dryrun)")
     args = ap.parse_args(argv)
 
     from repro_torch._device import resolve_device
@@ -103,7 +122,7 @@ def main(argv=None) -> int:
     from repro_torch.obs.spans import recording, span
 
     device = resolve_device(args.device)
-    table = suites()
+    table = suites(args.dryrun_dir)
     only = None if args.only is None else args.only.split(",")
     unknown = sorted(set(only or ()) - set(table))
     if unknown:

@@ -282,24 +282,7 @@ def chebyshev_solve_packed(packed: PackedProblem, mu_max: float,
     return out[0]
 
 
-def _plain_error_curve(packed, theta_star, *, max_rounds, backend):
-    """‖θ_k − θ*‖ for k = 1 … max_rounds of the plain Eq. 19 iteration,
-    kept on the device and read once by the caller."""
-    theta = torch.zeros_like(packed.d)
-    errs = []
-    for _ in range(max_rounds):
-        theta = step_batched(packed, theta, backend=backend)
-        errs.append(torch.linalg.norm(theta - theta_star))
-    return torch.stack(errs)
-
-
-def _cheb_error_curve(packed, theta_star, alphas, betas, *, backend):
-    """Chebyshev counterpart of `_plain_error_curve` — the same
-    `chebyshev_scan` as every other consumer."""
-    apply_f = lambda th: step_batched(packed, th, backend=backend)
-    _, _, errs = chebyshev_scan(apply_f, torch.zeros_like(packed.d),
-                                alphas, betas, theta_star=theta_star)
-    return errs
+CURVE_CHUNK = 64    # rounds of an error curve between host reads
 
 
 def rounds_to_tolerance(packed: PackedProblem, theta_star: torch.Tensor,
@@ -308,24 +291,50 @@ def rounds_to_tolerance(packed: PackedProblem, theta_star: torch.Tensor,
                         mu_min: float | None = None,
                         backend: str = "cuda") -> tuple[int, int]:
     """(plain rounds, Chebyshev rounds) to reach relative error ≤ tol
-    (``max_rounds`` where never). Both error curves stay on the device and
-    are read once; the interval is estimated when not given."""
+    (``max_rounds`` where never). Each error curve ‖θ_k − θ*‖ stays on the
+    device for `CURVE_CHUNK` rounds at a time and is read once a chunk;
+    a curve stops after the chunk in which it first crosses, so the
+    rounds past the crossing are never run (the count is the one the
+    whole curve gives: the Chebyshev table's steps do not depend on its
+    length). The interval is estimated when not given."""
     _check_backend(backend)
     if mu_max is None or mu_min is None:
         lo, hi = estimate_spectral_interval(packed, backend=backend)
         mu_max = hi if mu_max is None else mu_max
         mu_min = lo if mu_min is None else mu_min
     target = tol * float(torch.linalg.norm(theta_star))
+    apply_f = lambda th: step_batched(packed, th, backend=backend)
+    starts = range(0, max_rounds, CURVE_CHUNK)
 
-    def first_crossing(errs: torch.Tensor) -> int:
-        hit = errs.detach().cpu().numpy() <= target
-        return int(np.argmax(hit)) + 1 if hit.any() else max_rounds
+    def first_crossing(chunks) -> int:
+        done = 0
+        for errs in chunks:
+            hit = errs.detach().cpu().numpy() <= target
+            if hit.any():
+                return done + int(np.argmax(hit)) + 1
+            done += len(hit)
+        return max_rounds
 
-    plain = _plain_error_curve(packed, theta_star, max_rounds=max_rounds,
-                               backend=backend)
-    alphas, betas = chebyshev_coefficients(mu_max, mu_min, max_rounds)
-    kw = dict(dtype=packed.d.dtype, device=packed.device)
-    cheb = _cheb_error_curve(packed, theta_star,
-                             torch.as_tensor(alphas, **kw),
-                             torch.as_tensor(betas, **kw), backend=backend)
-    return first_crossing(plain), first_crossing(cheb)
+    def plain_chunks():
+        theta = torch.zeros_like(packed.d)
+        for start in starts:
+            errs = []
+            for _ in range(start, min(start + CURVE_CHUNK, max_rounds)):
+                theta = apply_f(theta)
+                errs.append(torch.linalg.norm(theta - theta_star))
+            yield torch.stack(errs)
+
+    def cheb_chunks():
+        alphas, betas = (torch.as_tensor(t, dtype=packed.d.dtype,
+                                         device=packed.device)
+                         for t in chebyshev_coefficients(mu_max, mu_min,
+                                                         max_rounds))
+        theta, p = torch.zeros_like(packed.d), None
+        for start in starts:
+            cut = slice(start, start + CURVE_CHUNK)
+            theta, p, errs = chebyshev_scan(apply_f, theta, alphas[cut],
+                                            betas[cut],
+                                            theta_star=theta_star, p0=p)
+            yield errs
+
+    return first_crossing(plain_chunks()), first_crossing(cheb_chunks())

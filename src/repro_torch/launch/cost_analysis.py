@@ -28,6 +28,12 @@ allocated). What replaces each of the reference's counts:
                    counterpart in eager torch: operand plus result bytes of
                    every aten op that is not a view, an unfused upper
                    bound (``bytes_model: "unfused"`` in the dry run's JSON).
+  top lists        the reference's ``top_collectives`` and
+                   ``top_memory_ops``: bytes × count aggregated per
+                   (collective kind or aten op, local result shape),
+                   largest first, cut to `TOP_ENTRIES`. The count is how
+                   many times the op ran (the reference's trip-count
+                   multiplier).
   peak memory      the high-water mark of live storage bytes on the local
                    shards over the step: the arguments' shards (parameters,
                    optimizer state, inputs, cache) at the start, then every
@@ -89,6 +95,11 @@ _REDUCTIONS = {"sum", "mean", "amax", "amin", "max", "min", "prod",
 _NO_BYTES = {"empty", "empty_strided", "empty_like", "device", "wait_tensor",
              "detach", "lift_fresh", "_local_scalar_dense"}
 _PROPAGATION_FILES = ("_sharding_prop.py", "_op_schema.py")
+TOP_ENTRIES = 40
+_DTYPE_NAMES = {torch.float32: "f32", torch.float64: "f64",
+                torch.bfloat16: "bf16", torch.float16: "f16",
+                torch.int8: "s8", torch.int32: "s32", torch.int64: "s64",
+                torch.bool: "pred", torch.uint8: "u8"}
 
 
 def _is_propagation() -> bool:
@@ -121,6 +132,27 @@ class Costs:
     ops: int = 0
     peak_memory: float = 0.0
     argument_bytes: float = 0.0
+    # (kind, result shapes) → [bytes, count, op name] and (op, result
+    # shapes) → [bytes, count], summed over the run (`_shape_key`)
+    coll_by_shape: dict = dataclasses.field(default_factory=dict)
+    mem_by_shape: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def top_collectives(self) -> list[tuple]:
+        """(bytes × count, kind, result shape, count, op name), largest
+        first, at most `TOP_ENTRIES`."""
+        rows = [(b, kind, _shape_text(shape), n, name)
+                for (kind, shape), (b, n, name)
+                in self.coll_by_shape.items()]
+        return sorted(rows, key=lambda r: -r[0])[:TOP_ENTRIES]
+
+    @property
+    def top_memory_ops(self) -> list[tuple]:
+        """(bytes × count, aten op, result shape, count), largest first,
+        at most `TOP_ENTRIES`."""
+        rows = [(b, op, _shape_text(shape), n)
+                for (op, shape), (b, n) in self.mem_by_shape.items()]
+        return sorted(rows, key=lambda r: -r[0])[:TOP_ENTRIES]
 
 
 class CostMode(TorchDispatchMode):
@@ -185,8 +217,14 @@ class CostMode(TorchDispatchMode):
         if namespace in ("_c10d_functional", "c10d_functional") \
                 and name in _COLLECTIVE_OPS:
             kind = _COLLECTIVE_OPS[name]
-            c.coll_bytes[kind] += sum(_nbytes(o) for o in tensors_out)
+            moved = sum(_nbytes(o) for o in tensors_out)
+            c.coll_bytes[kind] += moved
             c.coll_ops[kind] += 1
+            entry = c.coll_by_shape.setdefault(
+                (kind, _shape_key(tensors_out)),
+                [0, 0, f"{namespace}.{name}"])
+            entry[0] += moved
+            entry[1] += 1
         elif namespace == "aten":
             packet = func._overloadpacket
             from torch.utils.flop_counter import flop_registry
@@ -203,8 +241,25 @@ class CostMode(TorchDispatchMode):
                 c.flops += tensors_in[0].numel() if tensors_in else 0
         if name in _NO_BYTES or getattr(func, "is_view", False):
             return
-        c.bytes += sum(_nbytes(t) for t in tensors_in) \
+        moved = sum(_nbytes(t) for t in tensors_in) \
             + sum(_nbytes(o) for o in tensors_out)
+        c.bytes += moved
+        entry = c.mem_by_shape.setdefault(
+            (f"{namespace}.{name}", _shape_key(tensors_out)), [0, 0])
+        entry[0] += moved
+        entry[1] += 1
+
+
+def _shape_key(tensors: list) -> tuple:
+    return tuple((t.dtype, tuple(t.shape)) for t in tensors)
+
+
+def _shape_text(key: tuple) -> str:
+    """HLO-style text of a `_shape_key`: ``bf16[8,256,1024]``, a tuple in
+    parentheses."""
+    parts = [f"{_DTYPE_NAMES.get(dt, str(dt).split('.')[-1])}"
+             f"[{','.join(map(str, shape))}]" for dt, shape in key]
+    return parts[0] if len(parts) == 1 else f"({', '.join(parts)})"
 
 
 def _flatten(tree) -> list:

@@ -34,7 +34,8 @@ import json
 import os
 import traceback
 
-from repro_torch.configs.registry import INPUT_SHAPES, get_arch, list_archs
+from repro_torch.configs.registry import (INPUT_SHAPES, ShapeSpec, get_arch,
+                                          list_archs)
 from repro_torch.launch.cost_analysis import (analyze, model_flops_per_step,
                                               roofline)
 from repro_torch.launch.specs import input_specs, shape_plan
@@ -63,28 +64,60 @@ def mesh_name(multi_pod: bool, grid: tuple[int, int]) -> str:
             else f"{grid[0]}x{grid[1]}")
 
 
-def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
-             mesh_grid: tuple[int, int] = (16, 16),
-             out_dir: str | None = None, verbose: bool = True,
-             batch: int | None = None, seq: int | None = None) -> dict:
-    """One pair: its JSON record (written under ``out_dir``). ``batch``
-    and ``seq`` replace the named shape's global batch and sequence (the
-    record's shape is then ``<shape>@b<batch>s<seq>``), for a pair that
-    fits a small mesh."""
+def pair_shape(shape_name: str, batch: int | None = None,
+               seq: int | None = None) -> ShapeSpec:
+    """The named input shape; ``batch`` and ``seq`` replace its global
+    batch and sequence (the shape is then named
+    ``<shape>@b<batch>s<seq>``), for a pair that fits a small mesh."""
+    shape = INPUT_SHAPES[shape_name]
+    if batch is None and seq is None:
+        return shape
+    batch = shape.global_batch if batch is None else batch
+    seq = shape.seq_len if seq is None else seq
+    return dataclasses.replace(shape, name=f"{shape_name}@b{batch}s{seq}",
+                               global_batch=batch, seq_len=seq)
+
+
+def trace_pair(spec, shape: ShapeSpec, *, multi_pod: bool = False,
+               mesh_grid: tuple[int, int] = (16, 16), policy: str = "tp",
+               overrides: dict | None = None):
+    """Trace one pair's step once under `CostMode` on the fake group of
+    the mesh's world size (this process as its rank 0): (the pair's
+    configuration, its `Costs`, chips, seconds). ``policy`` and
+    ``overrides`` go to `ShardingRules` and `input_specs`."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.sharding import ShardingRules
 
+    data_ax, model_ax = mesh_grid
+    chips = (2 if multi_pod else 1) * data_ax * model_ax
+    init_fake_group(chips)
+    t0 = perf_clock()
+    mesh = make_production_mesh(multi_pod=multi_pod, data=data_ax,
+                                model=model_ax, device_type="cpu")
+    rules = ShardingRules(mesh, policy=policy)
+    with FakeTensorMode(allow_non_fake_inputs=True), torch.no_grad():
+        pair = input_specs(spec, shape, rules, device="cpu",
+                           backend="torch", overrides=overrides)
+        cfg = pair["cfg"]
+        _, costs = analyze(pair["fn"], *pair["args"])
+        del pair
+        gc.collect()
+    return cfg, costs, chips, perf_clock() - t0
+
+
+def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
+             mesh_grid: tuple[int, int] = (16, 16),
+             out_dir: str | None = None, verbose: bool = True,
+             batch: int | None = None, seq: int | None = None) -> dict:
+    """One pair: its JSON record (written under ``out_dir``). ``batch``
+    and ``seq`` replace the named shape's global batch and sequence
+    (`pair_shape`)."""
     spec = get_arch(arch)
-    shape = INPUT_SHAPES[shape_name]
-    if batch is not None or seq is not None:
-        batch = shape.global_batch if batch is None else batch
-        seq = shape.seq_len if seq is None else seq
-        shape_name = f"{shape_name}@b{batch}s{seq}"
-        shape = dataclasses.replace(shape, name=shape_name,
-                                    global_batch=batch, seq_len=seq)
+    shape = pair_shape(shape_name, batch, seq)
+    shape_name = shape.name
     plan = shape_plan(spec, shape)
     name = mesh_name(multi_pod, mesh_grid)
     result: dict = {"arch": arch, "shape": shape_name, "mesh": name,
@@ -94,22 +127,8 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
         _write(result, out_dir)
         return result
 
-    data_ax, model_ax = mesh_grid
-    chips = (2 if multi_pod else 1) * data_ax * model_ax
-    init_fake_group(chips)
-    t0 = perf_clock()
-    mesh = make_production_mesh(multi_pod=multi_pod, data=data_ax,
-                                model=model_ax, device_type="cpu")
-    rules = ShardingRules(mesh)
-    with FakeTensorMode(allow_non_fake_inputs=True), torch.no_grad():
-        pair = input_specs(spec, shape, rules, device="cpu",
-                           backend="torch")
-        cfg = pair["cfg"]
-        _, costs = analyze(pair["fn"], *pair["args"])
-        del pair
-        gc.collect()
-    trace_s = perf_clock() - t0
-
+    cfg, costs, chips, trace_s = trace_pair(spec, shape, multi_pod=multi_pod,
+                                            mesh_grid=mesh_grid)
     roof = roofline(costs)
     n_total = analytic_param_count(cfg)
     n_active = active_param_count(cfg)

@@ -157,7 +157,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 def input_specs(arch_spec: ArchSpec, shape: str | ShapeSpec,
                 rules: ShardingRules, *, device=None, seed: int = 0,
                 backend: str = "cuda", opt_cfg: AdamWConfig | None = None,
-                dtype: str | None = None, placed: bool = True) -> dict:
+                dtype: str | None = None, placed: bool = True,
+                overrides: dict | None = None) -> dict:
     """{fn, args, in_specs, in_shardings, out_shardings, donate_argnums,
     cfg, rules} for one pair on the mesh behind ``rules``: ``args`` are
     DTensors drawn by the port's initialisers from ``seed`` on
@@ -172,13 +173,18 @@ def input_specs(arch_spec: ArchSpec, shape: str | ShapeSpec,
     ``shape`` is an `INPUT_SHAPES` name or a `ShapeSpec`. ``opt_cfg``
     (a launcher's schedule) replaces `opt_config_for`'s but keeps its
     moment dtype. ``dtype`` replaces the variant's bf16 parameters and
-    compute (a parity check in float32)."""
+    compute (a parity check in float32). ``overrides`` replaces fields
+    of the pair's configuration (`dataclasses.replace` after
+    `variant_config`; the perf probe's ``--set k=v``), and the step and
+    its arguments are built against the result."""
     shape = resolve_shape(shape)
     if (shape.kind == "train" and rules.policy == "tp"
             and analytic_param_count(arch_spec.config) < 2e9):
         # small models train pure-DP: the model axis joins the batch axes
         rules = rules.with_policy("dp")
     cfg = variant_config(arch_spec, shape, rules=rules)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=dtype,
                                   compute_dtype=dtype)

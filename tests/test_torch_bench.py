@@ -23,6 +23,7 @@ from repro.dist import solve_batched as ref_solve
 from repro.dist.async_gossip import _packed_edges as ref_packed_edges
 from repro_torch import interop
 from repro_torch.bench import async_gossip_bench, multiout_bench, solve_bench
+from repro_torch.bench.run import suites as run_suites
 from repro_torch.bench.step_kernel_bench import synthetic_packed
 from repro_torch.dist import solve_batched
 from repro_torch.obs import Registry
@@ -161,21 +162,54 @@ def _bench_files():
 
 
 def test_runner_writes_jsonl_the_report_renders(tmp_path):
+    """Every suite, named with ``--only`` in the reference's order (the
+    accel, kernel, roofline and analysis suites among them), on the CPU;
+    the roofline reads a dry-run record from ``--dryrun-dir``; nothing is
+    written outside ``--out-dir``."""
     # one intra-op thread: the suites are small ops, and other test workers
     # share the CPU
     env = subprocess_env(OMP_NUM_THREADS="1")
     before = _bench_files()
     assert before, "the repository's BENCH_* files are missing"
+    root_entries = set(os.listdir(REPO_ROOT))
     out_dir = tmp_path / "bench"
+    dryrun_dir = tmp_path / "dryrun"
+    dryrun_dir.mkdir()
+    (dryrun_dir / "16x16_smollm_135m_decode_32k.json").write_text(
+        json.dumps({"arch": "smollm_135m", "shape": "decode_32k",
+                    "status": "ok", "plan": "run", "compute_s": 1e-3,
+                    "memory_s": 2e-3, "collective_s": 0.0,
+                    "dominant": "memory", "peak_memory_per_device": 2**30,
+                    "useful_flops_ratio": 0.5}))
+    names = list(run_suites())
+    assert names[8:] == ["chebyshev", "accel", "kernel", "step", "solve",
+                         "async", "multiout", "stream", "serve", "roofline",
+                         "analysis"]
     run = subprocess.run(
         [sys.executable, "-m", "repro_torch.bench.run", "--fast", "--device",
-         "cpu", "--subsample", "300", "--out-dir", str(out_dir)],
+         "cpu", "--subsample", "300", "--out-dir", str(out_dir),
+         "--only", ",".join(names), "--dryrun-dir", str(dryrun_dir)],
         cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=600)
     assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
     assert _bench_files() == before
+    new_entries = set(os.listdir(REPO_ROOT)) - root_entries
+    assert not [n for n in new_entries
+                if n.endswith((".json", ".jsonl", ".csv"))], new_entries
     assert "serve/open_int8_f90" in run.stdout
-    for name in ("table2", "solve", "async", "serve", "stream"):
+    for name in names:
         assert f"{name}/total," in run.stdout
+    assert "roofline/smollm_135m/decode_32k,0.0,compute_ms=1.00;" \
+        "memory_ms=2.00;" in run.stdout
+    assert "analysis/clean,0.0,1" in run.stdout
+    assert "kernel/rff_gram/D100_d8_N10000," in run.stdout
+    accel = json.loads((out_dir / "accel.json").read_text())
+    assert accel["provenance"]["plain"] is True
+    assert accel["round_dispatches"]["cuda_fused"] == {
+        "chebyshev_solve_packed": 1, "async_solve_batched": 1}
+    assert (out_dir / "roofline.csv").read_text().startswith(
+        "roofline/smollm_135m/decode_32k,")
+    for name in ("kernel.json", "analysis.json"):
+        assert (out_dir / name).is_file()
     records = [json.loads(line) for line in
                (out_dir / "run.jsonl").read_text().splitlines()]
     prov = records[0]

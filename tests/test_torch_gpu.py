@@ -1400,3 +1400,77 @@ print("deterministic: ok")
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "deterministic: ok" in out.stdout
+
+
+# --------------------------------------------------------------------------
+# The accel and kernel benches and the examples on the card
+# --------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(100, 8, 10000), (200, 148, 30000),
+                                  (512, 96, 30000)],
+                         ids=lambda c: "D{}_d{}_N{}".format(*c))
+def test_gpu_kernel_bench_case_matches_plain(cuda_device, case):
+    """`ops.rff_gram` at each `kernel_bench.CASES` shape (f32, B 1): one
+    launch a call, within rtol 1e-4 of its plain version, and two calls
+    give the same bits."""
+    import math
+
+    from repro_torch.bench import kernel_bench
+    from repro_torch.kernels.ref import rff_gram_ref
+    assert case in kernel_bench.CASES
+    om, bi, x, y = kernel_bench.operands(*case, cuda_device)
+    scale = math.sqrt(2.0 / case[0])
+    first = ops.rff_gram(om, bi, x, y, scale=scale)
+    assert ops.launch_counts()["rff_gram"] == 1
+    second = ops.rff_gram(om, bi, x, y, scale=scale)
+    assert ops.launch_counts()["rff_gram"] == 2
+    want = rff_gram_ref(om, bi, x, y, scale=scale)
+    for a, b, w in zip(first, second, want):
+        assert torch.equal(a, b)
+        assert_close(a, w, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_accel_dispatch_counts_equal_launches(cuda_device):
+    from repro_torch.bench import accel_bench
+    got = accel_bench.dispatch_counts(10, cuda_device)
+    torch.cuda.synchronize()
+    assert got == {"torch": dict.fromkeys(got["torch"], 0),
+                   "cuda": dict.fromkeys(got["cuda"], 10),
+                   "cuda_fused": dict.fromkeys(got["cuda_fused"], 1)}
+    launched = ops.launch_counts()
+    assert launched["dekrr_cheb_solve"] == launched["dekrr_async_solve"] == 1
+    assert launched["dekrr_step"] + launched["dekrr_step_masked"] == 20
+
+
+@pytest.mark.gpu
+def test_gpu_quickstart_matches_the_cpu(cuda_device):
+    """The quickstart's four numbers on the card equal the CPU's at rtol
+    1e-9 from one set of CPU draws."""
+    from repro_torch.examples import quickstart
+    fmaps, dkla_fmap = quickstart.draw_maps("cpu")
+    want = quickstart.run("cpu", fmaps=fmaps, dkla_fmap=dkla_fmap)
+    got = quickstart.run(cuda_device, fmaps=fmaps, dkla_fmap=dkla_fmap)
+    for key, value in want.items():
+        np.testing.assert_allclose(got[key], value, rtol=1e-9, err_msg=key)
+
+
+@pytest.mark.gpu
+def test_gpu_readout_features_match_the_cpu(cuda_device, monkeypatch):
+    """The readout's pooled features on the card within 1e-5·max| | of
+    the CPU's (f32 backbone, TF32 off), from the same weights and
+    tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.examples import decentralized_readout as DR
+    from repro_torch.models.model import Model, init_params
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_arch("smollm_135m").config.reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (128, 32),
+                           generator=torch.Generator().manual_seed(1))
+    want = DR.pooled_features(Model(cfg, params), tokens)
+    card = {k: ({n: t.to(cuda_device) for n, t in v.items()}
+                if isinstance(v, dict) else v.to(cuda_device))
+            for k, v in params.items()}
+    got = DR.pooled_features(Model(cfg, card), tokens.to(cuda_device))
+    assert_close(got.cpu(), want, rtol=1e-5)

@@ -54,7 +54,13 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.bench.stream_bench, repro_torch.data.tokens, "
             "repro_torch.train, repro_torch.train.optim, "
             "repro_torch.train.step, repro_torch.train.checkpoint, "
-            "repro_torch.train.loop, repro_torch.launch.train; "
+            "repro_torch.train.loop, repro_torch.launch.train, "
+            "repro_torch.bench.accel_bench, repro_torch.bench.kernel_bench, "
+            "repro_torch.bench.analysis_bench, repro_torch.bench.run, "
+            "repro_torch.experiments.perf_probe, "
+            "repro_torch.experiments.make_report, "
+            "repro_torch.examples.quickstart, "
+            "repro_torch.examples.decentralized_readout; "
             "import sys; bad = [m for m in sys.modules if m in ('jax', "
             "'msgpack') or m.startswith(('jax.', 'repro.', 'msgpack.'))]; "
             "assert not bad, bad")
@@ -62,3 +68,21 @@ def test_importing_the_port_loads_no_jax():
                          env=subprocess_env(), capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_quickstart_runs_with_jax_and_the_reference_blocked():
+    """The quickstart end to end on the CPU while importing `jax`,
+    `jaxlib`, `repro` or `msgpack` raises ImportError."""
+    code = ("import runpy, sys\n"
+            "for name in ('jax', 'jaxlib', 'repro', 'msgpack'):\n"
+            "    sys.modules[name] = None\n"
+            "sys.argv = ['quickstart', '--device', 'cpu']\n"
+            "runpy.run_module('repro_torch.examples.quickstart', "
+            "run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                         env=subprocess_env(), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    assert lines[0] == "dataset d=8 N=2000, J=10, |N_j|=4"
+    assert lines[-1].startswith("DKLA (RFF)   RSE = ")
