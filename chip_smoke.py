@@ -246,7 +246,9 @@ two stand-ins at 600 samples; the stream on the rehearsal's 12 features
 a node; the benches at their reduced sizes), for the tests. ``--decode-timings [--src DIR]`` runs only
 the ``flash_decode`` timings and the two decode steps of step 11 on the
 card, with the ``repro_torch`` package of DIR/.. (``src`` by default), so
-one call can time an earlier tree's kernel beside this one's.
+one call can time an earlier tree's kernel beside this one's;
+``--gram-timings [--src DIR]`` does the same for ``rff_gram`` at rows
+3–3‴ of PERF.md's kernel table.
 """
 from __future__ import annotations
 
@@ -284,13 +286,18 @@ TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
 # slot blocks), N inside one column tile, ragged 16-row blocks, F past
 # one group of Gram blocks; F = 561 and 600, past the clusters' shared
 # memory in f64 (the wide route), at B = 10, N = 3,180 in three N chunks
-# of the workspace; F = 1,025 and 1,100, the wide route in f32 too
+# of the workspace; F = 1,025 and 1,100, the wide route in f32 too; the
+# f32 route at B 1: the `gram_fn` shape and the kernel bench's F 512
 GRAM_SHAPES = ((10, 200, 148, 3180), (40, 200, 148, 3180), (2, 200, 148, 21),
                (3, 70, 13, 300), (2, 330, 21, 700), (3, 561, 148, 333),
                (2, 600, 148, 700), (10, 600, 148, 3180), (1, 1025, 148, 700),
-               (1, 1100, 148, 700))
+               (1, 1100, 148, 700), (1, 200, 148, 3180), (1, 512, 96, 30000))
 # the wide route timed at the main path's own-block call with D_j = 600
 GRAM_WIDE_TIMING = (10, 600, 148, 3180)
+# the f32 route's plans printed: the `gram_fn` shape, the kernel bench's
+# CASES
+GRAM_F32_PLANS = ((1, 200, 148, 3180), (1, 100, 8, 10000),
+                  (1, 200, 148, 30000), (1, 512, 96, 30000))
 
 # The paper's Table 2 `wave` setting.
 J_NODES = 10
@@ -574,7 +581,8 @@ def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
 
 def kernel_name(mangled: str) -> str:
     """``name<f64>`` of a kernel template's mangled entry name
-    (``_ZN<len><namespace><len><name>I{d,f}E...``)."""
+    (``_ZN<len><namespace><len><name>I{d,f}E...``; ``name<3>`` for an int
+    argument, ``ILi3E``)."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -583,9 +591,11 @@ def kernel_name(mangled: str) -> str:
     if not m:
         return mangled
     name = rest[m.end():m.end() + int(m.group(1))]
-    kind = {"IdE": "f64", "IfE": "f32"}.get(
-        rest[m.end() + int(m.group(1)):][:3])
-    return f"{name}<{kind}>" if kind else name
+    args = rest[m.end() + int(m.group(1)):]
+    kind = {"IdE": "f64", "IfE": "f32"}.get(args[:3])
+    units = re.match(r"ILi(\d+)E", args)   # rff_gram_f32_kernel<units>
+    return (f"{name}<{kind}>" if kind else
+            f"{name}<{units.group(1)}>" if units else name)
 
 
 def ptxas_summary(report: str) -> list[str]:
@@ -655,6 +665,7 @@ def kernel_phases() -> dict[str, float]:
     errs = {"rff_gram": 0.0, "dekrr_step": 0.0, "dekrr_solve": 0.0}
     for dtype in (torch.float64, torch.float32):
         f64 = dtype == torch.float64
+        gram_errs = []
         for shape in GRAM_SHAPES:
             args = gram_operands(*shape, dtype, seed=sum(shape))
             gram, zy = ops.rff_gram_batched(*args)
@@ -668,8 +679,12 @@ def kernel_phases() -> dict[str, float]:
                 raise PhaseError(f"rff_gram: two launches differ ({tag})")
             if not torch.equal(gram, gram.transpose(1, 2)):
                 raise PhaseError(f"rff_gram: G ≠ Gᵀ ({tag})")
+            gram_errs.append(f"{shape} {e:.3e}")
             if f64:
                 errs["rff_gram"] = max(errs["rff_gram"], e)
+        print(f"rff_gram {dtype} against its plain version at rtol "
+              f"{TOL[dtype]:g}, two launches bit-equal, G == Gᵀ; max abs "
+              f"err by (B, F, d, N): " + "; ".join(gram_errs), flush=True)
         for dy, t_rows, k in ((1, J_NODES, 4), (1, J_NODES + 3, 4),
                               (3, J_NODES, 4), (3, J_NODES + 3, 4),
                               (1, J_NODES, 0)):
@@ -2485,6 +2500,71 @@ def decode_timings_only(src: str | None) -> int:
                     for cur, d in rows[0]["serving"].items()},
         "step_ms": {"serving cache (B 8, S 512, cur 128)": step_ms,
                     "long request (B 1, S 32768, cur 32768)": long_ms}}))
+    return 0
+
+
+def gram_timings_only(src: str | None) -> int:
+    """``--gram-timings``: `rff_gram` at PERF.md's rows 3 (f64, the main
+    path's two shapes, B 10 and B 40), 3′ (f64, the wide route at
+    GRAM_WIDE_TIMING), 3″ (f32, B 1, the `gram_fn` shape) and 3‴ (f32,
+    B 1, the kernel bench's CASES), each by CUDA events beside its
+    PyTorch yardstick and bound, with ``repro_torch`` imported from `src`,
+    as one JSON line after the card's line. Seeded operands of the rows'
+    shapes (not the main path's own draws)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if src is not None:
+        sys.path.insert(0, os.path.abspath(src))
+    import repro_torch
+    from repro_torch.bench import kernel_bench
+    from repro_torch.kernels import ops
+
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def batched(shapes, dtype):
+        calls = [gram_operands(*sh, dtype, seed=sum(sh)) for sh in shapes]
+
+        def library():
+            for om, bi, x, y, cm in calls:
+                z = torch.cos(torch.baddbmm(bi[..., None], om, x)) \
+                    * cm[:, None]
+                z @ z.transpose(1, 2), (z @ y[..., None])[..., 0]
+        flops = sum(b * (2 * f * d * n + f * (f + 1) * n)
+                    for b, f, d, n in shapes)
+        byts = sum(nbytes(*c) + (c[0].shape[0] * c[0].shape[1] ** 2
+                                 + c[0].shape[0] * c[0].shape[1])
+                   * c[0].element_size() for c in calls)
+        return (lambda: [ops.rff_gram_batched(*c) for c in calls], library,
+                bound_ms(byts, flops, dtype)[0])
+
+    def single(f, dim, n):
+        om, bi, x, y = kernel_bench.operands(f, dim, n, torch.device("cuda"))
+        scale = math.sqrt(2.0 / f)
+        return (lambda: ops.rff_gram(om, bi, x, y, scale=scale),
+                lambda: kernel_bench.yardstick(om, bi, x, y, scale),
+                bound_ms(nbytes(om, bi, x, y) + (f * f + f) * 4,
+                         2 * f * dim * n + f * (f + 1) * n,
+                         torch.float32)[0])
+
+    cases = [("3", "f64", [(J_NODES, D_PER_NODE, 148, 3180),
+                           (4 * J_NODES, D_PER_NODE, 148, 3180)]),
+             ("3′", "f64", [GRAM_WIDE_TIMING]),
+             ("3″", "f32", [(1, D_PER_NODE, 148, 3180)])] + [
+        ("3‴", "f32", [(1,) + tuple(c)]) for c in kernel_bench.CASES]
+    rows = []
+    for row, kind, shapes in cases:
+        if kind == "f64":
+            kernel, library, bms = batched(shapes, torch.float64)
+        else:
+            kernel, library, bms = single(*shapes[0][1:])
+        rows.append(dict(row=row, dtype=kind, shapes=shapes,
+                         ms=cuda_ms(kernel), library_ms=cuda_ms(library),
+                         bound_ms=bms))
+    print(card)
+    print(json.dumps({"package": os.path.dirname(repro_torch.__file__),
+                      "rows": rows}))
     return 0
 
 
@@ -4978,7 +5058,7 @@ def run_on_card() -> int:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.dekrr_solve import chain_max_clusters, chain_plan
-    from repro_torch.kernels.rff_gram import gram_plan
+    from repro_torch.kernels.rff_gram import card_plan, gram_plan
     t0 = time.perf_counter()
     reports = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s "
@@ -4995,6 +5075,9 @@ def run_on_card() -> int:
         for b in (J_NODES, 4 * J_NODES)))
     print(f"rff_gram plan at (B, F, d, N) = {GRAM_WIDE_TIMING}: "
           f"{gram_plan(*GRAM_WIDE_TIMING, sms=sms)}")
+    for shape in GRAM_F32_PLANS:
+        print(f"rff_gram f32 plan at (B, F, d, N) = {shape}: "
+              f"{card_plan(*shape, torch.float32, torch.device('cuda'))}")
     for src in ("dekrr_solve", "dekrr_async_solve", "dekrr_cheb_solve"):
         fits = chain_max_clusters(src, 4, D_PER_NODE, 1, torch.float64)
         print(f"chain_plan {src} f64 (C, rows per block, clusters) at K = 4, "
@@ -5252,8 +5335,12 @@ def main(argv=None) -> int:
     ap.add_argument("--decode-timings", action="store_true",
                     help="time only flash_decode and two decode steps on "
                          "the card")
-    ap.add_argument("--src", help="with --decode-timings: the directory "
-                    "that holds the repro_torch package to time")
+    ap.add_argument("--gram-timings", action="store_true",
+                    help="time only rff_gram at PERF.md's rows 3-3‴ on "
+                         "the card")
+    ap.add_argument("--src", help="with --decode-timings or "
+                    "--gram-timings: the directory that holds the "
+                    "repro_torch package to time")
     args = ap.parse_args(argv)
     if package_missing(SRC_DIR if args.src is None
                        else os.path.abspath(args.src)):
@@ -5261,6 +5348,8 @@ def main(argv=None) -> int:
     try:
         if args.decode_timings:
             return decode_timings_only(args.src)
+        if args.gram_timings:
+            return gram_timings_only(args.src)
         return rehearse_on_cpu() if args.cpu_rehearsal else run_on_card()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

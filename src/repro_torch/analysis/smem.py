@@ -19,6 +19,8 @@ Budget table (bytes a block; one H100, sm_90):
   dekrr_async_solve  (K+2)·Dy·D·itemsize                    C ≤ 8    (C, ≤ J)
   dekrr_cheb_solve   (K+2)·Dy·D·itemsize                    C ≤ 8    (C, ≤ J)
   rff_gram, cluster  (F'·36 + Ω + 2·32·36 + 2·2·32 + H)·it  C ≤ 8    (C·S, groups, B)
+  rff_gram, f32      (Z·C·32·(H₃₂+4) + Ωᵀ + 3·32·36          C ≤ 8    (C·S, groups, B),
+                         + 3·2·32 + H₃₂)·4                           (reduce, B)
   rff_gram, wide     max(Z: (2·64·36 + 2·32·68)·it,         1        (⌈n/64⌉, F'/64, b),
                          G: 3·(2·64·36 + 32)·it)                     (tiles, b)
   rff_features       2·(16·WR·(32+p) + 32·(8·NT·WC+p))·it   1        (⌈N/cols⌉, ⌈D/rows⌉, J)
@@ -30,7 +32,10 @@ slot), D the padded feature count, Dy the output width; the round kernel
 stages (1 + K) θ blocks and the acc block, each [Dy, D]. For `rff_gram`
 (`kernels/rff_gram.py::gram_plan`): F' = F rounded up to 16, H the rank
 rows a block holds, Ω = H·(⌈d/32⌉·32 + 4) with Ω resident, else
-2·H·(32 + 4). For `rff_features` (`features_plan`): the tile (WR, WC,
+2·H·(32 + 4). Its f32 route (`F32GramPlan`): H₃₂ the rank rows in
+whole 32-row blocks, Z the Z tiles of its ring (1 or 2), Ωᵀ =
+⌈d/32⌉·32·(H₃₂ + 4) resident, else 3·32·(H₃₂ + 4), and a second grid
+that reduces the slices. For `rff_features` (`features_plan`): the tile (WR, WC,
 NT) from the shape, p = 8 in bf16 and 4 otherwise. For `flash_decode`
 (`decode_plan`): tile = 32·ppg positions, 3 or 4 stages, hb query heads
 a block. The limit is `SMEM_OPTIN_PER_BLOCK` (232,448 B, the opt-in
@@ -236,10 +241,24 @@ def estimate_rff_gram(*, b: int, f: int, dim: int, n: int,
     """`rff_gram` on the route `gram_plan` picks (`csrc/rff_gram.cu`,
     `gram_smem_bytes`; the wide route's `z_smem_bytes` and
     `wide_smem_bytes`, its largest block)."""
-    from repro_torch.kernels.rff_gram import (GRAM_WIDE_TILE, WideGramPlan,
+    from repro_torch.kernels.rff_gram import (GRAM_WIDE_TILE, F32GramPlan,
+                                              WideGramPlan, _f32_rank_rows,
                                               _wide_smem_bytes, gram_plan)
 
     plan = gram_plan(b, f, dim, n, item=itemsize, sms=sms)
+    if isinstance(plan, F32GramPlan):
+        h = _f32_rank_rows(f, plan.cluster)
+        omega = (f"{-(-dim // 32) * 32}*({h}+4)" if plan.resident
+                 else f"3*32*({h}+4)")
+        return SmemEstimate(
+            kernel="rff_gram",
+            formula="(Z*C*32*(H32+4) + OmegaT + 3*32*36 + 3*2*32 + H32)*4",
+            detail=(f"({plan.zbufs}*{plan.cluster}*32*({h}+4) + {omega} "
+                    f"+ 3*32*36 + 3*2*32 + {h})*4"),
+            bytes=plan.smem_bytes, limit=SMEM_LIMITS["rff_gram"],
+            cluster=plan.cluster,
+            grids=((plan.cluster * plan.slices, plan.groups, b),
+                   (plan.reduce_ctas, b, 1)))
     if isinstance(plan, WideGramPlan):
         z_bytes, g_bytes = _wide_smem_bytes(itemsize)
         return SmemEstimate(
@@ -416,7 +435,8 @@ def launcher_bytes(kernel: str, shape: dict, sms: int = H100_SMS) -> int:
         fn = getattr(lib, f"{kernel}_smem_bytes_{suffix}")
         return fn(shape["k_slots"], shape["d_feat"], shape.get("dy", 1))
     if kernel == "rff_gram":
-        from repro_torch.kernels.rff_gram import WideGramPlan, gram_plan
+        from repro_torch.kernels.rff_gram import (F32GramPlan, WideGramPlan,
+                                                  gram_plan)
 
         lib = _build.library("rff_gram")
         plan = gram_plan(shape["b"], shape["f"], shape["dim"], shape["n"],
@@ -426,7 +446,9 @@ def launcher_bytes(kernel: str, shape: dict, sms: int = H100_SMS) -> int:
                        lib.rff_gram_wide_smem_bytes(item, 1))
         layout = lib.rff_gram_smem_bytes(shape["f"], shape["dim"],
                                          plan.cluster, int(plan.resident),
-                                         item)
+                                         item,
+                                         plan.zbufs if isinstance(
+                                             plan, F32GramPlan) else 1)
         if layout != plan.smem_bytes:
             raise SmemBudgetError(
                 f"rff_gram: gram_plan passes {plan.smem_bytes} bytes but "

@@ -78,13 +78,14 @@ SIGNATURES = {
     "rff_gram": {
         "rff_gram_f64": [_P] * 9 + [_I] * 4 + [ctypes.c_double]
         + [_I] * 7 + [_P],
-        "rff_gram_f32": [_P] * 9 + [_I] * 4 + [ctypes.c_double]
-        + [_I] * 7 + [_P],
+        "rff_gram_f32": [_P] * 8 + [_I] * 4 + [ctypes.c_double]
+        + [_I] * 9 + [_P],
         "rff_gram_wide_f64": [_P] * 8 + [_I] * 4 + [ctypes.c_double]
         + [_I] * 2 + [_P],
         "rff_gram_wide_f32": [_P] * 8 + [_I] * 4 + [ctypes.c_double]
         + [_I] * 2 + [_P],
-        "rff_gram_smem_bytes": [_I] * 5,
+        "rff_gram_f32_max_clusters": [_I] * 3,
+        "rff_gram_smem_bytes": [_I] * 6,
         "rff_gram_wide_smem_bytes": [_I] * 2,
     },
     "rff_features": {

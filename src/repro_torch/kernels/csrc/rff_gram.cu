@@ -10,7 +10,7 @@
 // reach that rate; the FP64 vector units give half. The Pallas kernel walks
 // N in order and carries the [F, F] sum in VMEM; a CUDA grid has no order
 // and a block has 227 KB of shared memory, so this kernel splits N across
-// clusters and reduces in a fixed order:
+// clusters and reduces in a fixed order. In f64 (rff_gram_kernel):
 //
 // * Grid (C·S, Q, B), clusters of C blocks along x, 8 warps a block. Cluster
 //   s of problem b owns slice_cols columns (a multiple of kNc) and walks
@@ -44,12 +44,47 @@
 //   wrapper zeroes the counters for each launch. No float atomics: two
 //   launches give the same bits.
 //
-// What still holds it back (chip_smoke.py and PERF.md): every tile passes
-// through ~5 chunk barriers, a cluster barrier and a copy with only 8
-// warps an SM to hide their latency, so the phases add up instead of
-// overlapping. F above 208 at C = 2 (the wrapper raises C first) splits the
-// triangle into Q groups whose clusters each recompute Z. f32 runs the
-// same tiling with the products on the FP32 units (FMA, no TF32).
+// What still holds it back in f64 (chip_smoke.py and PERF.md): every tile
+// passes through ~5 chunk barriers, a cluster barrier and a copy with only
+// 8 warps an SM to hide their latency, so the phases add up instead of
+// overlapping. F above 208 at C = 2 (the wrapper raises C first) splits
+// the triangle into Q groups whose clusters each recompute Z.
+//
+// f32 has no tensor-core product without TF32, which stays off, so its
+// cluster route (rff_gram_f32_kernel, the same grid of (problem, slice)
+// clusters) is bound by operations on the FP32 units: the same
+// 2·F·d·N + F(F+1)·N at 67 TFLOP/s. The f64 tiling run on FMAs (the "FMA
+// twin" of mma16x8x16, still the wide route's f32 product) fell short
+// three ways, and the f32 route answers each:
+// * Shared loads, not FMAs, set the pace: the twin loads one 32-bit word
+//   per FMA. Here each lane holds 4×8 microtiles of the Gram's 32×32 units
+//   (4×4 of the projection) and feeds them with one 16-byte load of A and
+//   two of B per k: 32 FMAs for 3 loads, the loads of a warp one row of a
+//   k-major shared array (Z and Ω kept transposed), without bank
+//   conflicts.
+// * Z was formed again for every triangle group. The plan
+//   (kernels/rff_gram.py::gram_plan) sizes the cluster (1, 2, 4 or 8
+//   blocks) so that its consumer warps hold the whole upper triangle, up
+//   to three units a warp: each rank forms its rows of a 32-column tile
+//   once and bulk-copies them to the other ranks' shared memory. Only past
+//   608 features (more than 192 units) does the triangle split into groups
+//   that each form Z again.
+// * One block reduced a rank's slices alone. Here the partials of each
+//   slice go to a workspace and a second launch
+//   (rff_gram_f32_reduce_kernel) gives one thread to each upper-triangle
+//   element and zy row: it sums the slices in slice order and writes
+//   G[i][j] and G[j][i] from that one value, over the whole card.
+// The phases overlap: a block is warp-specialised (8 producer warps
+// stream X, project and form Z into a ring of two Z tiles; 8 consumer
+// warps accumulate the Gram), mbarriers hand each tile over, and the
+// exchange runs on the copy engine behind the products.
+// What still holds it back (PERF.md §6, §7): at F 512 the kernel runs at
+// 30% of the FP32 rate. Builds with the products taken out showed the
+// hand-over of each tile across the cluster (ring slots, mbarriers, the
+// X stream) as a fixed cost a tile that adds to the consumers' Gram
+// instead of hiding behind it, and the producers' projection, two warps
+// an SM sub-partition, well below the FP32 rate; at 128 registers a
+// thread, three units a warp spill 76 bytes.
 //
 // A second route takes F past what a cluster's shared memory holds (560
 // features in f64, 1,024 in f32; kernels/rff_gram.py::gram_plan picks it
@@ -74,6 +109,7 @@
 // No atomics and no float reduction across blocks: G == Gᵀ exactly and
 // the same bits from run to run. f32 runs the same tiling with the
 // products on the FP32 units (mma16x8x16's FMA twin, no TF32).
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -608,6 +644,583 @@ int launch(const void* omega, const void* bias, const void* x, const void* y,
       static_cast<T>(scale), slices, slice_cols, group_blocks, resident);
 }
 
+// ------------------------------------------------------ f32 cluster route
+// The same grid of (problem, slice) clusters as above, designed for the
+// FP32 units (see the note at the top). A block is warp-specialised:
+// eight producer warps stream X, form the rank's Z rows of each 32-column
+// tile (4×4 FMA microtiles, then scale·cos(·+b)·mask) into a ring of Z
+// tiles and push them to the other ranks with bulk copies; eight
+// consumer warps add Z_I Z_Jᵀ of their 32×32 units to 4×8 microtiles
+// held over the slice. mbarriers hand the tiles over: `full` (the local
+// rows written and the peers' bytes arrived) and `empty` (every rank's
+// consumers done with the slot).
+constexpr int kFB = 32;         // rows of a row block and of a Gram unit
+constexpr int kFProd = 8;       // producer warps
+constexpr int kFCons = 8;       // consumer warps
+constexpr int kFThreads = (kFProd + kFCons) * 32;
+constexpr int kFStages = 3;     // X (and streamed Ω) ring: two chunks in flight
+constexpr int kFXs = kNc + 4;   // X ring row stride
+constexpr int kFMaxUnits = 3;   // 32×32 Gram units a consumer warp holds
+constexpr int kFMaxRows = 128;  // rows a rank forms: a unit a producer warp
+constexpr int kFSumBatch = 8;   // slice partials in flight a reducing thread
+
+// Rows a rank forms (whole 32-row blocks; the last ranks may hold padding).
+__host__ __device__ inline int f32_rank_rows(int F, int C) {
+  const int nb = (F + kFB - 1) / kFB;
+  return (nb + C - 1) / C * kFB;
+}
+
+// A ring of `zbufs` Z tiles, each [C][kNc][H + 4] (rank ρ's rows of the
+// tile one contiguous block, column-major: a column's H values
+// contiguous, so a block is one bulk copy), Ωᵀ (resident [d_pad][H + 4],
+// or a ring [kFStages][kKc][H + 4]), X ring [kFStages][kKc][kFXs], y and
+// mask ring [kFStages][2][kNc], bias [H]. Row strides ≡ 4 (mod 32)
+// words: the transposing 4-byte copies of Ω and the epilogue's 16-byte
+// stores hit 32 distinct banks a phase, and the microtiles' loads read
+// one row a warp, conflict-free at any stride.
+__host__ __device__ inline size_t f32_smem_bytes(int F, int dim, int C,
+                                                 int resident, int zbufs) {
+  const size_t h = f32_rank_rows(F, C);
+  const size_t dpad = (dim + kKc - 1) / kKc * kKc;
+  const size_t om = (resident ? dpad : kFStages * kKc) * (h + 4);
+  return (static_cast<size_t>(zbufs) * C * kNc * (h + 4) + om +
+          kFStages * kKc * kFXs + kFStages * 2 * kNc + h) *
+         sizeof(float);
+}
+
+// c[i][j] += Σ_k a[k·lda + i] · b[k·ldb + j] for i < 4, j < TN: one
+// 16-byte load of A and TN/4 of B feed 4·TN FMAs.
+template <int TN, int K>
+__device__ __forceinline__ void fma_tile(float (&c)[4][TN], const float* a,
+                                         int lda, const float* b, int ldb) {
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float4 av = *reinterpret_cast<const float4*>(a + k * lda);
+    const float am[4] = {av.x, av.y, av.z, av.w};
+    float bv[TN];
+#pragma unroll
+    for (int j = 0; j < TN; j += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(b + k * ldb + j);
+      bv[j] = t.x;
+      bv[j + 1] = t.y;
+      bv[j + 2] = t.z;
+      bv[j + 3] = t.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) c[i][j] = fmaf(am[i], bv[j], c[i][j]);
+  }
+}
+
+// Start copying Ω rows [row0, row0 + rows) × columns [k0, k0 + depth),
+// transposed, to dst[k][r] (row stride ostr ≡ 4 mod 32), zero past F and
+// dim, by the `threads` threads of index t. A warp takes 8 columns × 4
+// rows: 32-byte global segments, 32 distinct banks. rows is a multiple of
+// 4, depth of 8.
+__device__ __forceinline__ void copy_omega_t(float* dst, int ostr,
+                                             const float* om, int row0,
+                                             int rows, int k0, int depth,
+                                             int F, int dim, int t,
+                                             int threads) {
+  const int kgs = depth / 8;
+  for (int e = t; e < rows * depth; e += threads) {
+    const int g = e >> 5;
+    const int r = g / kgs * 4 + ((e >> 3) & 3), k = g % kgs * 8 + (e & 7);
+    const int gr = row0 + r, gk = k0 + k;
+    const bool ok = gr < F && gk < dim;
+    cp_async<4>(dst + k * ostr + r,
+                ok ? om + static_cast<size_t>(gr) * dim + gk : om, ok);
+  }
+}
+
+// cos(x) without branches for |x| ≤ 1e5 (within 1 ulp there): x = j·π/2
+// + r by a three-part Cody–Waite reduction with FMAs, then the Cephes
+// single-precision polynomials of sin and cos on |r| ≤ π/4. cosf's slow-
+// path branch keeps the compiler from interleaving several cosines; the
+// epilogue calls cosf only where some |x| passes the bound.
+__device__ __forceinline__ float cos_reduced(float x) {
+  const float j = rintf(x * 0.636619746685028076f);
+  float r = fmaf(-j, 1.57079637050628662f, x);
+  r = fmaf(-j, -4.37113882867379300e-8f, r);
+  r = fmaf(-j, -1.77635683940025046e-15f, r);
+  const float z = r * r;
+  const float sn = fmaf(r * z,
+                        fmaf(z, fmaf(z, -1.9515295891e-4f, 8.3321608736e-3f),
+                             -1.6666654611e-1f),
+                        r);
+  const float cs = fmaf(z * z,
+                        fmaf(z, fmaf(z, 2.443315711809948e-5f,
+                                     -1.388731625493765e-3f),
+                             4.166664568298827e-2f),
+                        fmaf(-0.5f, z, 1.f));
+  const int q = static_cast<int>(j) & 3;
+  const float v = (q & 1) ? sn : cs;
+  return ((q + 1) & 2) ? -v : v;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Arrive on the local barrier, expecting `bytes` more from bulk copies.
+__device__ __forceinline__ void mbar_arrive_expect(unsigned long long* bar,
+                                                   unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 _, [%0], %1;\n"
+      ::"r"(smem_u32(bar)), "r"(bytes)
+      : "memory");
+}
+
+// Arrive on the barrier at the same offset in cluster rank `rank`.
+__device__ __forceinline__ void mbar_arrive_at(unsigned long long* bar,
+                                               unsigned rank) {
+  asm volatile(
+      "{\n\t.reg .b32 ra;\n\t"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n\t}\n"
+      ::"r"(smem_u32(bar)), "r"(rank)
+      : "memory");
+}
+
+// Wait for the phase of `parity` to complete; trap rather than hang if a
+// hand-over never comes.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned addr = smem_u32(bar);
+  for (unsigned spins = 0;; ++spins) {
+    unsigned done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 26)) __trap();
+  }
+}
+
+// Copy `bytes` of this block's shared memory at `src` to the same offset
+// as `dst` in cluster rank `rank`, completing them on that rank's barrier
+// at the offset of `bar`.
+__device__ __forceinline__ void bulk_push(const void* src, const void* dst,
+                                          unsigned long long* bar,
+                                          unsigned bytes, unsigned rank) {
+  asm volatile(
+      "{\n\t.reg .b32 rd, rb;\n\t"
+      "mapa.shared::cluster.u32 rd, %0, %3;\n\t"
+      "mapa.shared::cluster.u32 rb, %1, %3;\n\t"
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
+      "bytes [rd], [%2], %4, [rb];\n\t}\n"
+      ::"r"(smem_u32(dst)), "r"(smem_u32(bar)), "r"(smem_u32(src)),
+      "r"(rank), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kFProd * 32) : "memory");
+}
+
+// Grid (C·S, groups, B), clusters of C along x, 512 threads, one block an
+// SM. Cluster s of problem b walks slice s in 32-column tiles: the
+// producers of rank r form Z rows [r·H, (r+1)·H) of each tile into ring
+// slot t % zbufs and push them to every other rank; consumer warp w of
+// rank r holds units l = (i·8 + w)·C + r of the group (I ≤ J, row-major)
+// over the slice. The partials go to work[B, groups, S, group_units,
+// 32·32] and the zy rows to [B, S, nb·32]; rff_gram_f32_reduce_kernel
+// sums them.
+template <int kU>
+__global__ void __launch_bounds__(kFThreads, 1)
+rff_gram_f32_kernel(const float* __restrict__ omega,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ x, const float* __restrict__ y,
+                    const float* __restrict__ mask, float* __restrict__ work,
+                    int F, int dim, int N, float scale, int slices,
+                    int slice_cols, int group_units, int resident,
+                    int zbufs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ unsigned long long full[2], empty[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int s = blockIdx.x / C, q = blockIdx.y, b = blockIdx.z;
+  const int groups = gridDim.y, B = gridDim.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tr = lane & 7, tc = lane >> 3;  // microtile row and column group
+
+  const int nb = (F + kFB - 1) / kFB, fp = nb * kFB;
+  const int hr = f32_rank_rows(F, C), hs = hr + 4;
+  const int row0 = rank * hr;
+  const int my_rows = max(0, min(fp, row0 + hr) - row0);
+  const int blk = kNc * hs;                       // a rank's block of a tile
+  const int dpad = (dim + kKc - 1) / kKc * kKc;
+  float* zs = reinterpret_cast<float*>(smem_raw);  // [zbufs][C][kNc][hs]
+  float* os = zs + zbufs * C * blk;                // Ωᵀ
+  float* xs = os + (resident ? dpad : kFStages * kKc) * hs;
+  float* ym = xs + kFStages * kKc * kFXs;         // [stage][y, mask][kNc]
+  float* bs = ym + kFStages * 2 * kNc;            // [hr]
+
+  const float* om = omega + static_cast<size_t>(b) * F * dim;
+  const float* xb = x + static_cast<size_t>(b) * dim * N;
+  const float* yb = y + static_cast<size_t>(b) * N;
+  const float* mb = mask + static_cast<size_t>(b) * N;
+  const int c_begin = s * slice_cols;
+  const int c_end = min(N, c_begin + slice_cols);
+  const int tiles = c_end > c_begin ? (c_end - c_begin + kNc - 1) / kNc : 0;
+  const int units = nb * (nb + 1) / 2;
+  const int here = min(group_units, units - q * group_units);
+  const int kchunks = dpad / kKc;
+  const int stages = tiles * kchunks;
+  const bool producer = warp < kFProd;
+  const int pt = tid;                             // a producer's index
+
+  // X chunk [kKc][kNc] of a stage: producer pt copies rows xr[j],
+  // columns xi[j] … + xv − 1 (16 bytes where rows are aligned).
+  const bool xvec = aligned16(x, N * sizeof(float)) &&
+                    aligned16(y, N * sizeof(float)) &&
+                    aligned16(mask, N * sizeof(float));
+  const int xv = xvec ? 4 : 1;
+  constexpr int kXSlots = kKc * kNc / (kFProd * 32);  // 4
+  int xr[kXSlots], xi[kXSlots];
+#pragma unroll
+  for (int j = 0; j < kXSlots; ++j) {
+    const int e = pt + j * kFProd * 32;
+    xr[j] = e < kKc * kNc / xv ? e / (kNc / xv) : kKc;  // kKc: no chunk
+    xi[j] = e % (kNc / xv) * xv;
+  }
+  const int ym_row = pt / (kNc / xv), ym_col = pt % (kNc / xv) * xv;
+
+  auto load_stage = [&](int tile, int kc, int buf) {
+    const int c0 = c_begin + tile * kNc, k0 = kc * kKc;
+    if (!resident)
+      copy_omega_t(os + buf * kKc * hs, hs, om, row0, my_rows, k0, kKc, F,
+                   dim, pt, kFProd * 32);
+    float* xd = xs + buf * kKc * kFXs;
+#pragma unroll
+    for (int j = 0; j < kXSlots; ++j) {
+      if (xr[j] >= kKc) continue;
+      const int k = k0 + xr[j], col = c0 + xi[j];
+      const int n = k < dim ? max(0, min(xv, c_end - col)) : 0;
+      const float* src = n ? xb + static_cast<size_t>(k) * N + col : xb;
+      float* dst = xd + xr[j] * kFXs + xi[j];
+      if (xvec)
+        cp_async16(dst, src, n * 4);
+      else
+        cp_async<4>(dst, src, n > 0);
+    }
+    if (kc == kchunks - 1 && ym_row < 2) {
+      const int col = c0 + ym_col;
+      const int n = max(0, min(xv, c_end - col));
+      const float* row = ym_row ? mb : yb;
+      const float* src = n ? row + col : row;
+      float* dst = ym + buf * 2 * kNc + ym_row * kNc + ym_col;
+      if (xvec)
+        cp_async16(dst, src, n * 4);
+      else
+        cp_async<4>(dst, src, n > 0);
+    }
+  };
+  int ld_tile = 0, ld_kc = 0;
+  auto next = [&](int& tl, int& k) {
+    if (++k == kchunks) {
+      k = 0;
+      ++tl;
+    }
+  };
+
+  // Prologue, every thread: the bias rows and the resident Ωᵀ (one commit
+  // group), then the producers' first X stages; the barriers.
+  for (int r = tid; r < hr; r += kFThreads) {
+    const bool ok = row0 + r < F;
+    cp_async<4>(bs + r,
+                ok ? bias + static_cast<size_t>(b) * F + row0 + r : bias, ok);
+  }
+  if (resident)
+    copy_omega_t(os, hs, om, row0, my_rows, 0, dpad, F, dim, tid,
+                 kFThreads);
+  cp_async_commit();
+  if (producer) {
+    for (int st = 0; st < kFStages - 1; ++st) {
+      if (st < stages) {
+        load_stage(ld_tile, ld_kc, st);
+        next(ld_tile, ld_kc);
+      }
+      cp_async_commit();
+    }
+    cp_async_wait<kFStages - 1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kFCons * C);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_arrive();
+  cluster_wait();  // Ωᵀ and bias shared; every rank's barriers ready
+
+  if (producer) {
+    // ------------------------------------------------------ producers
+    // Projection unit `warp`: rows (warp / 2)·32 …, columns (warp % 2)·16
+    // … of the tile, a lane's 4×4 microtile.
+    const int rl = warp / 2 * kFB + 4 * tr, cl = warp % 2 * 16 + 4 * tc;
+    const bool p_live = warp / 2 * kFB < my_rows;
+    float pacc[4][4];
+    float zy_acc = 0.f;
+    int tile = 0, kc = 0;
+    for (int st = 0; st < stages; ++st, next(tile, kc)) {
+      const int buf = st % kFStages;
+      cp_async_wait<kFStages - 2>();
+      producer_sync();  // stage st visible; every producer is past st − 1
+      if (st + kFStages - 1 < stages) {
+        load_stage(ld_tile, ld_kc, (st + kFStages - 1) % kFStages);
+        next(ld_tile, ld_kc);
+      }
+      cp_async_commit();
+
+      if (kc == 0) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) pacc[r][c] = 0.f;
+      }
+      if (p_live)
+        fma_tile<4, kKc>(
+            pacc, (resident ? os + kc * kKc * hs : os + buf * kKc * hs) + rl,
+            hs, xs + buf * kKc * kFXs + cl, kFXs);
+      if (kc != kchunks - 1) continue;
+
+      // Epilogue: this rank's rows of tile `tile` into ring slot zb.
+      const int zb = tile % zbufs;
+      if (tile >= zbufs)  // every rank's consumers are done with the slot
+        mbar_wait(&empty[zb], (tile / zbufs - 1) & 1);
+      float* own = zs + (zb * C + rank) * blk;
+      const float* yms = ym + buf * 2 * kNc;
+      if (p_live) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float m = scale * yms[kNc + cl + c];
+          float arg[4], z[4];
+          bool big = false;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            arg[r] = pacc[r][c] + bs[rl + r];
+            big |= fabsf(arg[r]) > 1e5f;
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            z[r] = row0 + rl + r < F
+                       ? (big ? cosf(arg[r]) : cos_reduced(arg[r])) * m
+                       : 0.f;
+          *reinterpret_cast<float4*>(own + (cl + c) * hs + rl) =
+              make_float4(z[0], z[1], z[2], z[3]);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      producer_sync();  // the rank's rows written
+      if (pt == 0) {
+        mbar_arrive_expect(&full[zb],
+                           static_cast<unsigned>((C - 1) * blk * 4));
+        for (int peer = 0; peer < C; ++peer)
+          if (peer != rank)
+            bulk_push(own, own, &full[zb], static_cast<unsigned>(blk * 4),
+                      static_cast<unsigned>(peer));
+      }
+      if (q == 0 && pt < my_rows) {
+#pragma unroll 8
+        for (int n = 0; n < kNc; ++n)
+          zy_acc = fmaf(own[n * hs + pt], yms[n], zy_acc);
+      }
+    }
+    if (q == 0 && pt < my_rows) {
+      float* wz = work + static_cast<size_t>(B) * groups * slices *
+                             group_units * kFB * kFB;
+      wz[(static_cast<size_t>(b) * slices + s) * fp + row0 + pt] = zy_acc;
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    const int cw = warp - kFProd;           // 0 … 7
+    int off_a[kU], off_b[kU];
+    bool g_live[kU];
+#pragma unroll
+    for (int i = 0; i < kU; ++i) {
+      const int l = (i * kFCons + cw) * C + rank;
+      g_live[i] = l < here;
+      int bi, bj;
+      tri_block(g_live[i] ? q * group_units + l : 0, nb, bi, bj);
+      const int ri = bi * kFB / hr, rj = bj * kFB / hr;
+      off_a[i] = ri * blk + bi * kFB - ri * hr + 4 * tr;
+      off_b[i] = rj * blk + bj * kFB - rj * hr + 8 * tc;
+    }
+    float gacc[kU][4][8];
+#pragma unroll
+    for (int i = 0; i < kU; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) gacc[i][r][c] = 0.f;
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int zb = tile % zbufs;
+      mbar_wait(&full[zb], (tile / zbufs) & 1);
+      const float* z = zs + zb * C * blk;
+#pragma unroll
+      for (int i = 0; i < kU; ++i)
+        if (g_live[i])
+          fma_tile<8, kNc>(gacc[i], z + off_a[i], hs, z + off_b[i], hs);
+      __syncwarp();
+      if (lane < C) mbar_arrive_at(&empty[zb], static_cast<unsigned>(lane));
+    }
+    const size_t ublk = static_cast<size_t>(group_units) * kFB * kFB;
+    float* wg =
+        work + ((static_cast<size_t>(b) * groups + q) * slices + s) * ublk;
+#pragma unroll
+    for (int i = 0; i < kU; ++i) {
+      if (!g_live[i]) continue;
+      float* dst = wg + static_cast<size_t>((i * kFCons + cw) * C + rank) *
+                            kFB * kFB;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float* d = dst + (4 * tr + r) * kFB + 8 * tc;
+        *reinterpret_cast<float4*>(d) = make_float4(
+            gacc[i][r][0], gacc[i][r][1], gacc[i][r][2], gacc[i][r][3]);
+        *reinterpret_cast<float4*>(d + 4) = make_float4(
+            gacc[i][r][4], gacc[i][r][5], gacc[i][r][6], gacc[i][r][7]);
+      }
+    }
+  }
+  // No block leaves while a peer may still push to it or arrive on it.
+  cluster_arrive();
+  cluster_wait();
+}
+
+// s = 0 … n − 1 of p[s·stride], summed in order, kFSumBatch loads in
+// flight.
+__device__ __forceinline__ float sum_slices(const float* p, size_t stride,
+                                            int n) {
+  float v = 0.f;
+  int s = 0;
+  for (; s + kFSumBatch <= n; s += kFSumBatch) {
+    float w[kFSumBatch];
+#pragma unroll
+    for (int u = 0; u < kFSumBatch; ++u) w[u] = p[(s + u) * stride];
+#pragma unroll
+    for (int u = 0; u < kFSumBatch; ++u) v += w[u];
+  }
+  for (; s < n; ++s) v += p[s * stride];
+  return v;
+}
+
+// The second launch: grid (⌈(groups·group_units·1,024 + nb·32) / 256⌉, B).
+// Each thread sums one upper-triangle element of one unit (or one zy row)
+// over the slices in slice order and writes G[i][j] and G[j][i] from that
+// one value.
+__global__ void __launch_bounds__(kThreads)
+rff_gram_f32_reduce_kernel(const float* __restrict__ work,
+                           float* __restrict__ gram, float* __restrict__ zy,
+                           int B, int F, int slices, int groups,
+                           int group_units) {
+  const int b = blockIdx.y;
+  const long long e = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const int nb = (F + kFB - 1) / kFB, fp = nb * kFB;
+  const size_t ublk = static_cast<size_t>(group_units) * kFB * kFB;
+  const long long g_elems = static_cast<long long>(groups) * ublk;
+  if (e < g_elems) {
+    const int q = static_cast<int>(e / ublk);
+    const size_t rem = static_cast<size_t>(e) % ublk;
+    const int l = static_cast<int>(rem / (kFB * kFB));
+    const int el = static_cast<int>(rem % (kFB * kFB));
+    const int u = q * group_units + l;
+    if (u >= nb * (nb + 1) / 2) return;
+    int bi, bj;
+    tri_block(u, nb, bi, bj);
+    const int i = bi * kFB + el / kFB, j = bj * kFB + el % kFB;
+    if (i > j || j >= F) return;
+    const float v = sum_slices(
+        work + (static_cast<size_t>(b) * groups + q) * slices * ublk + rem,
+        ublk, slices);
+    float* gb = gram + static_cast<size_t>(b) * F * F;
+    gb[static_cast<size_t>(i) * F + j] = v;
+    gb[static_cast<size_t>(j) * F + i] = v;
+  } else if (e < g_elems + F) {
+    const int row = static_cast<int>(e - g_elems);
+    const float* wz = work + static_cast<size_t>(B) * groups * slices * ublk;
+    zy[static_cast<size_t>(b) * F + row] =
+        sum_slices(wz + static_cast<size_t>(b) * slices * fp + row, fp,
+                   slices);
+  }
+}
+
+template <int kU>
+int launch_f32_kernel(const void* omega, const void* bias, const void* x,
+                      const void* y, const void* mask, void* work, int B,
+                      int F, int dim, int N, double scale, int cluster,
+                      int slices, int slice_cols, int groups,
+                      int group_units, int resident, int zbufs,
+                      int smem_bytes, void* stream) {
+  return cluster_launch(
+      rff_gram_f32_kernel<kU>, dim3(cluster * slices, groups, B), kFThreads,
+      smem_bytes, cluster, stream, static_cast<const float*>(omega),
+      static_cast<const float*>(bias), static_cast<const float*>(x),
+      static_cast<const float*>(y), static_cast<const float*>(mask),
+      static_cast<float*>(work), F, dim, N, static_cast<float>(scale),
+      slices, slice_cols, group_units, resident, zbufs);
+}
+
+int launch_f32(const void* omega, const void* bias, const void* x,
+               const void* y, const void* mask, void* gram, void* zy,
+               void* work, int B, int F, int dim, int N, double scale,
+               int cluster, int slices, int slice_cols, int groups,
+               int group_units, int units_per_warp, int resident, int zbufs,
+               int smem_bytes, void* stream) {
+  const int nb = (F + kFB - 1) / kFB;
+  if (B < 1 || B > 65535 || F < 1 || dim < 1 || N < 1 || cluster < 1 ||
+      cluster > 8 || slices < 1 || slice_cols % kNc != 0 ||
+      static_cast<long long>(slices) * slice_cols < N || groups < 1 ||
+      groups > 65535 || units_per_warp < 1 ||
+      units_per_warp > kFMaxUnits ||
+      group_units > units_per_warp * kFCons * cluster ||
+      static_cast<long long>(groups) * group_units < nb * (nb + 1) / 2 ||
+      f32_rank_rows(F, cluster) > kFMaxRows || zbufs < 1 || zbufs > 2 ||
+      static_cast<size_t>(smem_bytes) <
+          f32_smem_bytes(F, dim, cluster, resident, zbufs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err =
+      units_per_warp <= 2
+          ? launch_f32_kernel<2>(omega, bias, x, y, mask, work, B, F, dim, N,
+                                 scale, cluster, slices, slice_cols, groups,
+                                 group_units, resident, zbufs, smem_bytes,
+                                 stream)
+          : launch_f32_kernel<3>(omega, bias, x, y, mask, work, B, F, dim, N,
+                                 scale, cluster, slices, slice_cols, groups,
+                                 group_units, resident, zbufs, smem_bytes,
+                                 stream);
+  if (err != 0) return err;
+  const long long per = static_cast<long long>(groups) * group_units * kFB *
+                            kFB + nb * kFB;
+  rff_gram_f32_reduce_kernel<<<dim3(static_cast<unsigned>(
+                                        (per + kThreads - 1) / kThreads),
+                                    B),
+                               kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(work), static_cast<float*>(gram),
+      static_cast<float*>(zy), B, F, slices, groups, group_units);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------------------- wide route
 constexpr int kWT = 64;        // Z and G tile rows and columns
 constexpr int kWK = 32;        // depth of a staged chunk (d, or N columns)
@@ -900,15 +1513,30 @@ int rff_gram_f64(const void* omega, const void* bias, const void* x,
                         group_blocks, resident, smem_bytes, stream);
 }
 
+// The f32 route: work holds B·groups·slices·group_units·1,024 + B·slices·
+// ⌈F/32⌉·32 floats (no counters); two launches on `stream`, the second
+// summing the slices (rff_gram_f32_reduce_kernel).
 int rff_gram_f32(const void* omega, const void* bias, const void* x,
                  const void* y, const void* mask, void* gram, void* zy,
-                 void* work, void* counters, int B, int F, int dim, int N,
-                 double scale, int cluster, int slices, int slice_cols,
-                 int groups, int group_blocks, int resident, int smem_bytes,
-                 void* stream) {
-  return launch<float>(omega, bias, x, y, mask, gram, zy, work, counters, B, F,
-                       dim, N, scale, cluster, slices, slice_cols, groups,
-                       group_blocks, resident, smem_bytes, stream);
+                 void* work, int B, int F, int dim, int N, double scale,
+                 int cluster, int slices, int slice_cols, int groups,
+                 int group_units, int units_per_warp, int resident,
+                 int zbufs, int smem_bytes, void* stream) {
+  return launch_f32(omega, bias, x, y, mask, gram, zy, work, B, F, dim, N,
+                    scale, cluster, slices, slice_cols, groups, group_units,
+                    units_per_warp, resident, zbufs, smem_bytes, stream);
+}
+
+// Clusters of `cluster` blocks of the f32 route's Gram launch that the
+// device holds at once, at `units_per_warp` and `smem_bytes` (the plan's),
+// or a negative CUDA error code.
+int rff_gram_f32_max_clusters(int cluster, int units_per_warp,
+                              int smem_bytes) {
+  return units_per_warp <= 2
+             ? cluster_max_active(rff_gram_f32_kernel<2>, kFThreads,
+                                  smem_bytes, cluster)
+             : cluster_max_active(rff_gram_f32_kernel<3>, kFThreads,
+                                  smem_bytes, cluster);
 }
 
 // The wide route: work holds batch·F_pad·cols elements (F_pad = F rounded
@@ -930,12 +1558,16 @@ int rff_gram_wide_f32(const void* omega, const void* bias, const void* x,
 }
 
 // Dynamic shared memory of a block, in bytes of elements of `elem` bytes:
-// the cluster route's layout (gram_smem_bytes) at (F, dim, C, resident),
+// the cluster route's layout at (F, dim, C, resident) (gram_smem_bytes in
+// f64; f32_smem_bytes in f32, with `zbufs` Z tiles in its ring),
 // and the wide route's Z kernel (gram 0) or Gram kernel (gram 1). The
 // launchers take these sizes (repro_torch.analysis.smem checks the same
 // formulas before any launch).
-int rff_gram_smem_bytes(int F, int dim, int C, int resident, int elem) {
-  return static_cast<int>(gram_smem_bytes(F, dim, C, resident, elem));
+int rff_gram_smem_bytes(int F, int dim, int C, int resident, int elem,
+                        int zbufs) {
+  return static_cast<int>(elem == 4
+                              ? f32_smem_bytes(F, dim, C, resident, zbufs)
+                              : gram_smem_bytes(F, dim, C, resident, elem));
 }
 
 int rff_gram_wide_smem_bytes(int elem, int gram) {

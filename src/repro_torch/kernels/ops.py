@@ -33,9 +33,10 @@ activation mask counts as ``dekrr_step_masked``, apart from the unmasked
 round; the featurize kernel counts as ``rff_features`` in f64/f32 and as
 ``rff_features_lowp`` in bf16, once a launch whether it covers one node
 or a whole wave; the decode-attention kernel as ``flash_decode``; the
-Gram kernel as ``rff_gram``, once a call on either route (the wide route
+Gram kernel as ``rff_gram``, once a call on any route (the wide route
 makes two kernel launches per pass and N chunk, `kernels.rff_gram.
-WideGramPlan`).
+WideGramPlan`; the f32 cluster route two, the Gram and the reduction of
+its slices, `kernels.rff_gram.F32GramPlan`).
 """
 from __future__ import annotations
 

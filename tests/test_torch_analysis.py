@@ -22,8 +22,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (DECODE_SMEM_LIMIT,
                                                   decode_plan)
 from repro_torch.kernels.rff_features import features_plan
-from repro_torch.kernels.rff_gram import (GRAM_SMEM_LIMIT, WideGramPlan,
-                                          gram_plan)
+from repro_torch.kernels.rff_gram import (GRAM_SMEM_LIMIT, F32GramPlan,
+                                          WideGramPlan, gram_plan)
 
 # The over-budget round: (K + 2)·Dy·D·8 = 6·8·640·8 = 245,760 B a block,
 # past the 232,448 B a block may take on sm_90.
@@ -58,7 +58,10 @@ def test_gram_estimate_matches_plan(b, f, dim, n, item):
         assert est.grids[1] == (plan.tiles, plan.batch, 1)
     else:
         assert est.bytes == plan.smem_bytes and est.cluster == plan.cluster
-        assert est.grids == ((plan.cluster * plan.slices, plan.groups, b),)
+        grids = ((plan.cluster * plan.slices, plan.groups, b),)
+        if isinstance(plan, F32GramPlan):    # and the reducing launch
+            grids += ((plan.reduce_ctas, b, 1),)
+        assert est.grids == grids
 
 
 @pytest.mark.parametrize("j,d_feat,n,item", [

@@ -124,11 +124,15 @@ def test_gpu_dekrr_kernels_match_plain(cuda_device, dtype, rtol, j, k,
 # Gram blocks (Z recomputed per group, cluster of 4); Ω streamed through
 # shared memory (cluster of 8); F = 561 and 600, past the clusters' shared
 # memory in f64 (the wide route; f32 still on a cluster); F = 1,025 and
-# 1,100, the wide route in both dtypes
+# 1,100, the wide route in both dtypes; at B 1 the f32 route's `gram_fn`
+# shape and the kernel bench's three CASES, F 16 (a cluster of 1), and F
+# 1,024 at d 784 (three groups, Ω streamed) over a ragged N
 GRAM_SHAPES = [(3, 70, 13, 300), (10, 200, 148, 3180), (40, 200, 148, 3180),
                (2, 200, 148, 21), (2, 330, 21, 700), (1, 512, 148, 300),
                (3, 561, 148, 333), (1, 600, 148, 300), (1, 1025, 30, 200),
-               (2, 1100, 21, 100)]
+               (2, 1100, 21, 100), (1, 200, 148, 3180), (1, 100, 8, 10_000),
+               (1, 200, 148, 30_000), (1, 512, 96, 30_000), (1, 16, 5, 100),
+               (1, 1024, 784, 777)]
 
 
 def gram_case(b, f, dim, n, seed):

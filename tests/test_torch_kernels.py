@@ -151,6 +151,28 @@ def test_rff_gram_batched_matches_reference(b, f, dim, n):
         assert_close(a, w)
 
 
+def test_rff_gram_batched_float32_at_one_problem():
+    """B 1 in float32, as `gram_fn_for_solver` calls it (the kernel's f32
+    route on the card): the wrapper's plain version and the plain version
+    itself against the reference's kernel in interpret mode on the same
+    float32 inputs, rtol 2e-4, the `gram_fn` path's tolerance."""
+    b, f, dim, n = 1, 33, 13, 130
+    rng = np.random.default_rng(f + n)
+    mask = np.ones((b, n))
+    mask[:, n - 7:] = 0.0
+    arrays = tuple(a.astype(np.float32) for a in (
+        rng.normal(size=(b, f, dim)), rng.uniform(0, 2 * np.pi, (b, f)),
+        rng.uniform(size=(b, dim, n)), rng.normal(size=(b, n)), mask))
+    want = rops.rff_gram_batched(*to_j(arrays), interpret=True)
+    assert want[0].dtype == jnp.float32
+    got = ops.rff_gram_batched(*to_t(arrays))
+    assert got[0].dtype == torch.float32
+    for a, w in zip(got, want):
+        assert_close(a, w, rtol=2e-4)
+    for a, w in zip(rff_gram_batched_reference(*to_t(arrays)), want):
+        assert_close(a, w, rtol=2e-4)
+
+
 def test_rff_gram_single_matches_reference():
     rng = np.random.default_rng(2)
     omega, bias = rng.normal(size=(12, 6)), rng.uniform(0, 6, 12)

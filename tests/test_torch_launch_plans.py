@@ -4,8 +4,10 @@ route past the clusters' shared memory: passes of problems, N chunks and
 64×64 tiles), the featurize kernel's tiles, the round kernel's rows per
 cluster block, the chain kernels' clusters (`chain_plan`), and the decode
 kernel's chunks, head blocks and workspace (`decode_plan`)."""
+import numpy as np
 import pytest
 
+from repro_torch.analysis import smem
 from repro_torch.kernels.decode_attention import (DECODE_HEAD_BLOCKS,
                                                   DECODE_LANE_GROUPS,
                                                   DECODE_SMEM_LIMIT,
@@ -17,10 +19,11 @@ from repro_torch.kernels.dekrr_step import (ROUND_CLUSTER, ROUND_WARPS,
 from repro_torch.kernels.rff_features import (FEAT_DEPTH, FEAT_STAGES,
                                               FEAT_TILES, FEAT_WARP_ROWS,
                                               features_plan)
-from repro_torch.kernels.rff_gram import (GRAM_COLS, GRAM_MAX_RANK_ROWS,
+from repro_torch.kernels.rff_gram import (GRAM_COLS, GRAM_F32_MAX_UNITS,
+                                          GRAM_MAX_RANK_ROWS,
                                           GRAM_SMEM_LIMIT, GRAM_WIDE_TILE,
-                                          GRAM_WORKSPACE_CAP, GramPlan,
-                                          WideGramPlan, gram_plan)
+                                          GRAM_WORKSPACE_CAP, F32GramPlan,
+                                          GramPlan, WideGramPlan, gram_plan)
 
 MAIN_PATH = [(10, 200, 148, 3180), (40, 200, 148, 3180)]
 GRAM_SHAPES = MAIN_PATH + [(3, 70, 13, 300), (2, 200, 148, 21),
@@ -49,9 +52,14 @@ def test_gram_plan_stays_within_shared_memory_and_workspace(b, f, dim, n,
     plan = gram_plan(b, f, dim, n, item=item)
     assert plan.smem_bytes <= GRAM_SMEM_LIMIT
     assert plan.slices == 1 or plan.workspace * item <= GRAM_WORKSPACE_CAP
-    nb = -(-f // 16)
-    assert -(-nb // plan.cluster) * 16 <= GRAM_MAX_RANK_ROWS
-    assert plan.groups * plan.group_blocks >= nb * (nb + 1) // 2
+    if isinstance(plan, F32GramPlan):    # 32-row blocks, 32×32 units
+        nb = -(-f // 32)
+        assert -(-nb // plan.cluster) * 32 <= GRAM_MAX_RANK_ROWS
+        assert plan.groups * plan.group_units >= nb * (nb + 1) // 2
+    else:
+        nb = -(-f // 16)
+        assert -(-nb // plan.cluster) * 16 <= GRAM_MAX_RANK_ROWS
+        assert plan.groups * plan.group_blocks >= nb * (nb + 1) // 2
     assert plan.ctas == plan.cluster * plan.slices * plan.groups * b
 
 
@@ -77,7 +85,8 @@ def test_gram_plan_refuses_features_beyond_shared_memory():
 @pytest.mark.parametrize("b,f,dim,n", GRAM_SHAPES)
 @pytest.mark.parametrize("item", [8, 4])
 def test_gram_plan_keeps_the_cluster_route_where_it_fits(b, f, dim, n, item):
-    assert isinstance(gram_plan(b, f, dim, n, item=item), GramPlan)
+    assert isinstance(gram_plan(b, f, dim, n, item=item),
+                      GramPlan if item == 8 else F32GramPlan)
 
 
 # (B, F, d, N, item): past 560 features in f64 and 1,024 in f32 (at d =
@@ -171,8 +180,154 @@ def test_wide_gram_plan_stays_within_the_workspace_cap(b, f, dim, n, item):
 def test_gram_plan_route_switches_exactly_past_the_limit():
     assert isinstance(gram_plan(1, 560, 148, 3180, item=8), GramPlan)
     assert isinstance(gram_plan(1, 561, 148, 3180, item=8), WideGramPlan)
-    assert isinstance(gram_plan(1, 1024, 148, 3180, item=4), GramPlan)
+    assert isinstance(gram_plan(1, 1024, 148, 3180, item=4), F32GramPlan)
     assert isinstance(gram_plan(1, 1025, 148, 3180, item=4), WideGramPlan)
+
+
+# (B, F, d, N) of the f32 cluster route: the `gram_fn` shape, the kernel
+# bench's three CASES, F 16 and 1,024 (Ω streamed at d 784), ragged N,
+# a cluster of 4 and a few problems
+F32_SHAPES = [(1, 200, 148, 3180), (1, 100, 8, 10_000), (1, 200, 148, 30_000),
+              (1, 512, 96, 30_000), (1, 16, 5, 100), (1, 1024, 96, 3000),
+              (1, 1024, 784, 777), (1, 512, 96, 1001), (1, 33, 13, 130),
+              (1, 300, 21, 70), (3, 70, 13, 300), (10, 200, 148, 3180)]
+
+
+def _f32_units(f):
+    nb = -(-f // 32)
+    return nb, [(i, j) for i in range(nb) for j in range(i, nb)]
+
+
+@pytest.mark.parametrize("b,f,dim,n", F32_SHAPES)
+def test_f32_gram_plan_reads_every_column_once_per_group(b, f, dim, n):
+    """Each group's clusters walk the S slices [s·slice_cols, (s+1)·
+    slice_cols) ∩ [0, N) in 32-column tiles: every column once per group,
+    no slice empty, and every group holds Z of its slice once (its ranks
+    form disjoint 32-row blocks covering F)."""
+    plan = gram_plan(b, f, dim, n, item=4)
+    assert isinstance(plan, F32GramPlan)
+    for _ in range(plan.groups):
+        cols = []
+        for s in range(plan.slices):
+            c_begin, c_end = s * plan.slice_cols, min(n, (s + 1)
+                                                      * plan.slice_cols)
+            assert c_end > c_begin
+            for t in range(-(-(c_end - c_begin) // GRAM_COLS)):
+                cols += range(c_begin + t * GRAM_COLS,
+                              min(c_end, c_begin + (t + 1) * GRAM_COLS))
+        assert cols == list(range(n))
+    nb, _ = _f32_units(f)
+    rank_rows = -(-nb // plan.cluster) * 32
+    owned = [r for rank in range(plan.cluster)
+             for r in range(rank * rank_rows,
+                            min(nb * 32, (rank + 1) * rank_rows))]
+    assert owned == list(range(nb * 32))
+    assert rank_rows <= GRAM_MAX_RANK_ROWS    # a projection unit a producer warp
+
+
+@pytest.mark.parametrize("b,f,dim,n", F32_SHAPES)
+def test_f32_gram_plan_reduces_each_upper_element_once_in_slice_order(
+        b, f, dim, n):
+    """Every 32×32 unit of a group is held by one warp slot (rank l % C,
+    warp l / C % 8, slot l / C / 8 < units_per_warp), and the reducing
+    launch gives each upper-triangle element (i ≤ j < F) and each zy row
+    exactly one thread, which reads the slices' partials at s = 0 … S−1 in
+    order, where the Gram launch of slice s wrote that element."""
+    plan = gram_plan(b, f, dim, n, item=4)
+    nb, tri = _f32_units(f)
+    gu, c = plan.group_units, plan.cluster
+    assert plan.microtile == (4, 8)
+    assert 1 <= plan.units_per_warp <= GRAM_F32_MAX_UNITS
+    slots = set()
+    for q in range(plan.groups):
+        for l in range(min(gu, len(tri) - q * gu)):
+            slot = (l % c, l // c % 8, l // c // 8)
+            assert slot[2] < plan.units_per_warp and slot not in slots
+            slots.add(slot)
+        slots.clear()
+    ublk = gu * 32 * 32
+    per = plan.groups * ublk + nb * 32
+    assert plan.reduce_ctas * 256 >= per > (plan.reduce_ctas - 1) * 256
+    e = np.arange(plan.groups * ublk)
+    q, rem = e // ublk, e % ublk
+    unit, el = q * gu + rem // 1024, rem % 1024
+    live = unit < len(tri)
+    ij = np.asarray(tri)[unit[live]]
+    i = ij[:, 0] * 32 + el[live] // 32
+    j = ij[:, 1] * 32 + el[live] % 32
+    keep = (i <= j) & (j < f)
+    pairs = i[keep] * f + j[keep]
+    assert np.array_equal(np.sort(pairs),
+                          np.array([r * f + k for r in range(f)
+                                    for k in range(r, f)]))
+    # the partials a thread reads, in its order, are where the Gram launch
+    # of slice s = 0, 1, … wrote its element: lane tr + 8·tc of the unit's
+    # warp holds rows 4·tr + r, columns 8·tc + c of the unit
+    for e0 in np.flatnonzero(live)[np.flatnonzero(keep)][:: max(1, len(
+            pairs) // 64)]:
+        qq, rr = divmod(int(e0), ublk)
+        l, row, col = rr // 1024, rr % 1024 // 32, rr % 32
+        tr, r, tc, cc = row // 4, row % 4, col // 8, col % 8
+        reads = [(qq * plan.slices + s) * ublk + rr
+                 for s in range(plan.slices)]
+        writes = [(qq * plan.slices + s) * ublk + l * 1024
+                  + (4 * tr + r) * 32 + 8 * tc + cc
+                  for s in range(plan.slices)]
+        assert reads == writes == sorted(reads)
+    zy_rows = np.arange(plan.groups * ublk, per) - plan.groups * ublk
+    assert list(zy_rows[zy_rows < f]) == list(range(f))
+
+
+@pytest.mark.parametrize("b,f,dim,n", F32_SHAPES)
+def test_f32_gram_plan_fits_shared_memory_and_the_workspace(b, f, dim, n):
+    """The block's layout is within SMEM_LIMITS["rff_gram"], the estimate
+    the wrapper checks equals it (both launches' grids within the card's
+    limits), and the workspace of the slices' partials and zy rows is
+    within GRAM_WORKSPACE_CAP."""
+    plan = gram_plan(b, f, dim, n, item=4)
+    est = smem.estimate_rff_gram(b=b, f=f, dim=dim, n=n, itemsize=4)
+    assert plan.smem_bytes == est.bytes <= smem.SMEM_LIMITS["rff_gram"]
+    assert est.fits and est.cluster == plan.cluster
+    nb = -(-f // 32)
+    assert plan.workspace == b * plan.slices * (
+        plan.groups * plan.group_units * 1024 + nb * 32)
+    assert plan.workspace * 4 <= GRAM_WORKSPACE_CAP
+    assert plan.blocks_per_sm == 1
+
+
+@pytest.mark.parametrize("b,f,dim,n", F32_SHAPES)
+def test_f32_gram_plan_forms_z_once_up_to_608_features(b, f, dim, n):
+    """One group (each Z entry of a slice formed once, the triangle held
+    by one cluster's consumer warps) wherever the units fit a cluster of 8
+    at three a warp (192 units: F ≤ 608); past that the groups each form Z
+    again. The smallest cluster that holds the triangle at two units a
+    warp is taken first, a ring of two Z tiles up to F 512 at least, and
+    the B 1 shapes fill most of the card."""
+    plan = gram_plan(b, f, dim, n, item=4)
+    nb = -(-f // 32)
+    units = nb * (nb + 1) // 2
+    assert (plan.groups == 1) == (f <= 608)
+    assert plan.zbufs == 2 or f > 512      # two Z tiles fit up to F 512
+    assert plan.units_per_warp * 8 * plan.cluster >= plan.group_units
+    half = plan.cluster // 2
+    if half and units <= 2 * 8 * half:   # half the cluster would hold it:
+        assert -(-nb // half) * 32 > GRAM_MAX_RANK_ROWS  # refused by rows
+    if b == 1 and n >= 3000:
+        assert plan.ctas >= 100
+
+
+@pytest.mark.parametrize("b,f,dim,n", [(10, 200, 148, 3180),
+                                       (40, 200, 148, 3180)])
+def test_f64_gram_plans_at_the_main_path_are_unchanged(b, f, dim, n):
+    """The f64 cluster route keeps its plans (csrc/rff_gram.cu's f64
+    kernel is untouched by the f32 route)."""
+    want = {10: GramPlan(cluster=2, resident=True, slices=13, slice_cols=256,
+                         groups=1, group_blocks=91, smem_bytes=227_200,
+                         workspace=3_055_520, ctas=260),
+            40: GramPlan(cluster=2, resident=True, slices=8, slice_cols=416,
+                         groups=1, group_blocks=91, smem_bytes=227_200,
+                         workspace=7_521_280, ctas=640)}
+    assert gram_plan(b, f, dim, n, item=8) == want[b]
 
 
 # (J, D_max, N): the serving wave's node and wave shapes at each column
