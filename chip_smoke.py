@@ -393,6 +393,13 @@ DECODE_LONG = (1, 16, 16, 64, 32768)
 # layer of qwen1.5-0.5b, 805 MB at B 8, S 512, so each launch finds its
 # cache evicted from the 50 MB L2 by the others, as a decode step does
 DECODE_COLD_CACHES = 24
+# a row's bits at B 1 equal its bits inside B 8 (one chunk, and many
+# chunks merged by the last block): (B, H, K, dh, S), cur = S
+DECODE_INVARIANCE = ((8, 16, 16, 64, 512), (8, 16, 16, 64, 4096))
+# one long request captured into a CUDA graph once, replayed with its
+# lengths tensor set to each of these in turn, against eager calls
+DECODE_REPLAY = (1, 16, 16, 64, 4096)
+DECODE_REPLAY_LENS = (4096, 1000, 1)
 
 # LLM serving at qwen1.5-0.5b's full width and depth (seeded weights):
 # 16 requests, prompts of 16–128 tokens, 32 new tokens each, 8 slots over
@@ -408,6 +415,13 @@ LLM_NEW_TOKENS = 32
 LLM_LOGIT_TOL = 1e-3
 # int8 vs f32 cache, the bound of test_int8_kv_cache_decode_close_to_bf16
 INT8_LOGIT_TOL = 0.05
+# bf16 decode at qwen1.5-0.5b's full width and depth: seeded bf16 weights
+# and a bf16 cache filled from a seed, LLM_BF16_STEPS steps at the serving
+# cache's last positions on backend cuda, each against backend torch from
+# a copy of the same cache within MESH_LOGIT_TOL (the mesh phase's bf16
+# tolerance, below); then its device ms a step by graph replay
+LLM_BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+LLM_BF16_STEPS = 4
 
 # The mixers phase (repro_torch.models.{moe,ssm,rwkv} and the swa ring):
 # each model through ServeEngine at the LLM_* traffic above, seeded f32
@@ -593,9 +607,12 @@ def kernel_name(mangled: str) -> str:
     name = rest[m.end():m.end() + int(m.group(1))]
     args = rest[m.end() + int(m.group(1)):]
     kind = {"IdE": "f64", "IfE": "f32"}.get(args[:3])
-    units = re.match(r"ILi(\d+)E", args)   # rff_gram_f32_kernel<units>
+    # int arguments: rff_gram_f32_kernel<units>, flash_decode_bf16_kernel<
+    # NV, GB>
+    ints = re.match(r"I((?:Li\d+E)+)E", args)
     return (f"{name}<{kind}>" if kind else
-            f"{name}<{units.group(1)}>" if units else name)
+            f"{name}<{','.join(re.findall(r'Li(\d+)E', ints.group(1)))}>"
+            if ints else name)
 
 
 def ptxas_summary(report: str) -> list[str]:
@@ -2056,22 +2073,41 @@ def _decode_agrees(got, want, dtype) -> bool:
                                                <= bound).all())
 
 
+def bf16_decode_edges() -> list[tuple]:
+    """bf16 shapes at every edge of the bf16 split (dh 64, one query head
+    a kv head): lengths 1, a chunk less one, a chunk, a chunk and one, and
+    the merge's window of chunks and one past it (the last block folds the
+    row's partials in windows staged in its ring)."""
+    from repro_torch.kernels.decode_attention import decode_plan
+
+    plan = decode_plan(2, 1, 64, 2)
+    c, w = plan.chunk, plan.merge_window
+    return [(1, 2, 2, 64, (w + 1) * c, cur)
+            for cur in (1, c - 1, c, c + 1, w * c, w * c + 1)]
+
+
 def flash_decode_phase() -> dict[str, float]:
     """The decode-attention kernel against its split plain version (the
     kernel's chunks, merged in chunk order) and its one-pass plain version
     on the card at DECODE_SHAPES in f32 and, where dh is a multiple of 8,
-    in bf16 (`_decode_agrees`); at each shape a second call gives the same
-    bits and, with a stale tail, the cache set to ±999 beyond cur_index
-    gives the same output bit for bit; at one long request a CUDA-graph
-    replay gives the eager call's bits, in both types. Returns the largest
+    in bf16, and at the bf16 split's edges (`bf16_decode_edges`)
+    (`_decode_agrees`); at each shape a second call gives the same bits
+    and, with a stale tail, the cache set to ±999 beyond cur_index gives
+    the same output bit for bit; at one long request a CUDA-graph replay
+    gives the eager call's bits, and one graph replayed with new lengths
+    gives each length's eager bits; a row launched alone gives its bits
+    inside B 8 (DECODE_INVARIANCE); in both types. Returns the largest
     error of each type."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (
-        flash_decode_reference, flash_decode_split_reference)
+        flash_decode_cuda, flash_decode_reference,
+        flash_decode_split_reference)
 
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    cases = [(c, torch.float32) for c in DECODE_SHAPES] + [
-        (c, torch.bfloat16) for c in DECODE_SHAPES if c[3] % 8 == 0]
+    f32, b16 = torch.float32, torch.bfloat16
+    worst = {f32: 0.0, b16: 0.0}
+    cases = [(c, f32) for c in DECODE_SHAPES] + [
+        (c, b16) for c in DECODE_SHAPES if c[3] % 8 == 0] + [
+        (c, b16) for c in bf16_decode_edges()]
     for (b, h, kh, dh, s, cur), dtype in cases:
         case = f"B={b} H={h} K={kh} dh={dh} S={s} cur={cur} {dtype}"
         q, k, v = _decode_operands(b, h, kh, dh, s, seed=s + cur,
@@ -2116,13 +2152,48 @@ def flash_decode_phase() -> dict[str, float]:
             if not torch.equal(replayed, eager):
                 raise PhaseError(f"flash_decode {dtype}: a CUDA-graph replay "
                                  f"gave other bits than the eager call")
+    b, h, kh, dh, s = DECODE_REPLAY
+    for dtype in worst:
+        q, k, v = _decode_operands(b, h, kh, dh, s, seed=5, dtype=dtype)
+        lens = torch.full((b * kh,), s, dtype=torch.int32, device="cuda")
+        out = torch.empty_like(q)
+        flash_decode_cuda(q, k, v, lens, out)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            flash_decode_cuda(q, k, v, lens, out)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            flash_decode_cuda(q, k, v, lens, out)
+        for cur in DECODE_REPLAY_LENS:
+            lens.fill_(cur)
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(out, ops.flash_decode(q, k, v, cur)):
+                raise PhaseError(f"flash_decode {dtype}: a CUDA-graph replay "
+                                 f"with lengths {cur} gave other bits than "
+                                 f"the eager call at {cur}")
+    for dtype in worst:
+        for b, h, kh, dh, s in DECODE_INVARIANCE:
+            q, k, v = _decode_operands(b, h, kh, dh, s, seed=7, dtype=dtype)
+            whole = ops.flash_decode(q, k, v, s)
+            for i in (0, b // 2, b - 1):
+                alone = ops.flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                         s)
+                if not torch.equal(alone, whole[i:i + 1]):
+                    raise PhaseError(
+                        f"flash_decode {dtype}: row {i} of B={b} S={s} "
+                        f"launched alone gave other bits than inside the "
+                        f"batch")
     print(f"flash_decode phase: pass ({len(cases)} shapes and types, max "
-          f"abs err {worst[torch.float32]:.3e} in f32, "
-          f"{worst[torch.bfloat16]:.3e} in bf16 against the split and "
-          f"one-pass plain versions, two calls, the stale tail and graph "
-          f"replays bit for bit)", flush=True)
-    return {"flash_decode": worst[torch.float32],
-            "flash_decode@bf16": worst[torch.bfloat16]}
+          f"abs err {worst[f32]:.3e} in f32, {worst[b16]:.3e} in bf16 "
+          f"against the split and one-pass plain versions, two calls, the "
+          f"stale tail, graph replays (one at lengths "
+          f"{list(DECODE_REPLAY_LENS)}) and B 1 against B "
+          f"{DECODE_INVARIANCE[0][0]} bit for bit)", flush=True)
+    return {"flash_decode": worst[f32], "flash_decode@bf16": worst[b16]}
 
 
 # ------------------------------------------------------------- LLM serving
@@ -2305,15 +2376,9 @@ def sdpa_yardsticks(q, k, v, want, cur: int) -> dict:
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    s = k.shape[1]
-    mask = (torch.arange(s, device="cuda") < cur)[None, None, None, :]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     k_cur, v_cur = kt[:, :, :cur], vt[:, :, :cur]
-    calls = {
-        "views, mask, enable_gqa": lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True),
-        "views": lambda: F.scaled_dot_product_attention(qt, k_cur, v_cur),
-    }
+    calls = sdpa_calls(q, k, v, cur)
     backends = [getattr(SDPBackend, n) for n in (
         "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
         if hasattr(SDPBackend, n)]
@@ -2359,12 +2424,48 @@ def sdpa_yardsticks(q, k, v, want, cur: int) -> dict:
 
     same = table(calls)
     default = {label: default_kernels(fn) for label, fn in calls.items()}
-    best = min(((ms, f"{label} [{be}]") for label, row in same.items()
-                for be, ms in row.items()), default=(float("nan"), "none"))
+    best = min(((ms, label, be) for label, row in same.items()
+                for be, ms in row.items()),
+               default=(float("nan"), "none", None))
     qc, kc, vc = qt.contiguous(), k_cur.contiguous(), v_cur.contiguous()
     same.update(table({"contiguous copies": lambda: (
         F.scaled_dot_product_attention(qc, kc, vc))}))
-    return dict(ms=best[0], call=best[1], table=same, default=default)
+    return dict(ms=best[0], call=f"{best[1]} [{best[2]}]", label=best[1],
+                backend=best[2], table=same, default=default)
+
+
+def sdpa_calls(q, k, v, cur: int) -> dict:
+    """`sdpa_yardsticks`' calls on one cache, by label."""
+    import torch.nn.functional as F
+
+    s = k.shape[1]
+    mask = (torch.arange(s, device="cuda") < cur)[None, None, None, :]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    k_cur, v_cur = kt[:, :, :cur], vt[:, :, :cur]
+    return {
+        "views, mask, enable_gqa": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True),
+        "views": lambda: F.scaled_dot_product_attention(qt, k_cur, v_cur),
+    }
+
+
+def sdpa_cold_ms(sdpa: dict, sets, cur: int) -> float:
+    """The fastest SDPA call of `sdpa_yardsticks` (its label and backend,
+    picked warm) over the distinct caches ``sets`` launched in turn, as
+    `decode_kernel_ms` times the kernel cold."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    if sdpa["backend"] is None:
+        return float("nan")
+    fns = itertools.cycle([sdpa_calls(q, k, v, cur)[sdpa["label"]]
+                           for q, k, v in sets])
+    backend = getattr(SDPBackend, sdpa["backend"])
+
+    def run():
+        with sdpa_kernel([backend]):
+            return next(fns)()
+
+    return cuda_ms(run, reps=max(20, 2 * len(sets)))
 
 
 def decode_kernel_ms(b, h, kh, dh, s, cur, *, caches: int = 1,
@@ -2394,28 +2495,32 @@ def decode_kernel_ms(b, h, kh, dh, s, cur, *, caches: int = 1,
                        torch.float32)
     ms = cuda_ms(launch, reps=max(20, 2 * caches))
     return dict(ms=ms, bound_ms=bms, bound_by=by, operands=sets[0],
-                lens=lens, out=out)
+                sets=sets, lens=lens, out=out)
 
 
-def decode_timings(*, yardsticks: bool = True,
-                   bf16: bool = True) -> list[dict]:
+def decode_timings(*, plain: bool = True,
+                   sdpa: tuple = (torch.float32, torch.bfloat16)
+                   ) -> list[dict]:
     """The decode-attention kernel by CUDA events at DECODE_TIMING (the
     registry's decode_32k length, cur = S) and DECODE_LONG (one long
     request), each beside its plain version (the split one, the kernel's
-    chunks) and the fastest scaled_dot_product_attention call on the same
-    inputs (`sdpa_yardsticks`); and at the serving cache (S = LLM_MAX_SEQ,
-    cur a quarter of it and all of it) warm and cold beside the fastest
-    SDPA call there (warm); in f32 and, with `bf16`, in bf16 (rows
+    chunks; with `plain`) and, for the types in `sdpa`, the fastest
+    scaled_dot_product_attention call on the same inputs
+    (`sdpa_yardsticks`); and at the serving cache (S = LLM_MAX_SEQ, cur a
+    quarter of it and all of it) warm and cold, beside the fastest SDPA
+    call there warm and that call cold (the same caches in turn); in f32
+    (rows ``flash_decode``, ``flash_decode@long``) and bf16 (rows
     ``flash_decode@bf16``, ``flash_decode@bf16,long``: the same shapes,
-    the bound at 2 bytes a value). Without `yardsticks`, the kernel's
-    times only."""
+    the bound at 2 bytes a value)."""
+    from repro_torch.kernels.decode_attention import (
+        flash_decode_split_reference)
+
     rows = []
     f32, b16 = torch.float32, torch.bfloat16
     cases = [("flash_decode", DECODE_TIMING, f32),
-             ("flash_decode@long", DECODE_LONG, f32)]
-    if bf16:
-        cases += [("flash_decode@bf16", DECODE_TIMING, b16),
-                  ("flash_decode@bf16,long", DECODE_LONG, b16)]
+             ("flash_decode@long", DECODE_LONG, f32),
+             ("flash_decode@bf16", DECODE_TIMING, b16),
+             ("flash_decode@bf16,long", DECODE_LONG, b16)]
     for name, (b, h, kh, dh, s), dtype in cases:
         t = decode_kernel_ms(b, h, kh, dh, s, s, dtype=dtype)
         row = dict(name=name, kernel=("flash_decode" if dtype == f32 else
@@ -2424,18 +2529,17 @@ def decode_timings(*, yardsticks: bool = True,
                    replaces="src/repro/kernels/decode_attention.py:89",
                    shape=[b, h, kh, dh, s, s], ms=t["ms"],
                    bound_ms=t["bound_ms"], bound_by=t["bound_by"])
-        if yardsticks:
-            from repro_torch.kernels.decode_attention import (
-                flash_decode_split_reference)
-            q, k, v = t["operands"]
+        q, k, v = t["operands"]
+        if plain:
             row["plain_ms"] = cuda_ms(
                 lambda: flash_decode_split_reference(q, k, v, t["lens"]),
                 reps=5, warmup=1)
+        if dtype in sdpa:
             row["sdpa"] = sdpa_yardsticks(q, k, v, t["out"], s)
             row["library_ms"] = row["sdpa"]["ms"]
         rows.append(row)
-        del t
-    for dtype, row in ((f32, rows[0]), (b16, rows[2]))[:1 + bf16]:
+        del t, q, k, v
+    for dtype, row in ((f32, rows[0]), (b16, rows[2])):
         serving = {}
         for cur in (LLM_MAX_SEQ // 4, LLM_MAX_SEQ):
             shape = (LLM_BATCH, 16, 16, 64, LLM_MAX_SEQ, cur)
@@ -2444,23 +2548,110 @@ def decode_timings(*, yardsticks: bool = True,
                                     dtype=dtype)
             serving[cur] = dict(warm_ms=warm["ms"], cold_ms=cold["ms"],
                                 bound_ms=warm["bound_ms"])
-            if yardsticks:
+            if dtype in sdpa:
                 q, k, v = warm["operands"]
-                serving[cur]["sdpa"] = sdpa_yardsticks(q, k, v, warm["out"],
-                                                       cur)
+                best = sdpa_yardsticks(q, k, v, warm["out"], cur)
+                serving[cur]["sdpa"] = best
+                serving[cur]["sdpa_cold_ms"] = sdpa_cold_ms(
+                    best, cold["sets"], cur)
             del warm, cold
         row["serving"] = serving
     return rows
 
 
-def _decode_model(device: str = "cuda"):
-    """qwen1.5-0.5b at full width and depth with the engine's seeded
-    weights (ServeEngine(seed=0))."""
+def _decode_model(device: str = "cuda", *, bf16: bool = False,
+                  full: bool = True):
+    """qwen1.5-0.5b at full width and depth (its reduced configuration
+    unless `full`) with the engine's seeded weights (ServeEngine(seed=0));
+    with `bf16`, bf16 parameters and compute (LLM_BF16), so a bf16
+    cache."""
     from repro_torch.models.model import Model, init_params
 
-    cfg = _llm_config()
+    cfg = _llm_config() if full else _llm_config().reduced()
+    if bf16:
+        cfg = dataclasses.replace(cfg, **LLM_BF16)
     return Model(cfg, init_params(
         cfg, torch.Generator(device).manual_seed(0)))
+
+
+def bf16_decode_steps(model, device: str, *, batch: int, max_seq: int,
+                      steps: int = LLM_BF16_STEPS, seed: int = 29) -> dict:
+    """A bf16 model's decode step over a cache filled from ``seed``:
+    ``steps`` steps at the cache's last positions on backend cuda, each
+    against backend torch from a copy of the same cache. Returns {rel:
+    max |Δlogit| / max|logit| over the steps, scale, finite, launches:
+    flash_decode's on the card (dispatches on the CPU) during the cuda
+    steps}."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh_cases import fill_cache
+
+    on_card = device == "cuda"
+    cache = model.init_cache(batch, max_seq)
+    fill_cache(cache, seed, torch.device(device))
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    toks = torch.randint(0, model.cfg.vocab_size, (steps, batch, 1),
+                         generator=gen, device=device)
+    first = max_seq - steps
+    counts = ops.launch_counts if on_card else ops.dispatch_counts
+    rel, scale, finite, launches = 0.0, 0.0, True, 0
+    with torch.inference_mode():
+        for i in range(steps):
+            copy = {slot: {n: t.clone() for n, t in e.items()}
+                    for slot, e in cache.items()}
+            before = counts()["flash_decode"]
+            got, cache = model.decode_step(cache, toks[i], first + i,
+                                           backend="cuda")
+            launches += counts()["flash_decode"] - before
+            want, _ = model.decode_step(copy, toks[i], first + i,
+                                        backend="torch")
+            got, want = got.float(), want.float()
+            finite = finite and bool(torch.isfinite(got).all())
+            step_scale = float(want.abs().max())
+            scale = max(scale, step_scale)
+            rel = max(rel, float((got - want).abs().max()) / step_scale)
+            del copy
+    return dict(rel=rel, scale=scale, finite=finite, launches=launches)
+
+
+def bf16_step_phase(card: str, device: str = "cuda", *, full: bool = True,
+                    batch: int = LLM_BATCH, max_seq: int = LLM_MAX_SEQ
+                    ) -> dict:
+    """qwen1.5-0.5b in bf16 (full width and depth on the card, its
+    reduced configuration in the rehearsal): `bf16_decode_steps` gated at
+    MESH_LOGIT_TOL with attn layers × steps flash_decode launches, then
+    (on the card) its device ms a step by graph replay at the serving
+    cache (cur LLM_MAX_SEQ // 4) and at one long request (B 1, S = cur =
+    DECODE_LONG's)."""
+    model = _decode_model(device, bf16=True, full=full)
+    res = bf16_decode_steps(model, device, batch=batch, max_seq=max_seq)
+    want = attn_layers(model.cfg) * LLM_BF16_STEPS
+    if not res["finite"] or res["rel"] > MESH_LOGIT_TOL \
+            or res["launches"] != want:
+        raise PhaseError(f"bf16 decode: cuda vs torch {res['rel']:.3e} of "
+                         f"max|logit| (tolerance {MESH_LOGIT_TOL:g}), "
+                         f"finite {res['finite']}, flash_decode launches "
+                         f"{res['launches']} (want {want})")
+    if device == "cuda":
+        res["serving_ms"] = graph_step_ms(model, batch, max_seq,
+                                          max_seq // 4 - 1)
+        res["long_ms"] = long_step_ms(model)
+    print(f"LLM bf16 decode [{card}] {model.cfg.name} (bf16 weights and "
+          f"cache, {model.cfg.num_layers} layers): {LLM_BF16_STEPS} steps "
+          f"at B={batch}, S={max_seq}, cuda vs torch max |Δlogit| "
+          f"{res['rel']:.3e} of max|logit| {res['scale']:.3f} (tolerance "
+          f"{MESH_LOGIT_TOL:g}), flash_decode launches {res['launches']} = "
+          f"{attn_layers(model.cfg)} × {LLM_BF16_STEPS}"
+          + ("" if device != "cuda" else
+             f"; on the device (CUDA graph replay) {res['serving_ms']:.3f} "
+             f"ms a step at cur={max_seq // 4}, {res['long_ms']:.3f} ms at "
+             f"one long request (B=1, S=cur={DECODE_LONG[-1]})"),
+          flush=True)
+    del model
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
 
 
 def long_step_ms(model) -> float:
@@ -2473,10 +2664,13 @@ def long_step_ms(model) -> float:
 
 
 def decode_timings_only(src: str | None) -> int:
-    """``--decode-timings``: the kernel's times of `decode_timings` and two
-    decode steps by graph replay (the serving cache at cur 128 and one
-    long request), with ``repro_torch`` imported from `src`, as one JSON
-    line after the card's line."""
+    """``--decode-timings``: with ``repro_torch`` imported from `src`, the
+    kernel's times of `decode_timings` in f32 and bf16 (the bf16 rows
+    beside the fastest SDPA call, warm and cold), the f32 kernel at
+    deepseek-moe-16b's heads (DECODE_DH128, warm, cur 128 and 512), and
+    the decode step by graph replay at the serving cache (cur 128) and at
+    one long request, f32 and bf16, as one JSON line after the card's
+    line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2486,20 +2680,38 @@ def decode_timings_only(src: str | None) -> int:
 
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = decode_timings(yardsticks=False, bf16=False)
-    model = _decode_model()
-    step_ms = graph_step_ms(model, LLM_BATCH, LLM_MAX_SEQ,
-                            LLM_MAX_SEQ // 4 - 1)
-    long_ms = long_step_ms(model)
+    rows = decode_timings(plain=False, sdpa=(torch.bfloat16,))
+    b, h, kh, dh, s = DECODE_DH128
+    dh128 = {str(cur): decode_kernel_ms(b, h, kh, dh, s, cur)["ms"]
+             for cur in (s // 4, s)}
+    steps = {}
+    for bf16 in (False, True):
+        model = _decode_model(bf16=bf16)
+        kind = "bf16" if bf16 else "f32"
+        steps[f"{kind} serving cache (B {LLM_BATCH}, S {LLM_MAX_SEQ}, cur "
+              f"{LLM_MAX_SEQ // 4})"] = graph_step_ms(
+            model, LLM_BATCH, LLM_MAX_SEQ, LLM_MAX_SEQ // 4 - 1)
+        steps[f"{kind} long request (B 1, S {DECODE_LONG[-1]}, cur "
+              f"{DECODE_LONG[-1]})"] = long_step_ms(model)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def serving(row):
+        return {str(cur): {k: (v["ms"] if k == "sdpa" else v)
+                           for k, v in d.items()}
+                for cur, d in row["serving"].items()}
+
     print(card)
     print(json.dumps({
         "package": os.path.dirname(repro_torch.__file__),
         "kernel_ms": {r["name"]: r["ms"] for r in rows},
         "bound_ms": {r["name"]: r["bound_ms"] for r in rows},
-        "serving": {str(cur): {k: v for k, v in d.items()}
-                    for cur, d in rows[0]["serving"].items()},
-        "step_ms": {"serving cache (B 8, S 512, cur 128)": step_ms,
-                    "long request (B 1, S 32768, cur 32768)": long_ms}}))
+        "sdpa_ms": {r["name"]: r["sdpa"]["ms"] for r in rows if "sdpa" in r},
+        "serving": serving(rows[0]),
+        "serving@bf16": serving(rows[2]),
+        "dh128_warm_ms": dh128,
+        "step_ms": steps}))
     return 0
 
 
@@ -4980,6 +5192,7 @@ def rehearse_on_cpu() -> int:
     llm = llm_path("cpu", llm_cfg, requests=6, batch=4, max_seq=64,
                    prompt=(4, 16), new_tokens=8)
     check_llm_path(llm, llm_cfg, on_card=False)
+    bf = bf16_step_phase("cpu", "cpu", full=False, batch=2, max_seq=64)
     mx = mixers_phase("cpu", "cpu", full=False, requests=4, batch=2,
                       max_seq=MIXER_REHEARSAL_WINDOW, prompt=(3, 8),
                       new_tokens=4, forward=(2, 6))
@@ -5011,6 +5224,7 @@ def rehearse_on_cpu() -> int:
                                 for p, r in sv["runs"].items()},
                    llm_steps=llm["steps"], llm_tokens=llm["tokens"],
                    llm_logit_rel=llm["rel"],
+                   bf16_decode=dict(rel=bf["rel"], launches=bf["launches"]),
                    mixer_steps={k: r["steps"] for k, r in mx.items()},
                    mixer_forward_err={k: r["forward_err"]
                                       for k, r in mx.items()},
@@ -5057,6 +5271,7 @@ def run_on_card() -> int:
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import decode_plan
     from repro_torch.kernels.dekrr_solve import chain_max_clusters, chain_plan
     from repro_torch.kernels.rff_gram import card_plan, gram_plan
     t0 = time.perf_counter()
@@ -5066,10 +5281,16 @@ def run_on_card() -> int:
     for src, text in reports.items():
         print(f"--- ptxas {src} ---\n{text.strip()}")
     for src in ("rff_gram", "dekrr_step", "dekrr_solve", "dekrr_async_solve",
-                "dekrr_cheb_solve"):
+                "dekrr_cheb_solve", "flash_decode"):
         for line in ptxas_summary(reports[src]):
             print(f"ptxas {src}: {line}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for rows_, s_ in ((LLM_BATCH * 16, LLM_MAX_SEQ), (16, DECODE_LONG[-1])):
+        plan = decode_plan(rows_, 1, 64, 2)
+        print(f"flash_decode bf16 plan at {rows_} rows, S {s_}: {plan}; "
+              f"{plan.blocks(s_)} blocks, {plan.waves(s_, sms):.2f} waves of "
+              f"{plan.blocks_per_sm} a SM, merge window {plan.merge_window} "
+              f"chunks")
     print(f"rff_gram plan at B = {J_NODES}, {4 * J_NODES}: " + "; ".join(
         str(gram_plan(b, D_PER_NODE, 148, 3180, sms=sms))
         for b in (J_NODES, 4 * J_NODES)))
@@ -5202,6 +5423,11 @@ def run_on_card() -> int:
     llm.pop("engine")
     gc.collect()
     torch.cuda.empty_cache()
+    bf = bf16_step_phase(card)
+    print(f"LLM decode step on the device [{card}], f32 beside bf16 (CUDA "
+          f"graph replay): {device_ms:.3f} / {bf['serving_ms']:.3f} ms at "
+          f"the serving cache (cur={step_pos + 1}), {long_ms:.3f} / "
+          f"{bf['long_ms']:.3f} ms at one long request", flush=True)
     mx = mixers_phase("cuda", card, full=True, requests=LLM_REQUESTS,
                       batch=LLM_BATCH, max_seq=LLM_MAX_SEQ)
     gc.collect()
@@ -5235,7 +5461,7 @@ def run_on_card() -> int:
         "dekrr_step_masked"], dekrr_async_solve=a_launches[
         "dekrr_async_solve"], dekrr_cheb_solve=c_launches["dekrr_cheb_solve"],
         flash_decode=llm["launches"]["flash_decode"], **serve_launches)
-    launches["flash_decode@bf16"] = mesh["launches"]
+    launches["flash_decode@bf16"] = mesh["launches"] + bf["launches"]
     launches["rff_gram@gram_fn"] = pp["gram"]["launches"]["rff_gram"]
     for k in ("dekrr_step", "dekrr_step_masked"):
         launches[f"{k}@spmd"] = sp_checks["launches"][k]
@@ -5282,8 +5508,9 @@ def run_on_card() -> int:
                   f"cur={cur}: warm {d['warm_ms']:.4f} ms, cold "
                   f"{d['cold_ms']:.4f} ms (bound {d['bound_ms']:.4f} ms; the "
                   f"fastest SDPA call, warm, {d['sdpa']['call']} "
-                  f"{d['sdpa']['ms']:.4f} ms, every backend that agreed "
-                  f"(ms): {json.dumps(d['sdpa']['table'])})"
+                  f"{d['sdpa']['ms']:.4f} ms, cold {d['sdpa_cold_ms']:.4f} "
+                  f"ms, every backend that agreed (ms): "
+                  f"{json.dumps(d['sdpa']['table'])})"
                   for cur, d in served.items()))
     dh128 = rows[-1]
     for cur, d in dh128.pop("per_cur").items():

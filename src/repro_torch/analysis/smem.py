@@ -26,6 +26,9 @@ Budget table (bytes a block; one H100, sm_90):
   rff_features       2·(16·WR·(32+p) + 32·(8·NT·WC+p))·it   1        (⌈N/cols⌉, ⌈D/rows⌉, J)
   serve_wave         rff_features' at the wave's shape      1        the same
   flash_decode       (stages·2·tile·dh + hb·dh)·itemsize    1        (rows·⌈G/hb⌉, chunks)
+  flash_decode, bf16 stages·2·tile·dh·2 + stages·hb·dh·2   1        (rows·⌈G/hb⌉·chunks
+                       + hb·dh·4 + max(34816,                       units, resident)
+                       16·hb·(2+dh)) + stages·16 + 16 + 128
 
 Terms: K the slot count (≥ 1: the wrapper pads an edgeless graph to one
 slot), D the padded feature count, Dy the output width; the round kernel
@@ -38,7 +41,10 @@ whole 32-row blocks, Z the Z tiles of its ring (1 or 2), Ωᵀ =
 that reduces the slices. For `rff_features` (`features_plan`): the tile (WR, WC,
 NT) from the shape, p = 8 in bf16 and 4 otherwise. For `flash_decode`
 (`decode_plan`): tile = 32·ppg positions, 3 or 4 stages, hb query heads
-a block. The limit is `SMEM_OPTIN_PER_BLOCK` (232,448 B, the opt-in
+a block; in bf16 tile = 32·ppg, 2 stages, each with a slot for a unit's
+query rows and a full and an empty mbarrier (8 bytes each), the query
+rows in f32, the merge area and a 16-byte flag; its persistent blocks
+walk (chunk, row · head block) units. The limit is `SMEM_OPTIN_PER_BLOCK` (232,448 B, the opt-in
 maximum of a block on sm_90) less the static shared memory each kernel
 declares beside its dynamic buffer (`STATIC_SMEM`). Grids hold at most
 2³¹ − 1 blocks along x and 65,535 along y and z; a cluster at most the
@@ -323,22 +329,34 @@ def estimate_serve_wave(*, j: int, d_feat: int, n: int, itemsize: int = 8,
 
 def estimate_flash_decode(*, rows: int, groups: int, dh: int,
                           s: int = 1, itemsize: int = 4) -> SmemEstimate:
-    """The decode-attention kernel (`csrc/flash_decode.cu`, `smem_bytes`)
-    at `decode_plan`'s tiling for ``rows`` (batch, kv head) rows of
-    ``groups`` query heads: a ring of K and V stages and the block's
-    query rows, in the operands' type (itemsize 4 in f32, 2 in bf16);
-    grid (rows·head blocks, chunks of S)."""
+    """The decode-attention kernel (`csrc/flash_decode.cu`) at
+    `decode_plan`'s tiling for ``rows`` (batch, kv head) rows of
+    ``groups`` query heads: in f32 (`smem_bytes`) a ring of K and V
+    stages and the block's query rows; in bf16 (itemsize 2,
+    `bf16_smem_bytes`) the ring and a unit's query rows a stage in bf16,
+    the query rows in f32, the merge area, a full and an empty mbarrier a
+    stage and the last-block flag; grid (rows·head blocks, chunks of S)
+    (bf16: the units its persistent blocks walk)."""
     from repro_torch.kernels.decode_attention import (decode_smem_bytes,
                                                       decode_tiling)
 
     ppg, tile, stages, tiles, head_block = decode_tiling(groups, dh,
                                                          itemsize)
     chunks = -(-max(s, 1) // (tiles * tile))
+    if itemsize == 2:
+        formula = ("stages*2*tile*dh*2 + stages*hb*dh*2 + hb*dh*4 + "
+                   "max(34816, 16*hb*(2+dh)) + stages*16 + 16 + 128")
+        detail = (f"{stages}*2*{tile}*{dh}*2 + {stages}*{head_block}*{dh}*2"
+                  f" + {head_block}*{dh}*4 + max(34816, 16*{head_block}*"
+                  f"(2+{dh})) + {stages}*16 + 16 + 128")
+    else:
+        formula = "(stages*2*tile*dh + hb*dh)*itemsize"
+        detail = (f"({stages}*2*{tile}*{dh} + {head_block}*{dh})"
+                  f"*{itemsize}")
     return SmemEstimate(
         kernel="flash_decode",
-        formula="(stages*2*tile*dh + hb*dh)*itemsize",
-        detail=(f"({stages}*2*{tile}*{dh} + {head_block}*{dh})"
-                f"*{itemsize}"),
+        formula=formula,
+        detail=detail,
         bytes=decode_smem_bytes(ppg, stages, head_block, dh, itemsize),
         limit=SMEM_LIMITS["flash_decode"],
         grids=((max(rows, 1) * -(-max(groups, 1) // head_block), chunks,

@@ -97,7 +97,7 @@ SIGNATURES = {
     "flash_decode": {
         "flash_decode_f32": [_P] * 7 + [_L] * 4 + [_I] * 9
         + [ctypes.c_double, _P],
-        "flash_decode_bf16": [_P] * 7 + [_L] * 4 + [_I] * 9
+        "flash_decode_bf16": [_P] * 7 + [_L] * 4 + [_I] * 10
         + [ctypes.c_double, _P],
         "flash_decode_smem_bytes": [_I] * 5,
     },

@@ -18,12 +18,14 @@ type for all, the output's too); the arithmetic is f32 in both, as the
 reference's kernel keeps m, l and acc in f32 for bf16 operands.
 
 The kernel (`csrc/flash_decode.cu`) splits each (batch, kv head) row's
-positions into chunks of `decode_plan`'s length, a function of dh alone,
-and runs one block per (row, head block, chunk): each block streams its
-chunk through a cp.async ring in shared memory, and the last of a row's
-active chunks merges their partials in chunk order
-(`flash_decode_split_reference` is its plain version). The wrapper that
-checks and dispatches is `repro_torch.kernels.ops.flash_decode`.
+positions into chunks of `decode_plan`'s length, a function of dh and the
+operands' type alone, and runs one block per (row, head block, chunk):
+each block streams its chunk through a ring in shared memory (f32: a
+cp.async ring; bf16: a producer warp's bulk copies completed on
+mbarriers), and the last of a row's active chunks merges their partials
+(`flash_decode_split_reference` is its plain version, in the bf16
+kernel's order). The wrapper that checks and dispatches is
+`repro_torch.kernels.ops.flash_decode`.
 """
 from __future__ import annotations
 
@@ -54,6 +56,22 @@ DECODE_SMEM_LIMIT = SMEM_LIMITS["flash_decode"]
 DECODE_SMEM_PER_SM = SMEM_PER_SM
 DECODE_SMEM_RESERVED = SMEM_RESERVED_PER_BLOCK
 DECODE_THREADS_PER_SM = 2_048
+# The bf16 route (`flash_decode_bf16_kernel`): eight consumer warps of 32
+# lane groups and one producer warp; a lane holds ⌈dh / 64⌉ 16-byte
+# columns and takes 4 / that many positions of a stage (a stage of 128
+# positions at dh 64: 32 KB of K and V); a ring of 2 stages and a chunk of
+# 16 stages (512 KB of K and V at dh 64 and 128: 2,048 and 1,024
+# positions); persistent blocks walk the (chunk, row) units; a merge area
+# of at least 34 KB (131 partials at dh 64).
+DECODE_BF16_THREADS = 288
+DECODE_BF16_LANE_GROUPS = 32
+DECODE_BF16_STAGES = 2
+DECODE_BF16_CHUNK_TILES = 16
+DECODE_BF16_MERGE_BYTES = 34_816
+DECODE_BF16_WARPS = 8             # consumer warps
+DECODE_MBARRIER_BYTES = 16        # full and empty barrier of a stage
+DECODE_FLAG_BYTES = 16            # the last-block flag
+DECODE_ALIGN_BYTES = 128          # slack to start the ring on 128 bytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,9 +86,10 @@ class DecodePlan:
     dh: int
     itemsize: int       # bytes of an operand value: 4 (f32) or 2 (bf16)
     chunk: int          # positions per block, a multiple of `tile`
-    ppg: int            # positions a lane group takes from a tile (1, 2)
+    ppg: int            # positions a lane group takes from a tile: f32
+    #                     1 or 2; bf16 4 / ⌈dh / 64⌉
     tile: int           # positions per ring stage, 32·ppg
-    stages: int         # ring stages in shared memory (3 or 4)
+    stages: int         # ring stages in shared memory: 3 or 4 (f32), 2 (bf16)
     head_block: int     # query heads per block (1, 2 or 4)
     head_blocks: int    # ⌈groups / head_block⌉
     threads: int
@@ -114,6 +133,40 @@ class DecodePlan:
         card (``sms`` SMs, `blocks_per_sm` each)."""
         return self.blocks(s) / (sms * self.blocks_per_sm)
 
+    @property
+    def merge_window(self) -> int:
+        """bf16: chunks whose partials the row's last block stages and
+        folds at a time (windows of its merge area, 2 + dh floats a
+        partial of each of its first head block's heads); 0 in f32, which
+        folds them from global memory."""
+        if self.itemsize != 2:
+            return 0
+        heads = min(self.groups, self.head_block)
+        return max(1, decode_merge_bytes(self.head_block, self.dh) // 4
+                   // (heads * (2 + self.dh)))
+
+    def resident(self, sms: int = 132) -> int:
+        """bf16: the persistent grid's blocks on a card of ``sms`` SMs
+        (the kernel asks the card: its registers may hold fewer), each
+        walking the units (chunk, row · head block) that `blocks` counts
+        in strides of this many."""
+        return sms * self.blocks_per_sm
+
+    def merge_order(self, length: int) -> list[int]:
+        """The chunks whose partials a row of ``length`` valid positions
+        merges, in the order the bf16 kernel and
+        `flash_decode_split_reference` fold them: every active chunk in
+        chunk order, each weighted by e^{m_c − M}, M the largest m_c of
+        them. (The f32 kernel folds the same partials in a strided
+        order.)"""
+        return list(self.active_chunks(length))
+
+
+def decode_columns(dh: int) -> int:
+    """16-byte columns (8 bf16 values) a lane of the bf16 route holds:
+    1 up to dh 64, 2 up to 128, else 4."""
+    return 1 if dh <= 64 else 2 if dh <= 128 else 4
+
 
 def decode_tiling(groups: int, dh: int, itemsize: int = 4
                   ) -> tuple[int, int, int, int, int]:
@@ -122,6 +175,12 @@ def decode_tiling(groups: int, dh: int, itemsize: int = 4
     ``itemsize`` bytes (any dh ≥ 1: the budget check reads it for shapes
     the card would refuse too)."""
     dh = max(1, dh)
+    head_block = next((hb for hb in DECODE_HEAD_BLOCKS if hb >= groups),
+                      DECODE_HEAD_BLOCKS[-1])
+    if itemsize == 2:
+        ppg = 4 // decode_columns(dh)
+        return (ppg, ppg * DECODE_BF16_LANE_GROUPS, DECODE_BF16_STAGES,
+                DECODE_BF16_CHUNK_TILES, head_block)
     ppg = 2 if 2 * 2 * DECODE_LANE_GROUPS * dh * itemsize \
         <= DECODE_PAIR_STAGE_BYTES else 1
     tile = ppg * DECODE_LANE_GROUPS
@@ -129,16 +188,33 @@ def decode_tiling(groups: int, dh: int, itemsize: int = 4
     stages = 4 if stage_bytes <= 16 << 10 else 3
     tiles = max(1, min(DECODE_MAX_CHUNK_TILES,
                        DECODE_CHUNK_BYTES // stage_bytes))
-    head_block = next((hb for hb in DECODE_HEAD_BLOCKS if hb >= groups),
-                      DECODE_HEAD_BLOCKS[-1])
     return ppg, tile, stages, tiles, head_block
+
+
+def decode_merge_bytes(head_block: int, dh: int) -> int:
+    """bf16: the merge area (`bf16_merge_bytes`): the 8 consumer warps'
+    states [warps][head_block][2 + dh] f32, and at least
+    DECODE_BF16_MERGE_BYTES for the last block's windows of partials."""
+    return max(DECODE_BF16_MERGE_BYTES,
+               DECODE_BF16_WARPS * head_block * (2 + dh) * 4)
 
 
 def decode_smem_bytes(ppg: int, stages: int, head_block: int,
                       dh: int, itemsize: int = 4) -> int:
-    """Shared memory of a block in the layout of csrc/flash_decode.cu
-    (`smem_bytes`): the ring [stages][K, V][32·ppg][dh] and the block's
-    query rows [head_block][dh], in the operands' type."""
+    """Shared memory of a block in the layout of csrc/flash_decode.cu.
+    f32 (`smem_bytes`): the ring [stages][K, V][32·ppg][dh] and the
+    block's query rows [head_block][dh], in f32. bf16
+    (`bf16_smem_bytes`): the ring [stages][K, V][32·ppg][dh] and a slot a
+    stage for a unit's query rows [head_block][dh] in bf16, the query rows
+    widened to f32, the merge area (`decode_merge_bytes`), a full and an
+    empty mbarrier a stage, the last-block flag and 128 bytes of slack,
+    so the ring starts on a 128-byte boundary for the tensor copies."""
+    if itemsize == 2:
+        return (stages * 2 * ppg * DECODE_BF16_LANE_GROUPS * dh * 2
+                + stages * head_block * dh * 2 + head_block * dh * 4
+                + decode_merge_bytes(head_block, dh)
+                + stages * DECODE_MBARRIER_BYTES + DECODE_FLAG_BYTES
+                + DECODE_ALIGN_BYTES)
     return (stages * 2 * ppg * DECODE_LANE_GROUPS * dh + head_block * dh) \
         * itemsize
 
@@ -152,15 +228,22 @@ def decode_vector(itemsize: int) -> int:
 @functools.lru_cache(maxsize=None)
 def decode_plan(rows: int, groups: int, dh: int,
                 itemsize: int = 4) -> DecodePlan:
-    """Launch plan of `flash_decode`: 256 threads a block, eight lanes a
-    position, so 32 lane groups; each takes two positions of a ring stage
-    while such a stage (64 positions of K and V) is at most 32 KB
-    (dh ≤ 64 in f32, ≤ 128 in bf16), else one; 4 stages while a stage is
-    at most 16 KB, else 3; a chunk of as many tiles as make 256 KB of K
-    and V (512 positions at dh 64 in f32, 1,024 in bf16; 256 at dh 128 in
-    f32), at least one and at most 64; query heads in blocks of 1, 2 or
-    4. The chunk depends on dh and the operands' type alone, never on S
-    or on the row lengths, so views of any length and graph replays with
+    """Launch plan of `flash_decode`. f32: 256 threads a block, eight
+    lanes a position, so 32 lane groups; each takes two positions of a
+    ring stage while such a stage (64 positions of K and V) is at most
+    32 KB (dh ≤ 64), else one; 4 stages while a stage is at most 16 KB,
+    else 3; a chunk of as many tiles as make 256 KB of K and V (512
+    positions at dh 64, 256 at dh 128), at least one and at most 64.
+    bf16: 288 threads (a producer warp and 32 lane groups of eight
+    lanes), a lane ⌈dh / 64⌉ 16-byte columns, 4 / that many positions a
+    lane group a stage (a stage of 128, 64 or 32 positions), 2 stages
+    and a chunk of 16 stages (2,048 positions at dh 64, 1,024 at dh 128,
+    512 KB of K and V); the
+    kernel's persistent blocks (`resident`) walk the grid's (chunk, row ·
+    head block) units. Query
+    heads in blocks of 1, 2 or 4. The chunk depends on dh and the
+    operands' type alone, never on S, on the rows or on the row lengths,
+    so views of any length, batches of any size and graph replays with
     new lengths cut the same chunks."""
     vec = decode_vector(itemsize) if itemsize in (2, 4) else 0
     if rows <= 0 or groups <= 0 or dh <= 0 or not vec or dh % vec:
@@ -175,13 +258,14 @@ def decode_plan(rows: int, groups: int, dh: int,
         raise SmemBudgetError(
             f"decode_plan: head_dim {dh} needs {smem} bytes of shared "
             f"memory, past the {DECODE_SMEM_LIMIT} a block may take")
-    per_sm = min(DECODE_THREADS_PER_SM // DECODE_THREADS,
+    threads = DECODE_BF16_THREADS if itemsize == 2 else DECODE_THREADS
+    per_sm = min(DECODE_THREADS_PER_SM // threads,
                  DECODE_SMEM_PER_SM // (smem + DECODE_SMEM_RESERVED))
     return DecodePlan(
         rows=rows, groups=groups, dh=dh, itemsize=itemsize,
         chunk=tiles * tile, ppg=ppg,
         tile=tile, stages=stages, head_block=head_block,
-        head_blocks=-(-groups // head_block), threads=DECODE_THREADS,
+        head_blocks=-(-groups // head_block), threads=threads,
         smem_bytes=smem, blocks_per_sm=per_sm)
 
 
@@ -218,10 +302,11 @@ def flash_decode_split_reference(q: torch.Tensor, k: torch.Tensor,
     len forms its partial over its valid positions, m_c = max score,
     l_c = Σ e^{s − m_c}, acc_c = Σ e^{s − m_c}·v; the partials are
     combined in chunk order, M = max_c m_c, out = Σ_c e^{m_c − M}·acc_c /
-    max(Σ_c e^{m_c − M}·l_c, 1e-30). The kernel forms the same partials
-    and folds them in another fixed order (`csrc/flash_decode.cu`), so the
-    two agree to the rounding of the sums. Shapes and dtypes as
-    `flash_decode_reference` (bf16 in f32, the output rounded once)."""
+    max(Σ_c e^{m_c − M}·l_c, 1e-30) (`DecodePlan.merge_order`). The bf16
+    kernel folds its partials in this order (in base 2); the f32 kernel
+    folds the same partials in another fixed order (`csrc/flash_decode.cu`);
+    each agrees with this to the rounding of the sums. Shapes and dtypes
+    as `flash_decode_reference` (bf16 in f32, the output rounded once)."""
     b, _, h, dh = q.shape
     s, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -297,15 +382,16 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     counters = _row_counters(q.device, plan.counters)
     lib = _build.library("flash_decode")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    entry = (lib.flash_decode_bf16 if q.dtype == torch.bfloat16
-             else lib.flash_decode_f32)
-    code = entry(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), counters.data_ptr(), k.stride(0),
-        k.stride(1), v.stride(0), v.stride(1), b, kh, h // kh, dh,
-        plan.ppg, plan.chunk, plan.chunks(s), plan.stages,
-        plan.head_block,
-        float(dh ** -0.5), stream)
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), counters.data_ptr(),
+                k.stride(0), k.stride(1), v.stride(0), v.stride(1), b)
+    tiling = (kh, h // kh, dh, plan.ppg, plan.chunk, plan.chunks(s),
+              plan.stages, plan.head_block, float(dh ** -0.5), stream)
+    if q.dtype == torch.bfloat16:
+        # and S, which bounds the tensor maps of the whole tiles
+        code = lib.flash_decode_bf16(*pointers, s, *tiling)
+    else:
+        code = lib.flash_decode_f32(*pointers, *tiling)
     _build.check(code, f"flash_decode launch ({h // kh} query heads per "
                  f"kv head at head_dim {dh}, {plan.chunks(s)} chunks of "
                  f"{plan.chunk} positions)")

@@ -40,8 +40,8 @@ from repro_torch.analysis import smem
 from repro_torch.configs import get_arch
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (
-    decode_plan, decode_smem_bytes, flash_decode_reference,
-    flash_decode_split_reference)
+    decode_merge_bytes, decode_plan, decode_smem_bytes,
+    flash_decode_reference, flash_decode_split_reference)
 from repro_torch.models import model as M
 from repro_torch.serve import Request, ServeEngine
 
@@ -54,8 +54,7 @@ STEPS = 10
 
 CASES = [
     # (B, H, K, dh, S, cur): the f32 tests' cases at dh multiples of 8,
-    # the serving cache's heads, and a split past one bf16 chunk (1,024
-    # positions at dh 64)
+    # the serving cache's heads, and a length past 1,024 positions
     (2, 8, 8, 64, 256, 200),
     (2, 8, 2, 64, 512, 512),
     (1, 16, 16, 128, 1024, 37),
@@ -130,22 +129,75 @@ def test_flash_decode_dtypes():
     (128, 1, 64, 512), (16, 1, 64, 32_768), (128, 1, 64, 32_768),
     (128, 1, 128, 512), (8, 8, 256, 4096)])
 def test_flash_decode_budget_at_itemsize_2(rows, groups, dh, s):
-    """The bf16 ring holds half the bytes of the f32 one for the same
-    tile: the estimate follows `decode_plan(itemsize=2)` and the layout
-    of csrc/flash_decode.cu, and the chunk is 256 KB of K and V."""
+    """The bf16 route's layout (csrc/flash_decode.cu `bf16_smem_bytes`):
+    a ring of bf16 K and V stages and a unit's query rows a stage, the
+    query rows in f32, the merge area, a full and an empty mbarrier a
+    stage and a 16-byte flag; the estimate follows
+    `decode_plan(itemsize=2)`, the chunk is 16 stages (512 KB of K and V
+    from dh 64 up), and a stage holds no more bytes than an f32 stage of
+    the same dh."""
     est = smem.estimate_flash_decode(rows=rows, groups=groups, dh=dh, s=s,
                                      itemsize=2)
     plan = decode_plan(rows, groups, dh, 2)
     assert est.bytes == plan.smem_bytes == decode_smem_bytes(
         plan.ppg, plan.stages, plan.head_block, dh, 2)
-    assert plan.smem_bytes == (plan.stages * 2 * plan.tile * dh
-                               + plan.head_block * dh) * 2
-    assert plan.chunk * dh * 2 * 2 == min(256 << 10,
-                                          64 * plan.tile * dh * 2 * 2)
+    assert plan.smem_bytes == (plan.stages * 2 * plan.tile * dh * 2
+                               + plan.stages * plan.head_block * dh * 2
+                               + plan.head_block * dh * 4
+                               + decode_merge_bytes(plan.head_block, dh)
+                               + plan.stages * 16 + 16 + 128)
+    assert plan.chunk == 16 * plan.tile
+    assert plan.chunk * dh * 2 * 2 == 512 << 10
     assert est.grids == ((rows * plan.head_blocks, plan.chunks(s), 1),)
-    assert est.fits and "itemsize" in est.formula
+    assert est.fits and "stages*16" in est.formula
     f32 = decode_plan(rows, groups, dh, 4)
     assert plan.tile * dh * 2 <= f32.tile * dh * 4
+
+
+@pytest.mark.parametrize("cur", [1, 2047, 2048, 2049, 4097, 5000])
+def test_split_reference_folds_in_the_plans_merge_order(cur):
+    """`flash_decode_split_reference` is the plain version of the bf16
+    kernel's split: by default it cuts bf16 operands at the bf16 plan's
+    chunk (2,048 positions at dh 64) and f32 ones at the f32 plan's, and its
+    result is the fold the plan names (`merge_order`): each active chunk's
+    partial (m_c, l_c, acc_c), then Σ e^{m_c − M}·acc_c / Σ e^{m_c − M}·l_c
+    over the chunks in that order, M the largest m_c (an explicit fold,
+    float64, to 1e-12)."""
+    b, h, kh, dh, s = 1, 4, 2, 64, 5000
+    rng = np.random.default_rng(cur)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape))
+               for shape in ((b, 1, h, dh), (b, s, kh, dh), (b, s, kh, dh)))
+    lens = _lens(b, kh, cur)
+    plan = decode_plan(b * kh, h // kh, dh, 2)
+    assert plan.chunk == 2048 != decode_plan(b * kh, h // kh, dh, 4).chunk
+    bq, bk, bv = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    assert torch.equal(flash_decode_split_reference(bq, bk, bv, lens),
+                       flash_decode_split_reference(bq, bk, bv, lens,
+                                                    chunk=plan.chunk))
+    f32 = decode_plan(b * kh, h // kh, dh, 4).chunk
+    assert torch.equal(
+        flash_decode_split_reference(q.float(), k.float(), v.float(), lens),
+        flash_decode_split_reference(q.float(), k.float(), v.float(), lens,
+                                     chunk=f32))
+    got = flash_decode_split_reference(q, k, v, lens, chunk=plan.chunk)
+    g = h // kh
+    want = torch.empty_like(q)
+    for kv in range(kh):
+        for gi in range(g):
+            parts = []
+            for c in plan.merge_order(cur):
+                pos = slice(c * plan.chunk, min((c + 1) * plan.chunk, cur))
+                sc = (k[0, pos, kv] @ q[0, 0, kv * g + gi]) * dh ** -0.5
+                m_c = sc.max()
+                p_c = torch.exp(sc - m_c)
+                parts.append((m_c, p_c.sum(), p_c @ v[0, pos, kv]))
+            big = max(m for m, _, _ in parts)
+            l, acc = 0.0, torch.zeros(dh, dtype=torch.float64)
+            for m_c, l_c, acc_c in parts:
+                w = torch.exp(m_c - big)
+                l, acc = l + w * l_c, acc + w * acc_c
+            want[0, 0, kv * g + gi] = acc / max(float(l), 1e-30)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
 
 
 def test_decode_plan_rejects_a_head_dim_bf16_cannot_copy():

@@ -818,6 +818,82 @@ def test_gpu_flash_decode_bf16_matches_plain(cuda_device, b, h, kh, dh, s,
     assert ops.LAUNCHES["flash_decode"] == 2
 
 
+def _bf16_edges():
+    """Lengths at every edge of the bf16 split at dh 64 (its chunk of 2,048
+    positions): 1, a chunk less one, a chunk, a chunk and one, and the last
+    block's merge window of 131 chunks and one past it."""
+    c, w = 2048, 131
+    return [1, c - 1, c, c + 1, w * c, w * c + 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cur", _bf16_edges())
+def test_gpu_flash_decode_bf16_split_edges(cuda_device, cur):
+    """bf16 lengths at each edge of the split against both plain versions,
+    and the plan's chunk and merge window are the edges named here."""
+    from repro_torch.kernels.decode_attention import (
+        decode_plan, flash_decode_reference, flash_decode_split_reference)
+
+    plan = decode_plan(2, 1, 64, 2)
+    assert (plan.chunk, plan.merge_window) == (2048, 131)
+    s = 132 * 2048
+    q, k, v = (t.bfloat16() for t in decode_case(1, 2, 2, 64, s, cur,
+                                                 cuda_device))
+    got = ops.flash_decode(q, k, v, cur)
+    lens = torch.full((2,), cur, dtype=torch.int32, device=cuda_device)
+    for plain in (flash_decode_split_reference, flash_decode_reference):
+        want = plain(q, k, v, lens).float()
+        err = (got.float() - want).abs()
+        bound = BF16_ULP * want.abs() + DECODE_TOL * (1 + want.abs())
+        assert bool((err <= bound).all()), (plain.__name__, err.max())
+    assert torch.equal(ops.flash_decode(q, k, v, cur), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_flash_decode_graph_replay_with_new_lengths(cuda_device, dtype):
+    """One launch captured into a CUDA graph, replayed with its lengths
+    tensor set to three lengths in turn: each replay gives the eager
+    call's bits at that length."""
+    from repro_torch.kernels.decode_attention import flash_decode_cuda
+
+    q, k, v = (t.to(dtype) for t in decode_case(1, 16, 16, 64, 4096, 17,
+                                                cuda_device))
+    lens = torch.full((16,), 4096, dtype=torch.int32, device=cuda_device)
+    out = torch.empty_like(q)
+    flash_decode_cuda(q, k, v, lens, out)  # analysis: ignore[R004]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_decode_cuda(q, k, v, lens, out)  # analysis: ignore[R004]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        flash_decode_cuda(q, k, v, lens, out)  # analysis: ignore[R004]
+    for cur in (4096, 1000, 1):
+        lens.fill_(cur)
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ops.flash_decode(q, k, v, cur)), cur
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [512, 4096])
+def test_gpu_flash_decode_row_alone_equals_row_in_batch(cuda_device, dtype,
+                                                        s):
+    """A row's bits depend on its own data alone: each request launched at
+    B 1 gives its bits inside B 8 (one chunk at S 512; at S 4096 eight
+    chunks merged in f32, two in bf16)."""
+    q, k, v = (t.to(dtype) for t in decode_case(8, 16, 16, 64, s, 19,
+                                                cuda_device))
+    whole = ops.flash_decode(q, k, v, s)
+    for i in range(8):
+        alone = ops.flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1], s)
+        assert torch.equal(alone, whole[i:i + 1]), i
+
+
 @pytest.mark.gpu
 def test_gpu_flash_decode_bf16_refuses_what_it_cannot_copy(cuda_device):
     """16-byte copies are 8 bf16 values: dh and the caches' batch and

@@ -4,14 +4,20 @@ route past the clusters' shared memory: passes of problems, N chunks and
 64×64 tiles), the featurize kernel's tiles, the round kernel's rows per
 cluster block, the chain kernels' clusters (`chain_plan`), and the decode
 kernel's chunks, head blocks and workspace (`decode_plan`)."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 from repro_torch.analysis import smem
-from repro_torch.kernels.decode_attention import (DECODE_HEAD_BLOCKS,
+from repro_torch.kernels.decode_attention import (DECODE_BF16_CHUNK_TILES,
+                                                  DECODE_BF16_THREADS,
+                                                  DECODE_HEAD_BLOCKS,
                                                   DECODE_LANE_GROUPS,
                                                   DECODE_SMEM_LIMIT,
-                                                  DECODE_THREADS, decode_plan)
+                                                  DECODE_THREADS, decode_plan,
+                                                  decode_smem_bytes)
 from repro_torch.kernels.dekrr_solve import chain_plan
 
 from repro_torch.kernels.dekrr_step import (ROUND_CLUSTER, ROUND_WARPS,
@@ -590,3 +596,141 @@ def test_decode_plan_fills_the_card_at_one_long_request():
 def test_decode_plan_refuses_a_head_dim_off_the_float4_grid(dh):
     with pytest.raises(ValueError, match="head_dim"):
         decode_plan(16, 1, dh)
+
+
+# ------------------------------------------------------------- decode, bf16
+# the (rows, G, dh) above whose dh a 16-byte copy of bf16 takes (a multiple
+# of 8), and the bf16 route's third column count (dh 256)
+DECODE_HEADS_BF16 = [c for c in DECODE_HEADS if c[2] % 8 == 0]
+CSRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+        / "kernels" / "csrc" / "flash_decode.cu")
+
+
+def _bf16_lengths(plan):
+    """`_decode_lengths`, and either side of the last block's merge
+    window (its second window starts one chunk past it)."""
+    span = plan.merge_window * plan.chunk
+    return _decode_lengths(plan.chunk) + (span, span + 1, span + plan.chunk
+                                          + 1)
+
+
+@pytest.mark.parametrize("rows,groups,dh", DECODE_HEADS_BF16)
+def test_bf16_decode_plan_active_chunks_cover_each_position_once(rows,
+                                                                 groups, dh):
+    """bf16: the chunks a row of len positions runs cover [0, len) exactly
+    once, each with a valid position, inside the grid of any cache that
+    holds len; the merge folds exactly those chunks, in chunk order."""
+    plan = decode_plan(rows, groups, dh, 2)
+    for length in _bf16_lengths(plan):
+        cut = _chunk_positions(plan, length)
+        assert [p for ps in cut for p in ps] == list(range(length))
+        assert all(cut)
+        assert plan.merge_order(length) == list(range(len(cut)))
+        for s in (length, length + 4, max(length, DECODE_CACHE)):
+            assert len(cut) <= plan.grid(s)[1] == -(-s // plan.chunk)
+
+
+@pytest.mark.parametrize("rows,groups,dh", DECODE_HEADS_BF16)
+def test_bf16_decode_plan_depends_on_dh_alone(rows, groups, dh):
+    """bf16: the chunk and the merge window move with neither the rows
+    (a request alone and inside a batch cut the same chunks) nor the
+    cache length or the row lengths, which the plan never reads; the
+    chunk is 16 tiles of 32·ppg positions, ppg·⌈dh / 64⌉ = 4 (512 KB of
+    K and V from dh 64 up)."""
+    plan = decode_plan(rows, groups, dh, 2)
+    others = [decode_plan(r, groups, dh, 2) for r in (1, 7, rows, 512)]
+    assert {(o.chunk, o.merge_window, o.tile, o.stages) for o in others} \
+        == {(plan.chunk, plan.merge_window, plan.tile, plan.stages)}
+    columns = 1 if dh <= 64 else 2 if dh <= 128 else 4
+    assert plan.ppg * columns == 4 and plan.tile == 32 * plan.ppg
+    assert plan.chunk == DECODE_BF16_CHUNK_TILES * plan.tile
+    assert plan.chunk * dh * 4 <= 512 << 10
+    assert plan.chunk * dh * 4 == 512 << 10 or dh not in (64, 128, 256)
+    assert plan.threads == DECODE_BF16_THREADS
+    assert plan.chunk != decode_plan(rows, groups, dh, 4).chunk
+
+
+def _cxx_constant(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _cxx_bf16_smem_bytes(ppg, stages, head_block, dh):
+    """`bf16_smem_bytes` of csrc/flash_decode.cu, its return expression
+    evaluated in Python (size_t(x) as x, sizeof(bf16) 2, sizeof(float)
+    4, kBGroups the source's 32 · kBConsumerWarps / kLanes), with
+    `bf16_merge_bytes` as the source states it: the larger of
+    kBMergeBytes and kBConsumerWarps · head_block · (2 + dh) floats."""
+    src = CSRC.read_text()
+    body = src[src.index("size_t bf16_smem_bytes("):]
+    expr = body[body.index("return") + len("return"):body.index(";")]
+    groups = 32 * _cxx_constant(src, "kBConsumerWarps") \
+        // _cxx_constant(src, "kLanes")
+    for a, b in (("size_t(", "("), ("sizeof(bf16)", "2"),
+                 ("sizeof(float)", "4"), ("kBGroups", str(groups))):
+        expr = expr.replace(a, b)
+    merge = src[src.index("size_t bf16_merge_bytes("):]
+    assert "size_t(kBConsumerWarps) * head_block * (2 + dh) * sizeof(float)" \
+        in merge[:merge.index("}")]
+    floor = _cxx_constant(src, "kBMergeBytes")
+    warps = _cxx_constant(src, "kBConsumerWarps")
+
+    def bf16_merge_bytes(hb, d):
+        return max(floor, warps * hb * (2 + d) * 4)
+
+    return eval(f"({expr})", {}, dict(
+        ppg=ppg, stages=stages, head_block=head_block, dh=dh,
+        bf16_merge_bytes=bf16_merge_bytes))
+
+
+@pytest.mark.parametrize("rows,groups,dh", DECODE_HEADS_BF16)
+def test_bf16_decode_plan_layout_matches_the_kernel_source(rows, groups,
+                                                           dh):
+    """bf16: `decode_smem_bytes`, the kernel's `bf16_smem_bytes` and
+    `estimate_flash_decode` agree: the ring of bf16 K and V stages, a slot
+    a stage for a unit's query rows (bf16), the query rows in f32, the
+    merge area, a full and an empty mbarrier a stage (8 bytes each),
+    the 16-byte flag and 128 bytes to align the ring, under the block
+    limit; the merge area holds the 8 consumer warps' states (head block
+    × (2 + dh) floats each) and the merge window's whole partials, and not
+    one more."""
+    plan = decode_plan(rows, groups, dh, 2)
+    ring = plan.stages * 2 * plan.tile * dh * 2
+    merge = max(34_816, 8 * plan.head_block * (2 + dh) * 4)
+    assert plan.smem_bytes == decode_smem_bytes(
+        plan.ppg, plan.stages, plan.head_block, dh, 2) \
+        == _cxx_bf16_smem_bytes(plan.ppg, plan.stages, plan.head_block, dh) \
+        == (ring + plan.stages * plan.head_block * dh * 2
+            + plan.head_block * dh * 4 + merge + plan.stages * 2 * 8 + 16 + 128)
+    est = smem.estimate_flash_decode(rows=rows, groups=groups, dh=dh,
+                                     s=DECODE_CACHE, itemsize=2)
+    assert est.bytes == plan.smem_bytes and est.fits
+    assert plan.smem_bytes <= DECODE_SMEM_LIMIT
+    heads = min(groups, plan.head_block)
+    assert merge >= 8 * plan.head_block * (2 + dh) * 4
+    assert plan.merge_window >= 1
+    assert plan.merge_window * heads * (2 + dh) * 4 <= merge \
+        < (plan.merge_window + 1) * heads * (2 + dh) * 4
+
+
+def test_bf16_decode_plan_fills_the_card():
+    """qwen1.5-0.5b in bf16 (dh 64, G 1), 2 blocks an SM held for the
+    whole launch (persistent; the kernel asks the card, whose registers
+    hold 2 of 288 threads): one long request (B 1, S 32,768) cuts 256
+    units of 2,048 positions (512 KB), one round of the 264 blocks with
+    3% of them idle, and its 16 partials a row fit one merge window; at B
+    8 the 2,048 units are 7.76 a block, so a block takes 7 or 8 and the
+    last round leaves at most 3.1% of the unit slots idle. The serving
+    cache's 128 rows (S 512) are 128 units, one a block on 128 of the 132
+    SMs, at cur 512 and at cur 128, as the parent's were."""
+    long = decode_plan(16, 1, 64, 2)
+    batch, serving = decode_plan(128, 1, 64, 2), decode_plan(128, 1, 64, 2)
+    assert long.blocks_per_sm == 2 and long.chunk == 2048
+    assert long.resident(132) == 264
+    assert long.blocks(DECODE_CACHE) == 256
+    assert 0.96 < long.waves(DECODE_CACHE, sms=132) <= 1
+    assert long.merge_window >= DECODE_CACHE // long.chunk
+    waves = batch.waves(DECODE_CACHE, sms=132)
+    assert batch.blocks(DECODE_CACHE) == 2048 and 7 < waves < 8
+    assert (np.ceil(waves) - waves) / np.ceil(waves) <= 0.031
+    assert serving.blocks(512) == 128 <= serving.resident(132)
+    assert all(list(serving.active_chunks(cur)) == [0] for cur in (128, 512))
