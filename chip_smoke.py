@@ -248,7 +248,9 @@ the ``flash_decode`` timings and the two decode steps of step 11 on the
 card, with the ``repro_torch`` package of DIR/.. (``src`` by default), so
 one call can time an earlier tree's kernel beside this one's;
 ``--gram-timings [--src DIR]`` does the same for ``rff_gram`` at rows
-3–3‴ of PERF.md's kernel table.
+3–3‴ of PERF.md's kernel table, ``--features-timings [--src DIR]`` for
+``rff_features`` at rows 7 (with the bf16 kernels' registers, spills and
+main-loop instruction mix).
 """
 from __future__ import annotations
 
@@ -262,6 +264,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -595,8 +598,9 @@ def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
 
 def kernel_name(mangled: str) -> str:
     """``name<f64>`` of a kernel template's mangled entry name
-    (``_ZN<len><namespace><len><name>I{d,f}E...``; ``name<3>`` for an int
-    argument, ``ILi3E``)."""
+    (``_ZN<len><namespace><len><name>I…E...``: ``d`` f64, ``f`` f32,
+    ``13__nv_bfloat16`` bf16, ``Li3E`` the int 3, e.g.
+    ``rff_features_kernel<bf16,4,2,1>``, ``rff_gram_f32_kernel<3>``)."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -606,13 +610,22 @@ def kernel_name(mangled: str) -> str:
         return mangled
     name = rest[m.end():m.end() + int(m.group(1))]
     args = rest[m.end() + int(m.group(1)):]
-    kind = {"IdE": "f64", "IfE": "f32"}.get(args[:3])
-    # int arguments: rff_gram_f32_kernel<units>, flash_decode_bf16_kernel<
-    # NV, GB>
-    ints = re.match(r"I((?:Li\d+E)+)E", args)
-    return (f"{name}<{kind}>" if kind else
-            f"{name}<{','.join(re.findall(r'Li(\d+)E', ints.group(1)))}>"
-            if ints else name)
+    if not args.startswith("I"):
+        return name
+    out, args = [], args[1:]
+    kinds = (("d", "f64"), ("f", "f32"), ("13__nv_bfloat16", "bf16"))
+    while args and not args.startswith("E"):
+        kind = next((k for k in kinds if args.startswith(k[0])), None)
+        value = re.match(r"Li(\d+)E", args)
+        if kind:
+            out.append(kind[1])
+            args = args[len(kind[0]):]
+        elif value:
+            out.append(value.group(1))
+            args = args[value.end():]
+        else:
+            return name
+    return f"{name}<{','.join(out)}>"
 
 
 def ptxas_summary(report: str) -> list[str]:
@@ -628,6 +641,44 @@ def ptxas_summary(report: str) -> list[str]:
             out.append(f"{name}: {line.split('info    :')[-1].strip()}; "
                        f"{spill}")
             name = None
+    return out
+
+
+def sass_loop_mix(library: str, match: str) -> list[dict]:
+    """Of each kernel in the shared library whose entry name (kernel_name)
+    holds ``match``: the instruction mix of its main loop, the basic block
+    of ``cuobjdump -sass`` with the most FFMA (blocks start at a label or a
+    branch target and end after a branch; NOPs not counted): FFMA, LDS and
+    all instructions, and FFMA's share of them."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out = []
+    for part in text.split("Function : ")[1:]:
+        name = kernel_name(part.split()[0])
+        if match not in name:
+            continue
+        code = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
+            r"[^;\n]*", part)]
+        targets = {int(t, 16) for t in re.findall(
+            r"\bBRA(?:\.\w+)*\s+(0x[0-9a-f]+)", part)}
+        blocks, block = [], []
+        for addr, op in code:
+            if addr in targets and block:
+                blocks.append(block)
+                block = []
+            if op == "NOP":
+                continue
+            block.append(op)
+            if op in ("BRA", "EXIT", "RET", "BRX", "JMP"):
+                blocks.append(block)
+                block = []
+        blocks.append(block)
+        loop = max(blocks, key=lambda b: b.count("FFMA"))
+        out.append(dict(kernel=name, ffma=loop.count("FFMA"),
+                        lds=loop.count("LDS"), instructions=len(loop),
+                        ffma_share=loop.count("FFMA") / max(len(loop), 1)))
     return out
 
 
@@ -1921,27 +1972,32 @@ def chain_timings(run: dict, a: dict, c: dict) -> list[dict]:
 
 
 def feature_timings(run: dict) -> list[dict]:
+    """`feature_rows` on the main path's ten maps and the first SERVE_N
+    test columns (the column bucket of the serving waves)."""
+    fmaps = run["solver"].feature_maps
+    omega = torch.stack([fm.omega for fm in fmaps]).contiguous()
+    bias = torch.stack([fm.bias for fm in fmaps]).contiguous()
+    x = torch.cat([nd.x for nd in run["test"]], dim=1)[:, :SERVE_N]
+    return feature_rows(omega, bias, x.contiguous(),
+                        [fm.num_frequencies for fm in fmaps])
+
+
+def feature_rows(omega, bias, x, d_feats) -> list[dict]:
     """The featurize kernel by CUDA events, f64 and bf16 (bf16 operands at
-    unit scale, as the low-precision path launches it), on N = 512 test
-    columns (the column bucket of the serving waves): at one node's shape
-    (D = 200, d = 148; rows ``rff_features`` and ``rff_features_lowp``,
-    timed as in earlier runs) and at the wave shape the main path gives
-    it (the ten maps in one launch; rows ``…@wave``, with the cost of the
-    ten single-node launches a wave made before, ``per_node_ms``)."""
+    unit scale, as the low-precision path launches it), on f64 maps
+    omega [J, D, d], bias [J, D] of ``d_feats`` features and columns x
+    [d, N]: at one node's shape (rows ``rff_features`` and
+    ``rff_features_lowp``, timed as in earlier runs) and at the wave (the
+    J maps in one launch; rows ``…@wave``, with the cost of the J
+    single-node launches a wave made before, ``per_node_ms``)."""
     from repro_torch.kernels.ops import _node_table
     from repro_torch.kernels.rff_features import (
         rff_features_batched_reference, rff_features_bf16_batched_reference,
         rff_features_cuda)
 
-    fmaps = run["solver"].feature_maps
-    omega = torch.stack([fm.omega for fm in fmaps]).contiguous()
-    bias = torch.stack([fm.bias for fm in fmaps]).contiguous()
-    x = torch.cat([nd.x for nd in run["test"]], dim=1)[:, :SERVE_N]
-    x = x.contiguous()
     j, d_feat, dim = omega.shape
     n = x.shape[1]
-    scales = [math.sqrt(2.0 / fm.num_frequencies) for fm in fmaps]
-    d_feats = [fm.num_frequencies for fm in fmaps]
+    scales = [math.sqrt(2.0 / dj) for dj in d_feats]
     dev = omega.device
     # the product, the bias add and the scale of one map (cosines not
     # counted)
@@ -2777,6 +2833,51 @@ def gram_timings_only(src: str | None) -> int:
     print(card)
     print(json.dumps({"package": os.path.dirname(repro_torch.__file__),
                       "rows": rows}))
+    return 0
+
+
+def features_timings_only(src: str | None, repeats: int = 5) -> int:
+    """``--features-timings``: the featurize kernel at PERF.md's rows 7
+    (f64 and bf16, one node and the wave: J 10, D 200, d 148, N 512 on
+    seeded maps and columns, not the main path's own draws), each the
+    median of ``repeats`` `feature_rows` readings beside its yardstick and
+    bound, with ``repro_torch`` imported from `src`; then the bf16 kernels'
+    registers and spills (``-Xptxas -v``) and their main loop's
+    instruction mix (`sass_loop_mix`), as one JSON line after the card's
+    line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if src is not None:
+        sys.path.insert(0, os.path.abspath(src))
+    import repro_torch
+    from repro_torch.kernels import _build
+
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kw = dict(dtype=torch.float64, device="cuda", generator=gen)
+    omega = torch.randn((J_NODES, D_PER_NODE, 148), **kw) / SIGMA
+    bias = torch.rand((J_NODES, D_PER_NODE), **kw) * (2 * math.pi)
+    x = torch.randn((148, SERVE_N), **kw)
+    readings = [feature_rows(omega, bias, x, [D_PER_NODE] * J_NODES)
+                for _ in range(repeats)]
+    rows = []
+    for got in zip(*readings):
+        row = {k: got[0][k] for k in ("name", "shape", "bound_ms",
+                                      "bound_by")}
+        for k in ("ms", "plain_ms", "library_ms", "per_node_ms"):
+            if k in got[0]:
+                row[k] = statistics.median(r[k] for r in got)
+        row["ms_readings"] = [r["ms"] for r in got]
+        rows.append(row)
+    library = str(_build.ensure_built(("rff_features",))["rff_features"])
+    print(card)
+    print(json.dumps({
+        "package": os.path.dirname(repro_torch.__file__), "rows": rows,
+        "ptxas": [line for line in ptxas_summary(
+            _build.ptxas_reports.get("rff_features", "")) if "bf16" in line],
+        "sass": sass_loop_mix(library, "bf16")}))
     return 0
 
 
@@ -5280,8 +5381,8 @@ def run_on_card() -> int:
           f"(sources {_build.source_hash()})")
     for src, text in reports.items():
         print(f"--- ptxas {src} ---\n{text.strip()}")
-    for src in ("rff_gram", "dekrr_step", "dekrr_solve", "dekrr_async_solve",
-                "dekrr_cheb_solve", "flash_decode"):
+    for src in ("rff_gram", "rff_features", "dekrr_step", "dekrr_solve",
+                "dekrr_async_solve", "dekrr_cheb_solve", "flash_decode"):
         for line in ptxas_summary(reports[src]):
             print(f"ptxas {src}: {line}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -5565,8 +5666,11 @@ def main(argv=None) -> int:
     ap.add_argument("--gram-timings", action="store_true",
                     help="time only rff_gram at PERF.md's rows 3-3‴ on "
                          "the card")
-    ap.add_argument("--src", help="with --decode-timings or "
-                    "--gram-timings: the directory that holds the "
+    ap.add_argument("--features-timings", action="store_true",
+                    help="time only rff_features at PERF.md's rows 7 on "
+                         "the card")
+    ap.add_argument("--src", help="with --decode-timings, --gram-timings "
+                    "or --features-timings: the directory that holds the "
                     "repro_torch package to time")
     args = ap.parse_args(argv)
     if package_missing(SRC_DIR if args.src is None
@@ -5577,6 +5681,8 @@ def main(argv=None) -> int:
             return decode_timings_only(args.src)
         if args.gram_timings:
             return gram_timings_only(args.src)
+        if args.features_timings:
+            return features_timings_only(args.src)
         return rehearse_on_cpu() if args.cpu_rehearsal else run_on_card()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -23,7 +23,8 @@ Budget table (bytes a block; one H100, sm_90):
                          + 3·2·32 + H₃₂)·4                           (reduce, B)
   rff_gram, wide     max(Z: (2·64·36 + 2·32·68)·it,         1        (⌈n/64⌉, F'/64, b),
                          G: 3·(2·64·36 + 32)·it)                     (tiles, b)
-  rff_features       2·(16·WR·(32+p) + 32·(8·NT·WC+p))·it   1        (⌈N/cols⌉, ⌈D/rows⌉, J)
+  rff_features       2·(16·WR·(32+4) + 32·(8·NT·WC+4))·it   1        (⌈N/cols⌉, ⌈D/rows⌉, J)
+  rff_features, bf16 (2·80·cols + 2·rows·84 + 2·rows)·4     1        (⌈N/cols⌉, ⌈J·D/rows⌉)
   serve_wave         rff_features' at the wave's shape      1        the same
   flash_decode       (stages·2·tile·dh + hb·dh)·itemsize    1        (rows·⌈G/hb⌉, chunks)
   flash_decode, bf16 stages·2·tile·dh·2 + stages·hb·dh·2   1        (rows·⌈G/hb⌉·chunks
@@ -39,7 +40,9 @@ rows a block holds, Ω = H·(⌈d/32⌉·32 + 4) with Ω resident, else
 whole 32-row blocks, Z the Z tiles of its ring (1 or 2), Ωᵀ =
 ⌈d/32⌉·32·(H₃₂ + 4) resident, else 3·32·(H₃₂ + 4), and a second grid
 that reduces the slices. For `rff_features` (`features_plan`): the tile (WR, WC,
-NT) from the shape, p = 8 in bf16 and 4 otherwise. For `flash_decode`
+NT) from the shape; in bf16 the block of rows × cols of the J·D stacked
+rows (`Bf16FeaturesPlan`), its two f32 slots of up to 80 k each and a
+bias and a state a row. For `flash_decode`
 (`decode_plan`): tile = 32·ppg positions, 3 or 4 stages, hb query heads
 a block; in bf16 tile = 32·ppg, 2 stages, each with a slot for a unit's
 query rows and a full and an empty mbarrier (8 bytes each), the query
@@ -292,18 +295,28 @@ def estimate_rff_gram(*, b: int, f: int, dim: int, n: int,
 
 def _features_estimate(kernel: str, j: int, d_feat: int, n: int,
                        itemsize: int, sms: int) -> SmemEstimate:
-    from repro_torch.kernels.rff_features import (FEAT_DEPTH, FEAT_STAGES,
+    from repro_torch.kernels.rff_features import (BF16_DEPTH,
+                                                  BF16_ROW_STRIDE,
+                                                  FEAT_DEPTH, FEAT_STAGES,
                                                   FEAT_WARP_ROWS,
                                                   features_plan)
 
     plan = features_plan(j, d_feat, n, item=itemsize, sms=sms)
-    pad = 8 if itemsize == 2 else 4
+    if itemsize == 2:
+        return SmemEstimate(
+            kernel=kernel,
+            formula=(f"(2*{BF16_DEPTH}*cols + 2*rows*{BF16_ROW_STRIDE} "
+                     f"+ 2*rows)*4"),
+            detail=(f"(2*{BF16_DEPTH}*{plan.cols} + 2*{plan.rows}*"
+                    f"{BF16_ROW_STRIDE} + 2*{plan.rows})*4"),
+            bytes=plan.smem_bytes, limit=SMEM_LIMITS[kernel],
+            grids=((-(-n // plan.cols), -(-(j * d_feat) // plan.rows), 1),))
     return SmemEstimate(
         kernel=kernel,
-        formula="2*(16*WR*(32+p) + 32*(8*NT*WC+p))*itemsize",
+        formula="2*(16*WR*(32+4) + 32*(8*NT*WC+4))*itemsize",
         detail=(f"{FEAT_STAGES}*({FEAT_WARP_ROWS}*{plan.warp_rows}*"
-                f"({FEAT_DEPTH}+{pad}) + {FEAT_DEPTH}*(8*{plan.warp_tiles}*"
-                f"{plan.warp_cols}+{pad}))*{itemsize}"),
+                f"({FEAT_DEPTH}+4) + {FEAT_DEPTH}*(8*{plan.warp_tiles}*"
+                f"{plan.warp_cols}+4))*{itemsize}"),
         bytes=plan.smem_bytes, limit=SMEM_LIMITS[kernel],
         grids=((-(-n // plan.cols), -(-d_feat // plan.rows), j),))
 
@@ -312,8 +325,9 @@ def estimate_rff_features(*, j: int, d_feat: int, n: int,
                           itemsize: int = 8, sms: int = H100_SMS
                           ) -> SmemEstimate:
     """The featurize kernel (`csrc/rff_features.cu`,
-    `features_smem_bytes`) at the tile `features_plan` picks: two ring
-    stages of an Ω slice and an X slice."""
+    `features_smem_bytes`; `bf16_smem_bytes` for ``itemsize`` 2) at the
+    tile `features_plan` picks: two ring stages of an Ω slice and an X
+    slice."""
     return _features_estimate("rff_features", j, d_feat, n, itemsize, sms)
 
 
@@ -475,10 +489,13 @@ def launcher_bytes(kernel: str, shape: dict, sms: int = H100_SMS) -> int:
     if kernel in ("rff_features", "serve_wave"):
         from repro_torch.kernels.rff_features import features_plan
 
+        lib = _build.library("rff_features")
         plan = features_plan(shape["j"], shape["d_feat"], shape["n"],
                              item=item, sms=sms)
-        return _build.library("rff_features").rff_features_smem_bytes(
-            plan.warp_rows, plan.warp_cols, plan.warp_tiles, item)
+        if item == 2:
+            return lib.rff_features_bf16_smem_bytes(plan.rows, plan.cols)
+        return lib.rff_features_smem_bytes(plan.warp_rows, plan.warp_cols,
+                                           plan.warp_tiles, item)
     if kernel == "flash_decode":
         from repro_torch.kernels.decode_attention import decode_plan
 

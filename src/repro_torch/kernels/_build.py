@@ -91,8 +91,9 @@ SIGNATURES = {
     "rff_features": {
         "rff_features_f64": [_P] * 6 + [_I] * 8 + [_P],
         "rff_features_f32": [_P] * 6 + [_I] * 8 + [_P],
-        "rff_features_bf16": [_P] * 6 + [_I] * 8 + [_P],
+        "rff_features_bf16": [_P] * 5 + [_I] * 10 + [_P],
         "rff_features_smem_bytes": [_I] * 4,
+        "rff_features_bf16_smem_bytes": [_I] * 2,
     },
     "flash_decode": {
         "flash_decode_f32": [_P] * 7 + [_L] * 4 + [_I] * 9

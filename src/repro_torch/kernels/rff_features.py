@@ -1,5 +1,5 @@
-"""Random-feature map of the serving tier — CUDA kernel, its launch plan
-and its plain versions.
+"""Random-feature map of the serving tier — CUDA kernels, their launch
+plans and their plain versions.
 
 Replaces `src/repro/kernels/rff_features.py::rff_features_pallas`, which
 the reference's serving tier reaches once per node and wave through
@@ -9,17 +9,21 @@ the reference's serving tier reaches once per node and wave through
     Z[j] = scale_j · cos(Ω_j X + b_j)     Ω [J, D_max, d], b [J, D_max],
                                           X [d, N] → Z [J, D_max, N]
 
-with rows r ≥ D_j of node j written as exact zeros. The kernel
-(`csrc/rff_features.cu`) runs the product on the FP64 tensor cores in
-f64 (DMMA) and by FMA in k order on the FP32 units in f32 and bf16 (f32
-sums equal to the plain version's, then the three bf16 roundings of the
-serving tier's precision bound: product, bias sum, cosine), staging d in
-32-deep `cp.async` chunks through a ring of two; every entry sums d in
-the same k16 steps whatever the tile, so a batched launch and a per-node
-one give the same bits. `features_plan` picks the tile from the shape;
-the wrappers that check and dispatch are `repro_torch.kernels.ops`'s
-`rff_features`, `rff_features_lowp` (one node) and their `_batched`
-forms.
+with rows r ≥ D_j of node j written as exact zeros. In f64 and f32 the
+kernel (`csrc/rff_features.cu`, `rff_features_kernel`) runs the product
+on the FP64 tensor cores (DMMA) or by FMA in k order on the FP32 units,
+staging d in 32-deep `cp.async` chunks through a ring of two; every entry
+sums d in the same k16 steps whatever the tile, so a batched launch and a
+per-node one give the same bits. bf16 has a kernel of its own
+(`rff_features_bf16_kernel`): the wave as one product over the stacked
+[J·D_max, d] rows, the operands widened to f32 once in shared memory,
+register microtiles summed by FMA in k order (f32 sums equal to the plain
+version's), then the three bf16 roundings of the serving tier's precision
+bound: product, bias sum, cosine. `features_plan` picks the tile from the
+shape (a `Bf16FeaturesPlan` for 2-byte elements) and `bf16_depth` the
+chunk of d; the wrappers that check and dispatch are
+`repro_torch.kernels.ops`'s `rff_features`, `rff_features_lowp` (one
+node) and their `_batched` forms.
 """
 from __future__ import annotations
 
@@ -32,21 +36,33 @@ from repro_torch.kernels.ref import rff_features_ref
 
 rff_features_reference = rff_features_ref
 
-# The kernel's tiling (csrc/rff_features.cu): FEAT_TILES lists its blocks
-# as (warps along the rows, warps along the columns, m16n8 tiles a warp),
-# largest first; a warp owns 16 rows × 8·tiles columns. d is staged in
-# chunks of 32 through a ring of FEAT_STAGES. The plan takes the largest
-# block that still puts FEAT_WARPS_PER_SM warps on every SM.
+# The f64/f32 kernel's tiling (csrc/rff_features.cu): FEAT_TILES lists
+# its blocks as (warps along the rows, warps along the columns, m16n8
+# tiles a warp), largest first; a warp owns 16 rows × 8·tiles columns. d
+# is staged in chunks of 32 through a ring of FEAT_STAGES. The plan takes
+# the largest block that still puts FEAT_WARPS_PER_SM warps on every SM.
 FEAT_WARP_ROWS = 16
 FEAT_DEPTH = 32
 FEAT_STAGES = 2
 FEAT_TILES = ((2, 2, 4), (2, 2, 2), (4, 2, 1))
 FEAT_WARPS_PER_SM = 4
 
+# The bf16 kernel's tiling: BF16_TILES lists its blocks as (rows, columns,
+# a thread's rows, a thread's columns) of the stacked [J·D_max, N], largest
+# first (128 threads each). d is staged as f32 in chunks of at most
+# BF16_DEPTH through two slots; an Ω row takes BF16_ROW_STRIDE floats. The
+# plan takes the largest block whose grid reaches three SMs in four or more
+# (one node, D 200 × N 512: 32 × 32 blocks, 112 of them; on the card
+# 16 × 32 blocks of 1 × 4 microtiles at twice the count were slower).
+BF16_TILES = ((64, 64, 4, 8), (32, 64, 2, 8), (32, 32, 2, 4), (16, 32, 1, 4))
+BF16_DEPTH = 80
+BF16_ROW_STRIDE = BF16_DEPTH + 4
+
 
 @dataclasses.dataclass(frozen=True)
 class FeaturesPlan:
-    """One `rff_features` launch: grid (⌈N / cols⌉, ⌈D_max / rows⌉, J)."""
+    """One f64/f32 `rff_features` launch: grid (⌈N / cols⌉, ⌈D_max / rows⌉,
+    J)."""
     warp_rows: int        # warps of a block along the feature rows
     warp_cols: int        # warps of a block along the columns
     warp_tiles: int       # m16n8 tiles of a warp (8 columns each)
@@ -56,23 +72,74 @@ class FeaturesPlan:
     smem_bytes: int       # dynamic shared memory of a block
 
 
+@dataclasses.dataclass(frozen=True)
+class Bf16FeaturesPlan:
+    """One bf16 `rff_features` launch over the stacked rows: grid
+    (⌈N / cols⌉, ⌈J·D_max / rows⌉)."""
+    rows: int             # stacked feature rows of a block
+    cols: int             # columns of a block
+    thread_rows: int      # rows of a thread (a stride of rows / thread_rows)
+    thread_cols: int      # adjacent columns of a thread
+    threads: int          # threads of a block
+    blocks: int           # blocks in the grid
+    smem_bytes: int       # dynamic shared memory of a block
+
+
 def _smem_bytes(tile: tuple[int, int, int], item: int) -> int:
-    """Shared memory of a block in the layout of csrc/rff_features.cu
-    (its launcher refuses a size that does not cover it)."""
+    """Shared memory of an f64/f32 block in the layout of
+    csrc/rff_features.cu (its launcher refuses a size that does not cover
+    it)."""
     wr, wc, nt = tile
-    pad = 8 if item == 2 else 4
-    return FEAT_STAGES * (FEAT_WARP_ROWS * wr * (FEAT_DEPTH + pad)
-                          + FEAT_DEPTH * (8 * nt * wc + pad)) * item
+    return FEAT_STAGES * (FEAT_WARP_ROWS * wr * (FEAT_DEPTH + 4)
+                          + FEAT_DEPTH * (8 * nt * wc + 4)) * item
+
+
+def _bf16_smem_bytes(rows: int, cols: int) -> int:
+    """Shared memory of a bf16 block (csrc/rff_features.cu,
+    `bf16_smem_bytes`), in 4-byte words: two f32 X slots
+    [BF16_DEPTH][cols], two Ω slots [rows][BF16_ROW_STRIDE], and each
+    row's bias and state."""
+    return 4 * (2 * BF16_DEPTH * cols + 2 * rows * BF16_ROW_STRIDE
+                + 2 * rows)
+
+
+def bf16_depth(dim: int) -> int:
+    """d per staged chunk of the bf16 kernel: a multiple of 8, at most
+    BF16_DEPTH, and at least two chunks where d > 8, so that the second
+    loads while the first is multiplied (d 148: chunks of 80)."""
+    chunks = max(2, -(-dim // BF16_DEPTH)) if dim > 8 else 1
+    per_chunk = -(-dim // chunks)
+    return -(-per_chunk // 8) * 8
+
+
+def _bf16_plan(j: int, d_feat: int, n: int, sms: int) -> Bf16FeaturesPlan:
+    rows = j * d_feat
+
+    def blocks(tile):
+        return -(-rows // tile[0]) * -(-n // tile[1])
+
+    tile = next((t for t in BF16_TILES if 4 * blocks(t) >= 3 * sms),
+                max(BF16_TILES, key=blocks))
+    bm, bn, tm, tn = tile
+    return Bf16FeaturesPlan(
+        rows=bm, cols=bn, thread_rows=tm, thread_cols=tn,
+        threads=(bm // tm) * (bn // tn), blocks=blocks(tile),
+        smem_bytes=_bf16_smem_bytes(bm, bn))
 
 
 def features_plan(j: int, d_feat: int, n: int, *, item: int = 8,
-                  sms: int = 132) -> FeaturesPlan:
+                  sms: int = 132) -> FeaturesPlan | Bf16FeaturesPlan:
     """Launch plan of `rff_features` for J nodes of at most ``d_feat``
     features and N columns in elements of ``item`` bytes on a card of
-    ``sms`` SMs: the largest block of FEAT_TILES whose grid still puts
-    FEAT_WARPS_PER_SM warps on every SM, else the one with the most
-    warps. The tile never changes an entry's sum, which the kernel takes
-    over d in the same 16-deep steps for every tile."""
+    ``sms`` SMs. f64/f32: the largest block of FEAT_TILES whose grid still
+    puts FEAT_WARPS_PER_SM warps on every SM, else the one with the most
+    warps. bf16 (``item`` 2): a `Bf16FeaturesPlan`, the largest block of
+    BF16_TILES whose grid over the J·D_max stacked rows has a block for
+    three SMs in four, else the one with the most blocks. No tile changes an
+    entry's sum, which both kernels take over d in k order."""
+    if item == 2:
+        return _bf16_plan(j, d_feat, n, sms)
+
     def blocks(tile):
         wr, wc, nt = tile
         return (j * -(-d_feat // (FEAT_WARP_ROWS * wr))
@@ -158,19 +225,24 @@ def rff_features_cuda(omega: torch.Tensor, bias: torch.Tensor,
     ≤ D_max), writing z [J, D_max, N] on the current stream."""
     j, d_max, dim = omega.shape
     n = x.shape[1]
-    plan = features_plan(j, d_max, n, item=omega.element_size(),
-                         sms=_sm_count(omega.device))
-    lib = _build.library("rff_features")
-    fn = {torch.float64: lib.rff_features_f64,
-          torch.float32: lib.rff_features_f32,
-          torch.bfloat16: lib.rff_features_bf16}[omega.dtype]
     if (scale is None) != (omega.dtype == torch.bfloat16):
         raise ValueError("the bf16 kernel runs at unit scale (scale None); "
                          "f64 and f32 take a per-node scale")
+    plan = features_plan(j, d_max, n, item=omega.element_size(),
+                         sms=_sm_count(omega.device))
+    lib = _build.library("rff_features")
     stream = torch.cuda.current_stream(omega.device).cuda_stream
-    _build.check(fn(omega.data_ptr(), bias.data_ptr(), x.data_ptr(),
-                    None if scale is None else scale.data_ptr(),
-                    d_feat.data_ptr(), z.data_ptr(), j, d_max, dim, n,
-                    plan.warp_rows, plan.warp_cols, plan.warp_tiles,
-                    plan.smem_bytes, stream),
-                 "rff_features launch")
+    if omega.dtype == torch.bfloat16:
+        code = lib.rff_features_bf16(
+            omega.data_ptr(), bias.data_ptr(), x.data_ptr(),
+            d_feat.data_ptr(), z.data_ptr(), j, d_max, dim, n, plan.rows,
+            plan.cols, plan.thread_rows, plan.thread_cols, bf16_depth(dim),
+            plan.smem_bytes, stream)
+    else:
+        fn = {torch.float64: lib.rff_features_f64,
+              torch.float32: lib.rff_features_f32}[omega.dtype]
+        code = fn(omega.data_ptr(), bias.data_ptr(), x.data_ptr(),
+                  scale.data_ptr(), d_feat.data_ptr(), z.data_ptr(), j,
+                  d_max, dim, n, plan.warp_rows, plan.warp_cols,
+                  plan.warp_tiles, plan.smem_bytes, stream)
+    _build.check(code, "rff_features launch")

@@ -68,14 +68,18 @@ def test_gram_estimate_matches_plan(b, f, dim, n, item):
     (10, 200, 512, 8), (10, 200, 512, 2), (1, 200, 8, 8), (3, 37, 13, 4),
     (10, 200, 16, 2)])
 def test_features_estimate_matches_plan(j, d_feat, n, item):
+    """f64/f32: grid (column tiles, row tiles, J); bf16: one grid over the
+    J·D_max stacked rows."""
     plan = features_plan(j, d_feat, n, item=item)
+    grid = ((-(-n // plan.cols), -(-(j * d_feat) // plan.rows), 1)
+            if item == 2 else
+            (-(-n // plan.cols), -(-d_feat // plan.rows), j))
     for est in (smem.estimate_rff_features(j=j, d_feat=d_feat, n=n,
                                            itemsize=item),
                 smem.estimate_serve_wave(j=j, d_feat=d_feat, n=n,
                                          itemsize=item)):
         assert est.bytes == plan.smem_bytes and est.fits
-        assert est.grids == ((-(-n // plan.cols), -(-d_feat // plan.rows),
-                              j),)
+        assert est.grids == (grid,)
 
 
 @pytest.mark.parametrize("rows,groups,dh,s", [

@@ -624,6 +624,64 @@ def test_gpu_rff_features_lowp_batched_matches_plain_and_per_node(
     assert ops.LAUNCHES["rff_features"] == 0
 
 
+# (D_j per node, d, N) of the bf16 kernel, covering its four tiles: the
+# serving wave (64 × 64), one node (32 × 32), the wave at N 128 (32 × 64)
+# and the ragged launch (32 × 64 at N 512, 16 × 32 below) at every d and N
+# its staging tells apart: 8-byte loads or element loads of Ω (d 148 or 5,
+# 149) and of X (N 8, 64, 512 or 13), one chunk of d or two, 16-byte
+# stores or element stores of Z
+BF16_FEATURE_BATCHES = [((200,) * 10, 148, 512), ((200,), 148, 512),
+                        ((200,) * 10, 148, 128)] + [
+    ((37, 200, 64), dim, n) for dim in (5, 148, 149) for n in (8, 13, 64, 512)]
+
+
+def bf16_in_order(omega, bias, x, d_feats):
+    """The bf16 map with its product summed in k order, k = 0 … d − 1, in
+    f32 (each product of two bf16 values is exact there, so each step is
+    the kernel's FMA), then the plain version's three roundings; rows past
+    D_j zero."""
+    acc = torch.zeros(omega.shape[:2] + (x.shape[1],), dtype=torch.float32,
+                      device=x.device)
+    om, xf = omega.float().nan_to_num(0.0), x.float()
+    for k in range(om.shape[2]):
+        acc = acc + om[:, :, k:k + 1] * xf[k][None, None]
+    bf16 = torch.bfloat16
+    arg = (acc.to(bf16).float() + bias.float()[:, :, None]).to(bf16)
+    z = torch.cos(arg.float()).to(bf16)
+    for j, dj in enumerate(d_feats):
+        z[j, dj:] = 0
+    return z
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_feats,dim,n", BF16_FEATURE_BATCHES)
+def test_gpu_rff_features_bf16_equals_plain_bit_for_bit(cuda_device, d_feats,
+                                                        dim, n):
+    """The bf16 kernel at unit scale equals the batched plain version bit
+    for bit on each node's first D_j rows, and the in-order sum's map on
+    every row; it writes exact zeros below D_j (the padded Ω rows hold
+    NaN), and equals each node's own launch."""
+    from repro_torch.kernels.rff_features import \
+        rff_features_bf16_batched_reference
+
+    omega, bias, x, _ = feature_batch(d_feats, dim, n, seed=dim + n)
+    dev = [torch.as_tensor(a).to(cuda_device, torch.bfloat16)
+           for a in (omega, bias, x)]
+    ones = [1.0] * len(d_feats)
+    got = ops.rff_features_lowp_batched(*dev, scale=ones, d_feat=d_feats)
+    plain = rff_features_bf16_batched_reference(*dev, d_feat=d_feats)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rff_features_lowp"] == 1
+    assert torch.equal(got, bf16_in_order(*dev, d_feats).float())
+    for j, dj in enumerate(d_feats):
+        assert torch.equal(got[j, :dj], plain[j, :dj].float())
+        assert torch.equal(got[j, dj:], torch.zeros_like(got[j, dj:]))
+        one = ops.rff_features_lowp(dev[0][j, :dj], dev[1][j, :dj], dev[2],
+                                    scale=1.0)
+        assert torch.equal(one, got[j, :dj])
+    assert ops.LAUNCHES["rff_features_lowp"] == 1 + len(d_feats)
+
+
 @pytest.mark.gpu
 def test_gpu_serving_launches_the_kernel_and_refuses_tf32(cuda_device):
     """A CUDA snapshot's waves launch the featurize kernel once per wave

@@ -22,8 +22,11 @@ from repro_torch.kernels.dekrr_solve import chain_plan
 
 from repro_torch.kernels.dekrr_step import (ROUND_CLUSTER, ROUND_WARPS,
                                              round_plan)
-from repro_torch.kernels.rff_features import (FEAT_DEPTH, FEAT_STAGES,
-                                              FEAT_TILES, FEAT_WARP_ROWS,
+from repro_torch.kernels.rff_features import (BF16_DEPTH, BF16_ROW_STRIDE,
+                                              BF16_TILES, FEAT_DEPTH,
+                                              FEAT_STAGES, FEAT_TILES,
+                                              FEAT_WARP_ROWS,
+                                              _bf16_smem_bytes, bf16_depth,
                                               features_plan)
 from repro_torch.kernels.rff_gram import (GRAM_COLS, GRAM_F32_MAX_UNITS,
                                           GRAM_MAX_RANK_ROWS,
@@ -346,6 +349,30 @@ FEATURE_SHAPES = [(1, 200, 512), (10, 200, 512), (1, 200, 8), (10, 200, 64),
 @pytest.mark.parametrize("item", [8, 4, 2])
 def test_features_plan_covers_every_entry_once(j, d_feat, n, item):
     plan = features_plan(j, d_feat, n, item=item)
+    if item == 2:
+        # one product over the stacked [J·D_max, N]: every entry is owned
+        # by one thread of one block, row tiles straddling nodes
+        bm, bn, tm, tn = (plan.rows, plan.cols, plan.thread_rows,
+                          plan.thread_cols)
+        assert (bm, bn, tm, tn) in BF16_TILES
+        assert plan.threads == (bm // tm) * (bn // tn) == 128
+        rows = j * d_feat
+        assert plan.blocks == -(-rows // bm) * -(-n // bn)
+        # block (x, y)'s thread (t_m, t_n) owns rows y·bm + t_m + i·bm/tm,
+        # i < tm, and columns x·bn + t_n·tn + e, e < tn
+        rt = bm // tm
+        owned_rows = sorted(
+            r for y in range(-(-rows // bm)) for t in range(rt)
+            for i in range(tm) if (r := y * bm + t + i * rt) < rows)
+        owned_cols = sorted(
+            c for x in range(-(-n // bn)) for t in range(bn // tn)
+            for e in range(tn) if (c := x * bn + t * tn + e) < n)
+        assert owned_rows == list(range(rows))
+        assert owned_cols == list(range(n))
+        if j > 1 and d_feat % bm:
+            assert any((y * bm) // d_feat != (min(rows, (y + 1) * bm) - 1)
+                       // d_feat for y in range(-(-rows // bm)))
+        return
     assert (plan.warp_rows, plan.warp_cols, plan.warp_tiles) in FEAT_TILES
     assert plan.rows == FEAT_WARP_ROWS * plan.warp_rows
     assert plan.cols == 8 * plan.warp_tiles * plan.warp_cols
@@ -363,13 +390,22 @@ def test_features_plan_covers_every_entry_once(j, d_feat, n, item):
 @pytest.mark.parametrize("j,d_feat,n", FEATURE_SHAPES)
 @pytest.mark.parametrize("item", [8, 4, 2])
 def test_features_plan_shared_memory_covers_the_layout(j, d_feat, n, item):
-    """The kernel's layout: a ring of FEAT_STAGES slots, each an Ω slice
-    [rows][32 + pad] and an X slice [32][cols + pad], pad 4 elements (8
-    in bf16); within the 227 KB a block may use."""
+    """f64/f32: a ring of FEAT_STAGES slots, each an Ω slice [rows][32 + 4]
+    and an X slice [32][cols + 4]. bf16: two f32 X slots [BF16_DEPTH][cols]
+    (which then hold the sums [rows][cols + 4]), two Ω slots
+    [rows][BF16_ROW_STRIDE], the row stride 4 past the deepest chunk (the
+    prefetch past a chunk's end stays in its row) and 4 mod 8 floats (the
+    four rows a warp reads at one k on distinct banks), and a bias and a
+    state a row. Within the 227 KB a block may use."""
     plan = features_plan(j, d_feat, n, item=item)
-    pad = 8 if item == 2 else 4
-    layout = FEAT_STAGES * (plan.rows * (FEAT_DEPTH + pad)
-                            + FEAT_DEPTH * (plan.cols + pad)) * item
+    if item == 2:
+        assert BF16_ROW_STRIDE >= BF16_DEPTH + 4 and BF16_ROW_STRIDE % 8 == 4
+        assert plan.rows * (plan.cols + 4) <= 2 * BF16_DEPTH * plan.cols
+        layout = 4 * (2 * BF16_DEPTH * plan.cols
+                      + 2 * plan.rows * BF16_ROW_STRIDE + 2 * plan.rows)
+    else:
+        layout = FEAT_STAGES * (plan.rows * (FEAT_DEPTH + 4)
+                                + FEAT_DEPTH * (plan.cols + 4)) * item
     assert plan.smem_bytes >= layout
     assert plan.smem_bytes <= 232_448
 
@@ -380,6 +416,79 @@ def test_features_plan_fills_the_card_at_the_serving_shapes(item):
     more, the wave of 10 nodes at least one block per SM."""
     assert features_plan(1, 200, 512, item=item, sms=132).blocks >= 100
     assert features_plan(10, 200, 512, item=item, sms=132).blocks >= 132
+
+
+def test_bf16_features_plan_takes_the_wave_in_one_round_of_blocks():
+    """The wave (J 10, D 200, N 512): 64 × 64 blocks of 4 × 8 microtiles,
+    256 blocks, two resident an SM (shared memory and registers), so the
+    grid runs in one round on 132 SMs."""
+    plan = features_plan(10, 200, 512, item=2, sms=132)
+    assert (plan.rows, plan.cols, plan.thread_rows,
+            plan.thread_cols) == (64, 64, 4, 8)
+    assert plan.blocks == 256
+    per_sm = smem.SMEM_PER_SM // (plan.smem_bytes
+                                  + smem.SMEM_RESERVED_PER_BLOCK)
+    assert per_sm >= 2 and per_sm * 132 >= plan.blocks
+    assert 2 * plan.threads * 255 <= 65_536
+
+
+# (J, D_max, N) at the serving shapes → the f64/f32 tile (warps along
+# rows, along columns, m16n8 tiles a warp) and blocks, as before the bf16
+# route had a kernel of its own
+F64_F32_PLANS = [((1, 200, 512), (4, 2, 1), 128), ((10, 200, 512), (2, 2, 4), 560),
+                 ((1, 200, 8), (4, 2, 1), 4), ((10, 200, 64), (2, 2, 2), 140),
+                 ((10, 200, 16), (4, 2, 1), 40), ((3, 200, 13), (4, 2, 1), 12),
+                 ((1, 37, 13), (2, 2, 4), 2)]
+
+
+@pytest.mark.parametrize("shape,tile,blocks", F64_F32_PLANS)
+@pytest.mark.parametrize("item", [8, 4])
+def test_features_plan_f64_f32_unchanged_at_the_serving_shapes(
+        shape, tile, blocks, item):
+    plan = features_plan(*shape, item=item, sms=132)
+    assert (plan.warp_rows, plan.warp_cols, plan.warp_tiles) == tile
+    assert plan.blocks == blocks
+
+
+FEATURES_CSRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+                 / "kernels" / "csrc" / "rff_features.cu")
+
+
+@pytest.mark.parametrize("tile", BF16_TILES)
+def test_bf16_features_layout_matches_the_kernel_source(tile):
+    """The bf16 plan's tiles, depth and shared memory (the formula every
+    bf16 plan's smem_bytes takes) are the kernel's: the launcher's tile
+    menu, kBfDepth and kBfRowStride, and `bf16_smem_bytes`' return
+    expression evaluated in Python."""
+    src = FEATURES_CSRC.read_text()
+    menu = tuple(tuple(int(v) for v in m) for m in re.findall(
+        r"RFF_BF16_TILE\((\d+), (\d+), (\d+), (\d+)\)", src))
+    assert menu == BF16_TILES
+    depth = int(re.search(r"constexpr int kBfDepth = (\d+);", src).group(1))
+    stride = re.search(r"constexpr int kBfRowStride = ([^;]+);", src).group(1)
+    assert depth == BF16_DEPTH
+    assert eval(stride, {}, dict(kBfDepth=depth)) == BF16_ROW_STRIDE
+    body = src[src.index("size_t bf16_smem_bytes("):]
+    expr = body[body.index("return") + len("return"):body.index(";")]
+    for a, b in (("static_cast<size_t>", ""), ("sizeof(float)", "4")):
+        expr = expr.replace(a, b)
+    bm, bn = tile[:2]
+    assert _bf16_smem_bytes(bm, bn) == eval(f"({expr})", {}, dict(
+        bm=bm, bn=bn, kBfDepth=depth, kBfRowStride=BF16_ROW_STRIDE))
+
+
+@pytest.mark.parametrize("dim", [1, 5, 8, 9, 16, 17, 64, 148, 149, 160,
+                                 161, 600])
+def test_bf16_depth_stages_d_in_few_chunks(dim):
+    """Chunks of a multiple of 8 within the staged slot, two or more
+    where d > 8 (the second loads while the first is multiplied), and no
+    more than one chunk's worth of zero padding."""
+    kc = bf16_depth(dim)
+    chunks = -(-dim // kc)
+    assert kc % 8 == 0 and 8 <= kc <= BF16_DEPTH
+    assert chunks >= (2 if dim > 8 else 1)
+    assert chunks == max(2 if dim > 8 else 1, -(-dim // BF16_DEPTH))
+    assert chunks * kc - dim < 8 * chunks
 
 
 @pytest.mark.parametrize("d_feat", [1, 7, 8, 9, 200, 513])
