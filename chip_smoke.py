@@ -7,9 +7,11 @@
    (one nvcc per source, in parallel), with each ``-Xptxas -v`` report,
    a summary of registers and spills of each kernel of ``rff_gram``
    (both routes), the round kernel and the three cluster chains
-   (``dekrr_solve``, ``dekrr_async_solve``, ``dekrr_cheb_solve``),
-   ``rff_gram``'s launch plans at the main path's shapes and at F = 600
-   (the wide route) and the chains' ``chain_plan`` at J = 10 and 40.
+   (``dekrr_solve``, ``dekrr_async_solve``, ``dekrr_cheb_solve``; the
+   first two on both routes), ``rff_gram``'s launch plans at the main
+   path's shapes and at F = 600 (the wide route), the chains'
+   ``chain_plan`` and the route plans (``solve_plan``, ``async_plan``:
+   resident at J = 10, streamed at J = 40) at J = 10 and 40.
 3. Kernel phases: each solve-path kernel against its plain PyTorch
    version on the card, at the main path's shapes, in float64 and
    float32, with the invariants that hold bit for bit (``rff_gram``,
@@ -19,20 +21,24 @@
    launch
    == round launches; the masked round at all ones == the unmasked one;
    an async-chain launch == masked round launches plus the delivery
-   rule; chunked Chebyshev launches == one launch), and the three
-   cluster chains at J = 40, past the clusters the card holds at once,
-   == round launches bit for bit (the Chebyshev chain == the scan of
-   round launches with torch's elementwise update, `chebyshev_scan`).
+   rule; chunked Chebyshev launches == one launch; two launches of a
+   chain on equal inputs give equal bits), and the three cluster chains
+   at J = 40, past the clusters the card holds at once (the streamed
+   route), == round launches bit for bit (the Chebyshev chain == the
+   scan of round launches with torch's elementwise update,
+   `chebyshev_scan`); each phase prints the chains' launches by route.
 4. Main path at the paper's full width (Table 2, ``wave``): N = 63,600,
    d = 148, noniid_y over J = 10 nodes of circulant(10, (1, 2)), D_j = 200
    energy-selected DDRF features from D0 = 4,000 candidates per node,
    σ = 1, λ = 1e-6, c_nei = 0.01·N. pack_problem → solve_batched
-   (cuda_fused, tol 1e-10) → solve_batched (cuda, the same rounds) →
-   predict → RSE, checked against the port's own references.
+   (cuda_fused, tol 1e-10: ``dekrr_solve`` on its resident route, which
+   the run prints and requires) → solve_batched (cuda, the same rounds)
+   → predict → RSE, checked against the port's own references.
 5. Asynchronous gossip on the same packed problem: 1,000 rounds at
    p = 0.5 with the reference tests' censor schedule (τ0 = 2e-2, decay
    0.9), masks drawn by a seeded `torch.Generator` on the card;
-   cuda_fused == cuda bit for bit, both == torch at rtol 1e-9, one
+   cuda_fused (``dekrr_async_solve`` on its resident route, printed and
+   required) == cuda bit for bit, both == torch at rtol 1e-9, one
    edge-gossip run, one tol = 1e-10 run.
 6. Chebyshev acceleration on the same problem: the spectral interval on
    cuda, then chebyshev_solve_packed on cuda_fused, == cuda bit for bit,
@@ -250,7 +256,11 @@ one call can time an earlier tree's kernel beside this one's;
 ``--gram-timings [--src DIR]`` does the same for ``rff_gram`` at rows
 3–3‴ of PERF.md's kernel table, ``--features-timings [--src DIR]`` for
 ``rff_features`` at rows 7 (with the bf16 kernels' registers, spills and
-main-loop instruction mix).
+main-loop instruction mix), ``--chain-timings [--src DIR]`` for the round
+kernel and the three chains at rows 1, 2, 4, 5 and 6, in turns, each a
+median of 5 (with, where the package has them, each chain's split of a
+round into phases on both routes by ``%globaltimer``, one L2 hand-off
+between two SMs, and the chains' registers and spills).
 """
 from __future__ import annotations
 
@@ -258,6 +268,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import importlib
 import io
 import itertools
 import json
@@ -617,12 +628,22 @@ def kernel_name(mangled: str) -> str:
     while args and not args.startswith("E"):
         kind = next((k for k in kinds if args.startswith(k[0])), None)
         value = re.match(r"Li(\d+)E", args)
+        nested = re.match(r"N((?:\d+\w+?)+?)E", args)
         if kind:
             out.append(kind[1])
             args = args[len(kind[0]):]
         elif value:
             out.append(value.group(1))
             args = args[value.end():]
+        elif nested:   # a class type: N<len><namespace><len><name>E
+            parts, rest_ = [], nested.group(1)
+            while rest_:
+                m = re.match(r"(\d+)", rest_)
+                k = int(m.group(1))
+                parts.append(rest_[m.end():m.end() + k])
+                rest_ = rest_[m.end() + k:]
+            out.append(parts[-1])
+            args = args[nested.end():]
         else:
             return name
     return f"{name}<{','.join(out)}>"
@@ -771,10 +792,16 @@ def kernel_phases() -> dict[str, float]:
             for rounds in (1, 7):
                 got, res = ops.dekrr_solve(*ops_args, num_rounds=rounds,
                                            trace=True)
+                again = ops.dekrr_solve(*ops_args, num_rounds=rounds,
+                                        trace=True)
                 want, wres = dekrr_solve_reference(
                     *lay, num_rounds=rounds, dy=dy, trace=True)
                 want = ops._unflatten_dy(want, dy, d.ndim)
                 torch.cuda.synchronize()
+                if not (torch.equal(again[0], got) and
+                        torch.equal(again[1], res)):
+                    raise PhaseError(f"dekrr_solve R={rounds}: two launches "
+                                     f"on equal inputs differ ({case})")
                 e = max(compare(f"dekrr_solve R={rounds} {case}", got, want,
                                 dtype),
                         compare(f"dekrr_solve trace R={rounds} {case}", res,
@@ -819,7 +846,8 @@ def kernel_phases() -> dict[str, float]:
         if not torch.equal(seq, fused):
             raise PhaseError(f"dekrr_solve ≠ {PHASE_ROUNDS} dekrr_step "
                              f"launches bit for bit ({case})")
-        print(f"kernel phases {dtype}: pass", flush=True)
+        print(f"kernel phases {dtype}: pass (chain routes so far: "
+              f"{json.dumps(route_counts())})", flush=True)
     return errs
 
 
@@ -918,6 +946,12 @@ def chain_phases() -> dict[str, float]:
                     got = ops.dekrr_async_solve(*a_args, gossip=gossip,
                                                 censored=censored,
                                                 trace=True)
+                    again = ops.dekrr_async_solve(*a_args, gossip=gossip,
+                                                  censored=censored,
+                                                  trace=True)
+                    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                        raise PhaseError(f"dekrr_async_solve: two launches "
+                                         f"on equal inputs differ ({tag})")
                     w = dekrr_async_solve_reference(
                         *raw, censored=censored, edge_gossip=gossip == "edge",
                         dy=dy, trace=True)
@@ -980,7 +1014,8 @@ def chain_phases() -> dict[str, float]:
                   0.3 * torch.rand((rounds,), **kw))
         note("dekrr_cheb_solve",
              _check_cheb_chain(c_args, 1, f"J={J_LOOPED} {dtype}"))
-        print(f"chain kernel phases {dtype}: pass", flush=True)
+        print(f"chain kernel phases {dtype}: pass (chain routes so far: "
+              f"{json.dumps(route_counts())})", flush=True)
     return errs
 
 
@@ -1083,12 +1118,14 @@ def main_path(device: str, *, subsample: int | None, d_per_node: int,
     packed = pack_problem(solver, gram_backend="cuda", device=device)
     sync()
     t_pack = time.perf_counter() - t0
+    before = route_counts()
     t0 = time.perf_counter()
     theta, rounds, trace = solve_batched(
         packed, num_iters, backend="cuda_fused", tol=SOLVE_TOL,
         return_rounds=True, return_trace=True)
     sync()
     t_solve = time.perf_counter() - t0
+    routes = route_counts(before)
     theta_step = solve_batched(packed, rounds, backend="cuda")
     preds = torch.cat([solver.predict(unpack_theta(packed, theta), nd.x,
                                       node=j) for j, nd in enumerate(test)])
@@ -1098,7 +1135,19 @@ def main_path(device: str, *, subsample: int | None, d_per_node: int,
     return dict(solver=solver, packed=packed, theta=theta,
                 theta_step=theta_step, rounds=rounds, trace=trace,
                 rse=test_rse, t_pack=t_pack, t_solve=t_solve,
-                launches=launches, n_train=n_train, preds=preds, test=test)
+                launches=launches, n_train=n_train, preds=preds, test=test,
+                routes=routes)
+
+
+def route_counts(before: dict | None = None) -> dict:
+    """The chains' launches by route (`kernels.dekrr_solve.ROUTE_LAUNCHES`,
+    "name@route"), less ``before`` where given."""
+    from repro_torch.kernels.dekrr_solve import ROUTE_LAUNCHES
+    now = {f"{name}@{route}": n for (name, route), n in ROUTE_LAUNCHES.items()}
+    if before is None:
+        return now
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v - before.get(k, 0)}
 
 
 def warm_pack_ms(run: dict, repeats: int = 3) -> list[float]:
@@ -1191,10 +1240,13 @@ def async_path(run: dict, *, rounds: int, seed: int = 0) -> dict:
     solve = lambda m, c, b, **kw: _launched(lambda: async_solve_batched(
         packed, rounds, m, config=c, backend=b, **kw))
     wire = dict(return_stats=True, return_trace=True)
+    before = route_counts()
+    fused = solve(masks, config, "cuda_fused", **wire)
     return dict(
         masks=masks, config=config, rounds=rounds, edge_masks=edge_masks,
-        edge_config=edge_config,
-        fused=solve(masks, config, "cuda_fused", **wire),
+        edge_config=edge_config, fused=fused,
+        fused_routes=route_counts(before) if packed.device.type == "cuda"
+        else {},
         per_round=solve(masks, config, "cuda", **wire),
         torch=solve(masks, config, "torch", **wire),
         edge_fused=solve(edge_masks, edge_config, "cuda_fused",
@@ -1793,7 +1845,9 @@ def timings(packed, run) -> list[dict]:
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(lambda: library_round(run["theta"]))))
 
-    from repro_torch.kernels.dekrr_solve import dekrr_solve_cuda
+    from repro_torch.kernels.dekrr_solve import dekrr_solve_cuda, solve_plan
+    plan = solve_plan(lay[5], lay[6], lay[7], d_feat=d_feat, dy=dy,
+                      dtype=dtype, rounds=CHUNK)
     res = torch.empty((CHUNK, packed.num_nodes), dtype=dtype,
                       device=packed.device)
     work = torch.empty((2,) + tuple(lay[4].shape), dtype=dtype,
@@ -1807,7 +1861,7 @@ def timings(packed, run) -> list[dict]:
     bms, by = bound_ms(step_bytes, CHUNK * step_flops, dtype)
     ms, library_ms = paired_ms(
         lambda: dekrr_solve_cuda(*lay, out, res, work, num_rounds=CHUNK,
-                                 dy=dy),
+                                 dy=dy, plan=plan),
         lambda: library_solve(run["theta"]), reps=20, yardstick_reps=5)
     # where a chain round's time goes: the same launch without the trace,
     # and CHUNK round launches replayed from a CUDA graph (no host between)
@@ -1829,7 +1883,7 @@ def timings(packed, run) -> list[dict]:
             *lay, num_rounds=CHUNK, dy=dy, trace=True), reps=5),
         bound_ms=bms, bound_by=by, library_ms=library_ms, rounds=CHUNK,
         untraced_ms=cuda_ms(lambda: dekrr_solve_cuda(
-            *lay, out, None, work, num_rounds=CHUNK, dy=dy)),
+            *lay, out, None, work, num_rounds=CHUNK, dy=dy, plan=plan)),
         graph_round_ms=cuda_ms(graph.replay) / CHUNK))
     return rows
 
@@ -1844,7 +1898,8 @@ def chain_timings(run: dict, a: dict, c: dict) -> list[dict]:
                                                chebyshev_solve_packed)
     from repro_torch.dist import async_solve_batched
     from repro_torch.kernels import ops
-    from repro_torch.kernels.dekrr_solve import (dekrr_async_solve_cuda,
+    from repro_torch.kernels.dekrr_solve import (async_plan,
+                                                 dekrr_async_solve_cuda,
                                                  dekrr_async_solve_reference,
                                                  dekrr_cheb_solve_cuda,
                                                  dekrr_cheb_solve_reference)
@@ -1923,10 +1978,12 @@ def chain_timings(run: dict, a: dict, c: dict) -> list[dict]:
         + 5 * rows(j_nodes) + 2 * rows(j_nodes * k_slots) \
         + nbytes(raw[7], raw[8], raw[9], thr, outs[3], outs[4])
     bms, by = bound_ms(byts, flops, dtype)
+    plan = async_plan(raw[7], raw[8], d_feat=d_feat, dy=dy, dtype=dtype,
+                      rounds=rounds)
     ms, library_ms = paired_ms(
         lambda: dekrr_async_solve_cuda(
             *raw, *outs, work, flags, censored=True, edge_gossip=False,
-            dy=dy),
+            dy=dy, plan=plan),
         lambda: async_solve_batched(
             packed, rounds, masks, config=config, backend="torch",
             return_trace=True), reps=3, yardstick_reps=1)
@@ -2878,6 +2935,212 @@ def features_timings_only(src: str | None, repeats: int = 5) -> int:
         "ptxas": [line for line in ptxas_summary(
             _build.ptxas_reports.get("rff_features", "")) if "bf16" in line],
         "sass": sass_loop_mix(library, "bf16")}))
+    return 0
+
+
+# ------------------------------------------------------ the chains' timings
+def paper_chain_operands(seed: int = 0):
+    """Seeded f64 operands of one packed round at the paper shape: J 10
+    nodes of circulant(10, (1, 2)) (K 4, every slot live, self_idx the
+    identity), D 200, Dy 1; contracting blocks."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(dtype=torch.float64, device="cuda", generator=gen)
+    j, k, dd = J_NODES, 4, D_PER_NODE
+    scale = 0.5 / dd
+    g = torch.randn((j, dd, dd), **kw) * scale
+    s = torch.randn((j, dd, dd), **kw) * scale
+    p = torch.randn((j, k, dd, dd), **kw) * scale
+    d = torch.randn((j, dd), **kw)
+    theta = torch.randn((j, dd), **kw)
+    offsets = torch.tensor([1, -1, 2, -2], device="cuda")
+    nbr_idx = ((torch.arange(j, device="cuda")[:, None] + offsets) % j).to(
+        torch.int32)
+    self_idx = torch.arange(j, dtype=torch.int32, device="cuda")
+    nbr_mask = torch.ones((j, k), dtype=torch.float64, device="cuda")
+    return g, d, s, p, theta, nbr_idx, self_idx, nbr_mask
+
+
+def phase_split(stamps: torch.Tensor, steps: int, names) -> dict:
+    """Mean µs a step of each phase of a clocked chain launch (the
+    `*_clocked` entry points: stamps [blocks, 1 + steps·phases], 0 where a
+    phase did not run), over every block and step: a phase's time is its
+    stamp less the block's previous one. Also the launch's µs from the
+    first block's start to the last stamp."""
+    t = stamps.cpu().numpy().astype(np.int64)
+    n = len(names)
+    sums = np.zeros(n)
+    phase = np.tile(np.arange(n), steps)
+    for row in t:
+        flat = row[1:]
+        nz = flat != 0
+        seq = np.concatenate([row[:1], flat[nz]])
+        np.add.at(sums, phase[nz], np.diff(seq))
+    per_step = sums / (t.shape[0] * steps) / 1e3
+    return dict(us_per_step=dict(zip(names, per_step.tolist())),
+                step_us=float(per_step.sum()),
+                launch_us=float((t[:, 1:].max() - t[:, 0].min()) / 1e3))
+
+
+def handoff_us(iters: int = 10_000) -> float:
+    """µs of one release/acquire hand-off between two SMs through L2 (the
+    `dekrr_handoff_probe` export, 2·iters hand-offs)."""
+    from repro_torch.kernels import _build
+    lib = _build.library("dekrr_solve")
+    flags = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    out = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    _build.check(lib.dekrr_handoff_probe(
+        flags.data_ptr(), iters, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "dekrr_handoff_probe")
+    torch.cuda.synchronize()
+    return out.item() / (2 * iters) / 1e3
+
+
+def chain_launches(seed: int = 0) -> dict:
+    """The round kernel (rows 1, 4), `dekrr_solve` at CHUNK rounds with its
+    trace (row 2), the async chain over ASYNC_ROUNDS rounds at p 0.5,
+    censored on the censor schedule of ASYNC_CONFIG (row 5) and the
+    Chebyshev chain over 96 rounds (row 6) on `paper_chain_operands`,
+    each as a closure of the imported package's raw launcher, with the
+    package's route plans made beforehand where it has them (so no launch
+    waits for the host). Returns {name: (launch, rounds)} and the plans
+    under "plans" (with the launchers that take a plan and stamps)."""
+    from repro_torch.core import censor_schedule
+    from repro_torch.kernels import ops
+    ds = importlib.import_module("repro_torch.kernels.dekrr_solve")
+    from repro_torch.kernels.dekrr_step import dekrr_step_cuda
+
+    args = paper_chain_operands(seed)
+    g, d, s, p, theta, nbr_idx, self_idx, nbr_mask = args
+    j, dd = d.shape
+    f64 = torch.float64
+    kw = dict(dtype=f64, device="cuda")
+    lay = _raw_layout(args)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    masks = (torch.rand((ASYNC_ROUNDS, j), generator=gen, **kw)
+             < ASYNC_CONFIG["prob"]).to(torch.int32)
+    thr = censor_schedule(ASYNC_CONFIG["censor_tau"],
+                          ASYNC_CONFIG["censor_decay"], ASYNC_ROUNDS,
+                          dtype=f64, device=torch.device("cuda"))
+    zero = torch.zeros_like(d)
+    raw = _async_raw((g, d, s, p, zero, zero, zero[nbr_idx.long()], nbr_idx,
+                      nbr_mask, masks, thr))
+    cheb_rounds = 96
+    al = 0.5 + torch.rand((cheb_rounds,), generator=gen, **kw)
+    be = 0.3 * torch.rand((cheb_rounds,), generator=gen, **kw)
+    craw = lay[:5] + (ops._flatten_dy(zero),) + lay[5:] + (al, be)
+    out = torch.empty_like(lay[1])
+    res = torch.empty((CHUNK, j), **kw)
+    work = torch.empty((2,) + tuple(lay[4].shape), **kw)
+    outs = (torch.empty((j, dd), **kw), torch.empty((j, dd), **kw),
+            torch.empty((j * 4, dd), **kw),
+            torch.empty((ASYNC_ROUNDS + 1, j), **kw),
+            torch.empty((ASYNC_ROUNDS + 1, j), dtype=torch.int32,
+                        device="cuda"))
+    a_work = torch.empty((2, j, dd), **kw)
+    flags = torch.empty((2 * j,), dtype=torch.int32, device="cuda")
+    couts = (torch.empty((j, dd), **kw), torch.empty((j, dd), **kw),
+             torch.empty((cheb_rounds, j), **kw))
+    c_work = torch.empty((2, j, dd), **kw)
+    plans = {}
+    if hasattr(ds, "solve_plan"):
+        plans["dekrr_solve"] = ds.solve_plan(lay[5], lay[6], lay[7],
+                                             d_feat=dd, dy=1, dtype=f64,
+                                             rounds=CHUNK)
+        plans["dekrr_async_solve"] = ds.async_plan(
+            raw[7], raw[8], d_feat=dd, dy=1, dtype=f64, rounds=ASYNC_ROUNDS)
+
+    def solve(plan=None, stamps=None):
+        extra = {} if plan is None else dict(plan=plan, stamps=stamps)
+        ds.dekrr_solve_cuda(*lay, out, res, work, num_rounds=CHUNK, dy=1,
+                            **extra)
+
+    def async_chain(plan=None, stamps=None):
+        extra = {} if plan is None else dict(plan=plan, stamps=stamps)
+        ds.dekrr_async_solve_cuda(*raw, *outs, a_work, flags, censored=True,
+                                  edge_gossip=False, dy=1, **extra)
+
+    return {
+        "dekrr_step": (lambda: dekrr_step_cuda(*lay, out, dy=1), 1),
+        "dekrr_step_masked": (lambda: dekrr_step_cuda(
+            *lay, out, dy=1, active=masks[0]), 1),
+        "dekrr_solve": (lambda: solve(plans.get("dekrr_solve")), CHUNK),
+        "dekrr_async_solve": (lambda: async_chain(
+            plans.get("dekrr_async_solve")), ASYNC_ROUNDS),
+        "dekrr_cheb_solve": (lambda: ds.dekrr_cheb_solve_cuda(
+            *craw, *couts, c_work, dy=1), cheb_rounds),
+        "plans": plans, "clocked": {"dekrr_solve": solve,
+                                    "dekrr_async_solve": async_chain}}
+
+
+def chain_phase_splits(launches: dict) -> dict:
+    """Each chain of `chain_launches` on each route, once with its phase
+    clock on: `phase_split` of the stamps, with the route's plan."""
+    ds = importlib.import_module("repro_torch.kernels.dekrr_solve")
+
+    out = {}
+    for name, plan in launches["plans"].items():
+        rounds = launches[name][1]
+        steps = rounds + (name == "dekrr_async_solve")
+        routes = {plan.route: plan}
+        streamed = ds.streamed_plan(name, J_NODES, 4, D_PER_NODE, 1,
+                                    torch.float64)
+        routes.setdefault("streamed", streamed)
+        for route, pl in routes.items():
+            names = ds.CHAIN_PHASES[name, route]
+            stamps = torch.zeros((pl.blocks * pl.clusters,
+                                  1 + steps * len(names)),
+                                 dtype=torch.int64, device="cuda")
+            launches["clocked"][name](pl, stamps)
+            torch.cuda.synchronize()
+            out[f"{name}@{route}"] = dict(
+                plan=dict(blocks=pl.blocks, rows=pl.rows,
+                          clusters=pl.clusters, threads=pl.threads,
+                          smem_bytes=pl.smem_bytes),
+                **phase_split(stamps, steps, names))
+    return out
+
+
+def chain_timings_only(src: str | None, repeats: int = 5) -> int:
+    """``--chain-timings``: PERF.md's rows 1, 2, 4, 5 and 6 at the paper
+    shape (`chain_launches`), in turns, each the median of ``repeats``
+    `cuda_ms` readings, with ``repro_torch`` imported from `src`; then,
+    where the package has them, each chain's phase split on both routes
+    (`chain_phase_splits`), the L2 hand-off (`handoff_us`), the chains'
+    routes, and the chain kernels' registers and spills (``-Xptxas -v``),
+    as one JSON line after the card's line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if src is not None:
+        sys.path.insert(0, os.path.abspath(src))
+    import repro_torch
+    from repro_torch.kernels import _build
+
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = chain_launches()
+    reps = dict(dekrr_step=20, dekrr_step_masked=20, dekrr_solve=20,
+                dekrr_async_solve=3, dekrr_cheb_solve=5)
+    readings = {name: [] for name in reps}
+    for _ in range(repeats):
+        for name in reps:
+            readings[name].append(cuda_ms(launches[name][0], reps=reps[name],
+                                          warmup=1))
+    rows = {name: dict(ms=statistics.median(r), readings=r,
+                       rounds=launches[name][1],
+                       round_ms=statistics.median(r) / launches[name][1])
+            for name, r in readings.items()}
+    result = {"package": os.path.dirname(repro_torch.__file__), "rows": rows,
+              "routes": {k: v.route for k, v in launches["plans"].items()}}
+    if launches["plans"]:
+        result["phases"] = chain_phase_splits(launches)
+        result["handoff_us"] = handoff_us()
+    result["ptxas"] = [line for src_ in ("dekrr_solve", "dekrr_async_solve",
+                                         "dekrr_cheb_solve", "dekrr_step")
+                       for line in ptxas_summary(
+                           _build.ptxas_reports.get(src_, ""))]
+    print(card)
+    print(json.dumps(result))
     return 0
 
 
@@ -5373,7 +5636,9 @@ def run_on_card() -> int:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import decode_plan
-    from repro_torch.kernels.dekrr_solve import chain_max_clusters, chain_plan
+    from repro_torch.kernels.dekrr_solve import (async_plan,
+                                                 chain_max_clusters,
+                                                 chain_plan, solve_plan)
     from repro_torch.kernels.rff_gram import card_plan, gram_plan
     t0 = time.perf_counter()
     reports = _build.build_all()
@@ -5406,6 +5671,24 @@ def run_on_card() -> int:
               f"D = {D_PER_NODE}: " + "; ".join(
                   f"J = {j}: {chain_plan(j, D_PER_NODE, fits)}"
                   for j in (J_NODES, J_LOOPED)))
+    for j in (J_NODES, J_LOOPED):
+        offsets = torch.tensor([1, -1, 2, -2])
+        nbr = (torch.arange(j)[:, None] + offsets) % j
+        ones = torch.ones((j, 4))
+        for src, plan in (
+                ("dekrr_solve", solve_plan(nbr, torch.arange(j), ones,
+                                           d_feat=D_PER_NODE, dy=1,
+                                           dtype=torch.float64,
+                                           rounds=CHUNK)),
+                ("dekrr_async_solve", async_plan(
+                    nbr, ones, d_feat=D_PER_NODE, dy=1, dtype=torch.float64,
+                    rounds=ASYNC_ROUNDS))):
+            print(f"route plan {src} f64 at J = {j}, K = 4, D = "
+                  f"{D_PER_NODE}: {plan.route}, {plan.blocks} blocks of "
+                  f"{plan.rows} rows, {plan.clusters} clusters, "
+                  f"{plan.threads} threads, {plan.smem_bytes} B"
+                  + (f"; wait sets {plan.waits[:2]}…" if plan.waits
+                     else f" ({plan.why})"))
 
     errs = kernel_phases()
     errs.update(chain_phases())
@@ -5421,6 +5704,10 @@ def run_on_card() -> int:
           f"{run['t_solve'] * 1e3:.1f} ms", flush=True)
     print(f"launches: {json.dumps(run['launches'])}")
     check_launches(run)
+    print(f"main path solve (cuda_fused) routes: {json.dumps(run['routes'])}")
+    if not run["routes"].get("dekrr_solve@resident"):
+        raise PhaseError(f"the main path's solve did not launch the resident "
+                         f"route of dekrr_solve: {run['routes']}")
     print(f"pack_problem warm [{card}]: " + ", ".join(
         f"{ms:.1f}" for ms in warm_pack_ms(run)) + " ms")
 
@@ -5445,6 +5732,10 @@ def run_on_card() -> int:
           f"differ, the first, torch's extra broadcasts): "
           f"{json.dumps(a_checks['fixed_point'])}")
     print(f"async launches: {json.dumps(a_launches)}")
+    print(f"async path (cuda_fused) routes: {json.dumps(a['fused_routes'])}")
+    if not a["fused_routes"].get("dekrr_async_solve@resident"):
+        raise PhaseError(f"the async path did not launch the resident route "
+                         f"of dekrr_async_solve: {a['fused_routes']}")
 
     c = cheb_path(run, checks)
     c_checks = check_cheb_path(c, run, checks)
@@ -5669,9 +5960,12 @@ def main(argv=None) -> int:
     ap.add_argument("--features-timings", action="store_true",
                     help="time only rff_features at PERF.md's rows 7 on "
                          "the card")
-    ap.add_argument("--src", help="with --decode-timings, --gram-timings "
-                    "or --features-timings: the directory that holds the "
-                    "repro_torch package to time")
+    ap.add_argument("--chain-timings", action="store_true",
+                    help="time only the round kernel and the three chains "
+                         "at PERF.md's rows 1, 2 and 4-6 on the card")
+    ap.add_argument("--src", help="with --decode-timings, --gram-timings, "
+                    "--features-timings or --chain-timings: the directory "
+                    "that holds the repro_torch package to time")
     args = ap.parse_args(argv)
     if package_missing(SRC_DIR if args.src is None
                        else os.path.abspath(args.src)):
@@ -5683,6 +5977,8 @@ def main(argv=None) -> int:
             return gram_timings_only(args.src)
         if args.features_timings:
             return features_timings_only(args.src)
+        if args.chain_timings:
+            return chain_timings_only(args.src)
         return rehearse_on_cpu() if args.cpu_rehearsal else run_on_card()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -16,7 +16,12 @@ Budget table (bytes a block; one H100, sm_90):
   -----------------  -------------------------------------  -------  ---------------
   dekrr_step         (K+2)·Dy·D·itemsize                    C ≤ 8    (C, J)
   dekrr_solve        (K+2)·Dy·D·itemsize                    C ≤ 8    (C, ≤ J)
+  dekrr_solve,       ((1+L)·rows·D + (1+L)·Dy·D + Dy·D      C ≤ 8    (C, J)
+    resident           + Dy·rows)·itemsize; registers:
+                       rows·D·itemsize (G)
   dekrr_async_solve  (K+2)·Dy·D·itemsize                    C ≤ 8    (C, ≤ J)
+  dekrr_async_solve, as dekrr_solve, resident              C ≤ 8    (C, J)
+    resident
   dekrr_cheb_solve   (K+2)·Dy·D·itemsize                    C ≤ 8    (C, ≤ J)
   rff_gram, cluster  (F'·36 + Ω + 2·32·36 + 2·2·32 + H)·it  C ≤ 8    (C·S, groups, B)
   rff_gram, f32      (Z·C·32·(H₃₂+4) + Ωᵀ + 3·32·36          C ≤ 8    (C·S, groups, B),
@@ -33,7 +38,12 @@ Budget table (bytes a block; one H100, sm_90):
 
 Terms: K the slot count (≥ 1: the wrapper pads an edgeless graph to one
 slot), D the padded feature count, Dy the output width; the round kernel
-stages (1 + K) θ blocks and the acc block, each [Dy, D]. For `rff_gram`
+stages (1 + K) θ blocks and the acc block, each [Dy, D]. The chains'
+resident route (`kernels/dekrr_solve.py::resident_plan`) holds a block's
+rows of S and of the node's L live P blocks in shared memory for the whole
+launch, with the staged θ of the node and its live slots, acc and the
+block's d rows, and the same rows of G in registers; one cluster per
+node, all resident at once. For `rff_gram`
 (`kernels/rff_gram.py::gram_plan`): F' = F rounded up to 16, H the rank
 rows a block holds, Ω = H·(⌈d/32⌉·32 + 4) with Ω resident, else
 2·H·(32 + 4). Its f32 route (`F32GramPlan`): H₃₂ the rank rows in
@@ -49,7 +59,9 @@ query rows and a full and an empty mbarrier (8 bytes each), the query
 rows in f32, the merge area and a 16-byte flag; its persistent blocks
 walk (chunk, row · head block) units. The limit is `SMEM_OPTIN_PER_BLOCK` (232,448 B, the opt-in
 maximum of a block on sm_90) less the static shared memory each kernel
-declares beside its dynamic buffer (`STATIC_SMEM`). Grids hold at most
+declares beside its dynamic buffer (`STATIC_SMEM`); registers a block
+holds operands in stay within half an SM's register file
+(`REGISTER_OPERAND_LIMIT`), the rest for the arithmetic. Grids hold at most
 2³¹ − 1 blocks along x and 65,535 along y and z; a cluster at most the
 portable 8 blocks.
 
@@ -77,6 +89,7 @@ import numpy as np
 __all__ = [
     "H100_SMS",
     "MAX_CLUSTER",
+    "REGISTER_OPERAND_LIMIT",
     "SMEM_LIMITS",
     "SMEM_OPTIN_PER_BLOCK",
     "SMEM_PER_SM",
@@ -105,12 +118,17 @@ SMEM_PER_SM = 233_472
 SMEM_RESERVED_PER_BLOCK = 1_024
 MAX_CLUSTER = 8                 # the portable cluster size
 H100_SMS = 132                  # SMs of the card the CPU budgets for
+# Operand bytes a block may hold in registers: half the SM's 256 KiB
+# register file (the resident chains' G rows)
+REGISTER_OPERAND_LIMIT = 128 * 1024
 MAX_GRID_X = 2**31 - 1
 MAX_GRID_YZ = 65_535
 
 # Static shared memory each kernel declares beside its dynamic buffer, in
 # bytes (at most): the chains' cluster-max scratch (`dekrr::ClusterMax`,
-# 384 B in f64 for one value, 768 B for the async chain's two), and
+# 384 B in f64 for one value, 768 B for the async chain's two; on the
+# resident route also the live-slot list and the staged rows' sources,
+# 976 B at most), and
 # `rff_gram`'s last-block flag with slack. `flash_decode`'s launcher
 # refuses a dynamic size past 232,448 B itself (`kMaxSmem`).
 STATIC_SMEM = {
@@ -158,10 +176,14 @@ class SmemEstimate:
     limit: int
     cluster: int = 1
     grids: tuple[tuple[int, ...], ...] = ((1, 1, 1),)
+    register_bytes: int = 0   # operand bytes a block holds in registers
 
     def problems(self) -> list[str]:
         """What passes the card's limits, as phrases (empty: it fits)."""
         out = []
+        if self.register_bytes > REGISTER_OPERAND_LIMIT:
+            out.append(f"{self.register_bytes} bytes of operands a block in "
+                       f"registers exceed {REGISTER_OPERAND_LIMIT}")
         if self.bytes > self.limit:
             out.append(f"shared memory {self.formula} = {self.detail} = "
                        f"{self.bytes} bytes a block exceeds the "
@@ -217,23 +239,74 @@ def estimate_dekrr_step(*, j_nodes: int, k_slots: int, d_feat: int,
                            itemsize)
 
 
+def _resident_estimate(kernel: str, j_nodes: int, d_feat: int, dy: int,
+                       itemsize: int, blocks: int, rows: int,
+                       live: int) -> SmemEstimate:
+    elems = ((1 + live) * rows * d_feat + (1 + live) * dy * d_feat
+             + dy * d_feat + dy * rows)
+    return SmemEstimate(
+        kernel=kernel,
+        formula="((1+L)*rows*D + (1+L)*Dy*D + Dy*D + Dy*rows)*itemsize",
+        detail=(f"((1+{live})*{rows}*{d_feat} + (1+{live})*{dy}*{d_feat} + "
+                f"{dy}*{d_feat} + {dy}*{rows})*{itemsize}"),
+        bytes=elems * itemsize, limit=SMEM_LIMITS[kernel], cluster=blocks,
+        grids=((blocks, j_nodes, 1),),
+        register_bytes=rows * d_feat * itemsize)
+
+
+def _chain_estimate(kernel: str, j_nodes: int, k_slots: int, d_feat: int,
+                    dy: int, itemsize: int, route: str,
+                    plan) -> SmemEstimate:
+    """A chain on the route of ``plan`` (a `kernels.dekrr_solve.ChainPlan`)
+    or, without one, on ``route``: "streamed", or "resident" at the first
+    layout that fits with every slot live (`resident_shapes`; the card
+    decides at launch whether it holds J such clusters)."""
+    if plan is not None:
+        route = plan.route
+    if route == "streamed":
+        return _round_estimate(kernel, j_nodes, k_slots, d_feat, dy,
+                               itemsize)
+    if plan is not None:
+        blocks, rows, live = plan.blocks, plan.rows, plan.live
+    else:
+        from repro_torch.kernels.dekrr_solve import resident_shapes
+
+        live = k_slots
+        shapes = resident_shapes(d_feat, dy, live, itemsize,
+                                 SMEM_LIMITS[kernel])
+        if not shapes:
+            raise SmemBudgetError(
+                f"{kernel}: no resident layout fits D {d_feat}, Dy {dy}, "
+                f"{live} live slots at itemsize {itemsize}")
+        blocks, rows, _ = shapes[0]
+    return _resident_estimate(kernel, j_nodes, d_feat, dy, itemsize, blocks,
+                              rows, live)
+
+
 def estimate_dekrr_solve(*, j_nodes: int, k_slots: int, d_feat: int,
-                         dy: int = 1, itemsize: int = 8) -> SmemEstimate:
-    """The synchronous chain (`csrc/dekrr_solve.cu`): the round kernel's
-    node body, so its dynamic shared memory; grid (C, clusters ≤ J), the
-    clusters the card's occupancy query allows (not known here)."""
-    return _round_estimate("dekrr_solve", j_nodes, k_slots, d_feat, dy,
-                           itemsize)
+                         dy: int = 1, itemsize: int = 8,
+                         route: str = "streamed",
+                         plan=None) -> SmemEstimate:
+    """The synchronous chain (`csrc/dekrr_solve.cu`). Streamed route: the
+    round kernel's node body, so its dynamic shared memory; grid (C,
+    clusters ≤ J), the clusters the card's occupancy query allows (not
+    known here). Resident route: the block's rows of S and the live P, the
+    staged θ, acc and d rows in shared memory and its G rows in registers;
+    grid (C, J). ``plan`` (`kernels.dekrr_solve.solve_plan`) names the
+    route and layout of a launch."""
+    return _chain_estimate("dekrr_solve", j_nodes, k_slots, d_feat, dy,
+                           itemsize, route, plan)
 
 
 def estimate_dekrr_async_solve(*, j_nodes: int, k_slots: int, d_feat: int,
-                               dy: int = 1, itemsize: int = 8
-                               ) -> SmemEstimate:
+                               dy: int = 1, itemsize: int = 8,
+                               route: str = "streamed",
+                               plan=None) -> SmemEstimate:
     """The asynchronous-gossip chain (`csrc/dekrr_async_solve.cu`): as
     `estimate_dekrr_solve`; its θ, sent and buffer tables live in device
     memory, not in shared memory."""
-    return _round_estimate("dekrr_async_solve", j_nodes, k_slots, d_feat,
-                           dy, itemsize)
+    return _chain_estimate("dekrr_async_solve", j_nodes, k_slots, d_feat,
+                           dy, itemsize, route, plan)
 
 
 def estimate_dekrr_cheb_solve(*, j_nodes: int, k_slots: int, d_feat: int,
@@ -408,6 +481,8 @@ PATH_SHAPES = (
     ("dekrr_step", dict(_WAVE)),
     ("dekrr_solve", dict(_WAVE)),
     ("dekrr_async_solve", dict(_WAVE)),
+    ("dekrr_solve", dict(_WAVE, route="resident")),
+    ("dekrr_async_solve", dict(_WAVE, route="resident")),
     ("dekrr_cheb_solve", dict(_WAVE)),
     ("dekrr_solve", dict(j_nodes=10, k_slots=4, d_feat=32, dy=8)),
     ("rff_gram", dict(b=10, f=200, dim=148, n=3180)),
@@ -464,6 +539,15 @@ def launcher_bytes(kernel: str, shape: dict, sms: int = H100_SMS) -> int:
     if kernel.startswith("dekrr_"):
         lib = _build.library(kernel)
         suffix = "f64" if item == 8 else "f32"
+        if shape.get("route") == "resident":
+            from repro_torch.kernels.dekrr_solve import resident_shapes
+
+            live = shape["k_slots"]
+            dy = shape.get("dy", 1)
+            _, rows, _ = resident_shapes(shape["d_feat"], dy, live, item,
+                                         SMEM_LIMITS[kernel])[0]
+            fn = getattr(lib, f"{kernel}_resident_smem_bytes_{suffix}")
+            return fn(live, shape["d_feat"], dy, rows)
         fn = getattr(lib, f"{kernel}_smem_bytes_{suffix}")
         return fn(shape["k_slots"], shape["d_feat"], shape.get("dy", 1))
     if kernel == "rff_gram":

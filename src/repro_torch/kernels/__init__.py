@@ -7,11 +7,13 @@ version (sources in ``csrc/``).
                      activation mask of asynchronous gossip
                      (``csrc/dekrr_step.cu``)
 * dekrr_solve.py   — R Eq. 19 rounds in one persistent launch of one
-                     thread-block cluster per node (``csrc/dekrr_solve.cu``,
-                     sized by ``chain_plan``), the R-round asynchronous
-                     gossip chain on the same clusters
-                     (``csrc/dekrr_async_solve.cu``) and the R-round
-                     Chebyshev chain, one block per node
+                     thread-block cluster per node (``csrc/dekrr_solve.cu``)
+                     and the R-round asynchronous gossip chain
+                     (``csrc/dekrr_async_solve.cu``), each on the route
+                     ``solve_plan`` / ``async_plan`` names: resident
+                     (operands on chip, neighbour progress counters) or
+                     streamed (``chain_plan``, a grid barrier a round); the
+                     R-round Chebyshev chain on the streamed route
                      (``csrc/dekrr_cheb_solve.cu``); shared node bodies in
                      ``csrc/dekrr_common.cuh``
 * rff_features.py  — the serving tier's feature map Z = scale·cos(ΩX + b)

@@ -58,6 +58,15 @@ SIGNATURES = {
         "dekrr_solve_max_clusters_f32": [_I] * 4,
         "dekrr_solve_smem_bytes_f64": [_I] * 3,
         "dekrr_solve_smem_bytes_f32": [_I] * 3,
+        "dekrr_solve_clocked_f64": [_P] * 12 + [_I] * 9 + [_P],
+        "dekrr_solve_resident_f64": [_P] * 14 + [_I] * 9 + [_P],
+        "dekrr_solve_resident_f32": [_P] * 14 + [_I] * 9 + [_P],
+        "dekrr_solve_resident_clocked_f64": [_P] * 15 + [_I] * 9 + [_P],
+        "dekrr_solve_resident_max_clusters_f64": [_I] * 3,
+        "dekrr_solve_resident_max_clusters_f32": [_I] * 3,
+        "dekrr_solve_resident_smem_bytes_f64": [_I] * 4,
+        "dekrr_solve_resident_smem_bytes_f32": [_I] * 4,
+        "dekrr_handoff_probe": [_P, _I, _P, _P],
     },
     "dekrr_async_solve": {
         "dekrr_async_solve_f64": [_P] * 18 + [_I] * 11 + [_P],
@@ -66,6 +75,15 @@ SIGNATURES = {
         "dekrr_async_solve_max_clusters_f32": [_I] * 4,
         "dekrr_async_solve_smem_bytes_f64": [_I] * 3,
         "dekrr_async_solve_smem_bytes_f32": [_I] * 3,
+        "dekrr_async_solve_clocked_f64": [_P] * 19 + [_I] * 11 + [_P],
+        "dekrr_async_solve_resident_f64": [_P] * 20 + [_I] * 11 + [_P],
+        "dekrr_async_solve_resident_f32": [_P] * 20 + [_I] * 11 + [_P],
+        "dekrr_async_solve_resident_clocked_f64": [_P] * 21 + [_I] * 11
+        + [_P],
+        "dekrr_async_solve_resident_max_clusters_f64": [_I] * 3,
+        "dekrr_async_solve_resident_max_clusters_f32": [_I] * 3,
+        "dekrr_async_solve_resident_smem_bytes_f64": [_I] * 4,
+        "dekrr_async_solve_resident_smem_bytes_f32": [_I] * 4,
     },
     "dekrr_cheb_solve": {
         "dekrr_cheb_solve_f64": [_P] * 15 + [_I] * 9 + [_P],

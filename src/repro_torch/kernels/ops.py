@@ -49,12 +49,14 @@ import torch
 
 from repro_torch.analysis import smem
 from repro_torch.analysis.smem import check_index_table
-from repro_torch.kernels.dekrr_solve import (dekrr_async_solve_cuda,
+from repro_torch.kernels.dekrr_solve import (async_plan,
+                                             dekrr_async_solve_cuda,
                                              dekrr_async_solve_reference,
                                              dekrr_cheb_solve_cuda,
                                              dekrr_cheb_solve_reference,
                                              dekrr_solve_cuda,
-                                             dekrr_solve_reference)
+                                             dekrr_solve_reference,
+                                             solve_plan)
 from repro_torch.kernels.decode_attention import (flash_decode_cuda,
                                                   flash_decode_reference)
 from repro_torch.kernels.dekrr_step import (dekrr_step_cuda,
@@ -483,10 +485,11 @@ def _unflatten_dy(out: torch.Tensor, dy: int, ndim: int) -> torch.Tensor:
 
 
 def _check_dekrr_indices(t_rows: int, nbr_idx, self_idx, nbr_mask, *,
-                         distinct_self: bool = False) -> None:
+                         distinct_self: bool = False):
     """Bounds-check the slot tables against the θ-table row count on the
     host: a kernel reading an out-of-range row would gather arbitrary
-    memory. Masked slots may hold any index."""
+    memory. Masked slots may hold any index. Returns the host copies
+    (nbr_idx, self_idx, nbr_mask != 0) for the chains' launch plans."""
     own = self_idx.detach().cpu().numpy()
     if own.size and (own.min() < 0 or own.max() >= t_rows):
         raise ValueError(f"self_idx: indices must lie in [0, {t_rows}) but "
@@ -495,10 +498,12 @@ def _check_dekrr_indices(t_rows: int, nbr_idx, self_idx, nbr_mask, *,
         raise ValueError("self_idx: rows must be distinct (two nodes "
                          "would write one θ-table row)")
     live = nbr_mask.detach().cpu().numpy() != 0
-    idx = nbr_idx.detach().cpu().numpy()[live]
+    table = nbr_idx.detach().cpu().numpy()
+    idx = table[live]
     if idx.size and (idx.min() < 0 or idx.max() >= t_rows):
         raise ValueError(f"nbr_idx: live indices must lie in [0, {t_rows}) "
                          f"but span [{idx.min()}, {idx.max()}]")
+    return table, own, live
 
 
 _DEKRR_BUDGETS = {"dekrr_step": smem.estimate_dekrr_step,
@@ -603,8 +608,8 @@ def dekrr_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
                          f"{num_rounds}")
     on_cuda, dy, ops = _pad_dekrr_operands(name, g, d, s, p, theta, nbr_idx,
                                            self_idx, nbr_mask, kernel=name)
-    _check_dekrr_indices(theta.shape[0], ops[5], ops[6], ops[7],
-                         distinct_self=True)
+    host = _check_dekrr_indices(theta.shape[0], ops[5], ops[6], ops[7],
+                                distinct_self=True)
     j_nodes = d.shape[0]
     if num_rounds == 0:
         out = theta[self_idx.long()]
@@ -619,6 +624,11 @@ def dekrr_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
         if trace:
             return _unflatten_dy(out[0], dy, d.ndim), out[1]
         return _unflatten_dy(out, dy, d.ndim)
+    plan = solve_plan(*host, d_feat=d.shape[1], dy=dy, dtype=d.dtype,
+                      rounds=num_rounds)
+    smem.estimate_dekrr_solve(j_nodes=j_nodes, k_slots=ops[3].shape[1],
+                              d_feat=d.shape[1], dy=dy,
+                              itemsize=d.element_size(), plan=plan).check()
     table = ops[4]
     out = torch.empty((j_nodes * dy, d.shape[1]), dtype=d.dtype,
                       device=d.device)
@@ -626,7 +636,8 @@ def dekrr_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
                       device=d.device) if trace else None
     work = torch.empty((2,) + tuple(table.shape), dtype=d.dtype,
                        device=d.device)
-    dekrr_solve_cuda(*ops, out, res, work, num_rounds=num_rounds, dy=dy)
+    dekrr_solve_cuda(*ops, out, res, work, num_rounds=num_rounds, dy=dy,
+                     plan=plan)
     _count("dekrr_solve")
     out = _unflatten_dy(out, dy, d.ndim)
     return (out, res) if trace else out
@@ -634,13 +645,15 @@ def dekrr_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
 
 # ------------------------------------------------------------- async chain
 def _check_async_nbr_indices(j_nodes: int, nbr_idx: torch.Tensor,
-                             nbr_mask: torch.Tensor) -> None:
+                             nbr_mask: torch.Tensor):
     """The async chain's nbr_idx entries are NODE ids: they index the [J]
     broadcast-flag vectors as well as θ rows, so live slots must lie in
-    [0, J), not merely inside the θ table."""
+    [0, J), not merely inside the θ table. Returns the host copies
+    (nbr_idx, nbr_mask != 0) for the launch plan."""
     live = nbr_mask.detach().cpu().numpy() != 0
-    check_index_table("nbr_idx", nbr_idx.detach().cpu().numpy()[live],
-                      j_nodes)
+    table = nbr_idx.detach().cpu().numpy()
+    check_index_table("nbr_idx", table[live], j_nodes)
+    return table, live
 
 
 def _flatten_buffers(buf: torch.Tensor) -> torch.Tensor:
@@ -703,7 +716,7 @@ def dekrr_async_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
                                            self_idx, nbr_mask, kernel=name)
     _check_floats(name, d, sent, buffers, thresholds)
     _on_cuda(name, d, sent, buffers, active_tab, thresholds)
-    _check_async_nbr_indices(j_nodes, ops[5], ops[7])
+    host = _check_async_nbr_indices(j_nodes, ops[5], ops[7])
     if num_rounds == 0:
         out = (theta[:j_nodes], sent[:j_nodes], buffers)
         if trace:
@@ -736,12 +749,18 @@ def dekrr_async_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
             bc = torch.empty((num_rounds + 1, j_nodes), dtype=torch.int32,
                              device=d.device)
             outs = outs + (res, bc)
+        plan = async_plan(*host, d_feat=d_feat, dy=dy, dtype=d.dtype,
+                          rounds=num_rounds)
+        smem.estimate_dekrr_async_solve(
+            j_nodes=j_nodes, k_slots=k_pad, d_feat=d_feat, dy=dy,
+            itemsize=d.element_size(), plan=plan).check()
         work = torch.empty((2,) + tuple(theta_f.shape), **kw)
         flags = torch.empty((2 * j_nodes,), dtype=torch.int32,
                             device=d.device)
         dekrr_async_solve_cuda(*raw, *outs[:3], res, bc, work, flags,
                                censored=censored,
-                               edge_gossip=gossip == "edge", dy=dy)
+                               edge_gossip=gossip == "edge", dy=dy,
+                               plan=plan)
         _count(name)
     state = (_unflatten_dy(outs[0], dy, d.ndim),
              _unflatten_dy(outs[1], dy, d.ndim),

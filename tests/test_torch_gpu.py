@@ -209,10 +209,21 @@ def test_gpu_rff_gram_wide_route_passes_and_chunks(cuda_device, monkeypatch,
 
 # CASES plus the paper's D = 200 (clusters of 7), D above the round
 # kernel's 8 blocks × 32 warps of rows (clusters of 8, 33 and 38 rows a
-# block), and J = 40 at D = 200: 280 blocks, more clusters than the card
-# holds at once, so a chain's clusters loop over nodes
+# block), J = 40 at D = 200: 280 blocks, more clusters than the card
+# holds at once, so a chain's clusters loop over nodes; and the paper's
+# shape, J 10, K 4, D 200, at Dy 1 and 3. Every slot table here is drawn
+# at random (asymmetric, masked slots, rows no node owns where T > J).
 STEP_CASES = CASES + [(3, 2, 200, 1, 0), (3, 2, 150, 3, 2), (2, 0, 257, 1, 1),
-                      (2, 1, 300, 3, 0), (40, 4, 200, 1, 0)]
+                      (2, 1, 300, 3, 0), (40, 4, 200, 1, 0),
+                      (10, 4, 200, 1, 0), (10, 4, 200, 3, 0)]
+
+
+def chain_route(j, dfeat):
+    """The route a chain takes at R ≥ 2 on these cases: streamed past D
+    256 and at J 40, D 200 (the operands do not fit on chip), resident
+    elsewhere."""
+    return "streamed" if dfeat > 256 or (j, dfeat) == (40, 200) \
+        else "resident"
 
 
 @pytest.mark.gpu
@@ -222,13 +233,20 @@ def test_gpu_step_launches_equal_one_solve_launch(cuda_device, j, k, dfeat,
     """R = 7 round launches equal one dekrr_solve launch of 7 rounds bit
     for bit (each node's rows spread over a cluster in both, the chain's
     clusters looping over nodes where J is past what the card holds),
-    table rows owned by no node kept."""
+    table rows owned by no node kept, on the route `chain_route` names;
+    a second launch on equal inputs gives the same bits (a race on the
+    resident route's progress counters would not)."""
+    from repro_torch.kernels.dekrr_solve import solve_plan
     from repro_torch.kernels.dekrr_step import dekrr_step_cuda
 
     args = [a.to(cuda_device) for a in to_t(
         dekrr_case(j, k, dfeat, dy, extra, seed=j * 10 + k + dy))]
     lay = ops._pad_dekrr_operands("t", *args)[2]
+    plan = solve_plan(lay[5], lay[6], lay[7], d_feat=dfeat, dy=dy,
+                      dtype=torch.float64, rounds=7)
+    assert plan.route == chain_route(j, dfeat), plan
     fused = ops.dekrr_solve(*args, num_rounds=7)
+    again = ops.dekrr_solve(*args, num_rounds=7)
     table = lay[4].clone()
     own = lay[6].long()
     for _ in range(7):
@@ -242,7 +260,8 @@ def test_gpu_step_launches_equal_one_solve_launch(cuda_device, j, k, dfeat,
     got = ops._unflatten_dy(table.view(-1, dy, dfeat)[own].reshape(
         j * dy, dfeat), dy, args[1].ndim)
     assert torch.equal(got, fused)
-    assert ops.LAUNCHES["dekrr_solve"] == 1
+    assert torch.equal(again, fused)
+    assert ops.LAUNCHES["dekrr_solve"] == 2
 
 
 @pytest.mark.gpu
@@ -270,7 +289,7 @@ def test_gpu_masked_round_matches_plain(cuda_device, dtype, rtol, j, k,
 
 ASYNC_CASES = [c for c in CASES if c[4] == 0] + [
     (4, 2, 9, 3, 2), (3, 2, 200, 1, 0), (2, 1, 257, 3, 0), (2, 2, 300, 1, 0),
-    (40, 4, 200, 1, 0)]
+    (40, 4, 200, 1, 0), (10, 4, 200, 1, 0), (10, 4, 200, 3, 0)]
 
 
 @pytest.mark.gpu
@@ -281,19 +300,28 @@ ASYNC_CASES = [c for c in CASES if c[4] == 0] + [
 @pytest.mark.parametrize("censored", [False, True])
 def test_gpu_async_chain_matches_plain(cuda_device, dtype, rtol, j, k,
                                        dfeat, dy, extra, gossip, censored):
-    """The async-chain kernel against its plain version, and (f64, T = J)
-    bit for bit against the masked round kernel run round by round with
-    the delivery rule."""
+    """The async-chain kernel against its plain version, on the route
+    `chain_route` names, a second launch on equal inputs bit-equal to the
+    first, and (f64, T = J) bit for bit against the masked round kernel
+    run round by round with the delivery rule."""
+    from repro_torch.kernels.dekrr_solve import async_plan
+
     cpu = [a.to(dtype) if a.is_floating_point() else a for a in to_t(
         async_case(j, k, dfeat, dy, extra, rounds=6, seed=j + k + dy))]
     kw = dict(gossip=gossip, censored=censored, trace=True)
     want = ops.dekrr_async_solve(*cpu, **kw)
-    got = ops.dekrr_async_solve(*[a.to(cuda_device) for a in cpu], **kw)
+    dev = [a.to(cuda_device) for a in cpu]
+    plan = async_plan(cpu[7], cpu[8], d_feat=dfeat, dy=dy, dtype=dtype,
+                      rounds=6)
+    assert plan.route == chain_route(j, dfeat), plan
+    got = ops.dekrr_async_solve(*dev, **kw)
+    again = ops.dekrr_async_solve(*dev, **kw)
     torch.cuda.synchronize()
     for a, w in zip(got[:4], want[:4]):
         assert_close(a, w, rtol=rtol)
     assert torch.equal(got[4].cpu(), want[4])
-    assert ops.LAUNCHES["dekrr_async_solve"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert ops.LAUNCHES["dekrr_async_solve"] == 2
     if dtype != torch.float64 or extra:
         return
     g, d, s, p, theta, sent, bufs, nbr_idx, nbr_mask, active, thr = (

@@ -18,7 +18,11 @@ from repro_torch.kernels.decode_attention import (DECODE_BF16_CHUNK_TILES,
                                                   DECODE_SMEM_LIMIT,
                                                   DECODE_THREADS, decode_plan,
                                                   decode_smem_bytes)
-from repro_torch.kernels.dekrr_solve import chain_plan
+from repro_torch.kernels.dekrr_solve import (RESIDENT_MAX_ROWS,
+                                             RESIDENT_ROWS_PER_WARP,
+                                             ChainPlan, chain_plan,
+                                             resident_plan, resident_shapes,
+                                             table_slot_nodes, wait_sets)
 
 from repro_torch.kernels.dekrr_step import (ROUND_CLUSTER, ROUND_WARPS,
                                              round_plan)
@@ -588,6 +592,165 @@ def test_chain_plan_sizes_the_chebyshev_chain(j_nodes, clusters, dy):
     owned = [o * d_feat + a for c in range(blocks) for o in range(dy)
              for a in range(c * rows, min(d_feat, (c + 1) * rows))]
     assert sorted(owned) == list(range(dy * d_feat))
+
+
+# ------------------------------------------------- the chains' resident route
+def _h100_clusters(blocks, threads, nbytes):
+    """Clusters of `blocks` such blocks an H100 holds at once, on the
+    card's limits alone (232,448 B of an SM's shared memory a block plus
+    1 KB reserved, 2,048 threads an SM, 132 SMs; the card's own query is
+    stricter where a cluster must sit in one GPC)."""
+    per_sm = min(smem.SMEM_PER_SM // (nbytes + smem.STATIC_SMEM[
+        "dekrr_solve"] + smem.SMEM_RESERVED_PER_BLOCK), 2048 // threads)
+    return smem.H100_SMS * per_sm // blocks
+
+
+def _circulant(j_nodes, offsets=(1, -1, 2, -2)):
+    return (np.arange(j_nodes)[:, None] + np.array(offsets)) % j_nodes
+
+
+def _resident(nodes, live, d_feat, dy=1, item=8, rounds=32,
+              fits=_h100_clusters):
+    return resident_plan(nodes, live, d_feat, dy, item, rounds, fits,
+                         smem.SMEM_LIMITS["dekrr_solve"])
+
+
+# (J, D, Dy, itemsize): the paper's shape, its Dy 3, f32, small and ragged D,
+# the edge of the route (D 256, in f32: in f64 its 4 live slots' rows pass
+# a block's shared memory), one node
+RESIDENT_SHAPES = [(10, 200, 1, 8), (10, 200, 3, 8), (10, 200, 1, 4),
+                   (5, 12, 3, 8), (7, 150, 2, 8), (3, 256, 1, 4),
+                   (1, 200, 1, 8), (10, 33, 1, 4)]
+
+
+@pytest.mark.parametrize("j_nodes,d_feat,dy,item", RESIDENT_SHAPES)
+def test_resident_plan_owns_every_node_and_row_once(j_nodes, d_feat, dy,
+                                                    item):
+    """One cluster per node; block c of a node's cluster forms rows
+    [c·rows, (c+1)·rows) ∩ [0, D): every row once, no block without rows,
+    at most 32 rows (a warp per two) and 8 blocks."""
+    nodes = _circulant(j_nodes)
+    if j_nodes == 1:
+        nodes = np.full((1, 4), -1)
+    plan = _resident(nodes, np.ones(nodes.shape, bool), d_feat, dy, item)
+    assert isinstance(plan, ChainPlan) and plan.route == "resident"
+    assert plan.clusters == j_nodes and 1 <= plan.blocks <= ROUND_CLUSTER
+    spans = [range(c * plan.rows, min(d_feat, (c + 1) * plan.rows))
+             for c in range(plan.blocks)]
+    assert [a for span in spans for a in span] == list(range(d_feat))
+    assert all(len(span) for span in spans)
+    assert plan.rows <= RESIDENT_MAX_ROWS
+    assert plan.threads == 32 * -(-plan.rows // RESIDENT_ROWS_PER_WARP)
+    assert plan.smem_bytes <= smem.SMEM_LIMITS["dekrr_solve"]
+
+
+# (J, K live, D, Dy, itemsize, R, route): the paper's shape resident; J 40
+# at D 200 (19.2 MB a node set, 320 blocks of 210 KB: more than the card
+# holds), D past 256, Dy 8 at D 200 (shared memory), 17 live slots, and
+# launches of one round streamed
+ROUTE_CASES = [(10, 4, 200, 1, 8, 32, "resident"),
+               (10, 4, 200, 1, 8, 1000, "resident"),
+               (40, 4, 200, 1, 8, 32, "streamed"),
+               (2, 1, 257, 1, 8, 32, "streamed"),
+               (10, 4, 200, 8, 8, 32, "streamed"),
+               (3, 17, 12, 1, 8, 32, "streamed"),
+               (10, 4, 200, 1, 8, 1, "streamed"),
+               (40, 4, 32, 1, 8, 7, "resident")]
+
+
+@pytest.mark.parametrize("j_nodes,k,d_feat,dy,item,rounds,route",
+                         ROUTE_CASES)
+def test_resident_route_only_where_the_footprint_fits(j_nodes, k, d_feat,
+                                                      dy, item, rounds,
+                                                      route):
+    """The resident route is taken only where a layout fits a block's
+    shared memory (`resident_shapes`), the card holds J clusters of it and
+    R ≥ RESIDENT_MIN_ROUNDS; elsewhere the plan says why not."""
+    nodes = (np.arange(j_nodes)[:, None] + 1 + np.arange(k)) % j_nodes
+    plan = _resident(nodes, np.ones((j_nodes, k), bool), d_feat, dy, item,
+                     rounds)
+    if route == "streamed":
+        assert isinstance(plan, str) and plan
+        return
+    assert isinstance(plan, ChainPlan) and plan.route == "resident"
+    shapes = resident_shapes(d_feat, dy, k, item,
+                             smem.SMEM_LIMITS["dekrr_solve"])
+    assert (plan.blocks, plan.rows, plan.smem_bytes) in shapes
+    assert _h100_clusters(plan.blocks, plan.threads,
+                          plan.smem_bytes) >= j_nodes
+    # the card holding one cluster fewer than J sends the plan elsewhere
+    short = _resident(nodes, np.ones((j_nodes, k), bool), d_feat, dy, item,
+                      rounds, fits=lambda *_: j_nodes - 1)
+    assert isinstance(short, str)
+
+
+def _wait_sets_by_definition(nodes):
+    j_nodes = len(nodes)
+    reads = [{int(i) for i in row if i >= 0} for row in nodes]
+    return tuple(tuple(sorted({j} | reads[j] | {i for i in range(j_nodes)
+                                                if j in reads[i]}))
+                 for j in range(j_nodes))
+
+
+# slot tables: the paper's circulant(10, (1, 2)); an asymmetric one (node 0
+# reads 3, nobody reads 0 but 2) with masked slots and a node reading no
+# one; J 40 circulant
+WAIT_TABLES = [
+    (_circulant(10), np.ones((10, 4), bool)),
+    (np.array([[3, 1, 2], [2, 0, 0], [0, 3, 1], [1, 1, 1], [0, 0, 0]]),
+     np.array([[1, 0, 0], [1, 1, 0], [1, 0, 1], [0, 0, 0], [0, 0, 0]],
+              bool)),
+    (_circulant(40), np.ones((40, 4), bool)),
+]
+
+
+@pytest.mark.parametrize("table,live", WAIT_TABLES)
+def test_wait_sets_are_in_and_out_neighbours(table, live):
+    """W(j) = {j} ∪ in(j) ∪ out(j): for the async chain (slots hold node
+    ids) and for the synchronous chain with θ-table rows mapped to the
+    nodes that own them (rows no node owns read θ0 and wait on no one)."""
+    nodes = np.where(live, table, -1)
+    want = _wait_sets_by_definition(nodes)
+    assert wait_sets(nodes) == want
+    j_nodes = len(table)
+    # the synchronous chain: node j owns table row self_idx[j] of T = J + 2
+    self_idx = np.random.default_rng(j_nodes).permutation(j_nodes + 2)[
+        :j_nodes]
+    rows = np.where(live, self_idx[table], -1)
+    rows[0, 0] = j_nodes + 5 if live[0, 0] else rows[0, 0]   # no owner
+    got = table_slot_nodes(np.where(live, rows, 10 ** 6), self_idx, live)
+    expect = np.where(live, table, -1)
+    if live[0, 0]:
+        expect[0, 0] = -1
+    np.testing.assert_array_equal(got, expect)
+    plan = _resident(got, live, 32)
+    assert plan.waits == _wait_sets_by_definition(got)
+    table_w = plan.wait_table()
+    for j, w in enumerate(plan.waits):
+        assert tuple(table_w[j][table_w[j] >= 0]) == w
+
+
+@pytest.mark.parametrize("j_nodes,d_feat,dy,item", RESIDENT_SHAPES)
+@pytest.mark.parametrize("kernel", ["dekrr_solve", "dekrr_async_solve"])
+def test_resident_plan_bytes_equal_the_smem_estimate(kernel, j_nodes,
+                                                     d_feat, dy, item):
+    """The plan's shared memory equals `analysis/smem.py`'s estimate of the
+    same launch (its own formula), which fits, holds the G rows in
+    registers and, without a plan, names the same first layout."""
+    nodes = _circulant(j_nodes) if j_nodes > 1 else np.full((1, 4), -1)
+    live = np.ones(nodes.shape, bool)
+    plan = _resident(nodes, live, d_feat, dy, item)
+    est = getattr(smem, f"estimate_{kernel}")(
+        j_nodes=j_nodes, k_slots=4, d_feat=d_feat, dy=dy, itemsize=item,
+        plan=plan)
+    assert est.bytes == plan.smem_bytes and est.fits
+    assert est.cluster == plan.blocks
+    assert est.grids == ((plan.blocks, j_nodes, 1),)
+    assert est.register_bytes == plan.rows * d_feat * item
+    bare = getattr(smem, f"estimate_{kernel}")(
+        j_nodes=j_nodes, k_slots=4, d_feat=d_feat, dy=dy, itemsize=item,
+        route="resident")
+    assert bare.bytes == plan.smem_bytes
 
 
 # ------------------------------------------------------------------ decode
