@@ -7,11 +7,11 @@
    (one nvcc per source, in parallel), with each ``-Xptxas -v`` report,
    a summary of registers and spills of each kernel of ``rff_gram``
    (both routes), the round kernel and the three cluster chains
-   (``dekrr_solve``, ``dekrr_async_solve``, ``dekrr_cheb_solve``; the
-   first two on both routes), ``rff_gram``'s launch plans at the main
-   path's shapes and at F = 600 (the wide route), the chains'
-   ``chain_plan`` and the route plans (``solve_plan``, ``async_plan``:
-   resident at J = 10, streamed at J = 40) at J = 10 and 40.
+   (``dekrr_solve``, ``dekrr_async_solve``, ``dekrr_cheb_solve``, each
+   on both routes), ``rff_gram``'s launch plans at the main path's shapes
+   and at F = 600 (the wide route), the chains' ``chain_plan`` and the
+   route plans (``solve_plan``, ``async_plan``, ``cheb_plan``: resident
+   at J = 10, streamed at J = 40) at J = 10 and 40.
 3. Kernel phases: each solve-path kernel against its plain PyTorch
    version on the card, at the main path's shapes, in float64 and
    float32, with the invariants that hold bit for bit (``rff_gram``,
@@ -21,8 +21,10 @@
    launch
    == round launches; the masked round at all ones == the unmasked one;
    an async-chain launch == masked round launches plus the delivery
-   rule; chunked Chebyshev launches == one launch; two launches of a
-   chain on equal inputs give equal bits), and the three cluster chains
+   rule; chunked Chebyshev launches == one launch; the Chebyshev chain's
+   resident route == its streamed route forced on the same operands; two
+   launches of a chain on equal inputs give equal bits), and the three
+   cluster chains
    at J = 40, past the clusters the card holds at once (the streamed
    route), == round launches bit for bit (the Chebyshev chain == the
    scan of round launches with torch's elementwise update,
@@ -41,8 +43,10 @@
    required) == cuda bit for bit, both == torch at rtol 1e-9, one
    edge-gossip run, one tol = 1e-10 run.
 6. Chebyshev acceleration on the same problem: the spectral interval on
-   cuda, then chebyshev_solve_packed on cuda_fused, == cuda bit for bit,
-   and strictly fewer rounds than plain Jacobi to the same error.
+   cuda, then chebyshev_solve_packed on cuda_fused (one
+   ``dekrr_cheb_solve`` launch on its resident route, printed and
+   required), == cuda bit for bit, and strictly fewer rounds than plain
+   Jacobi to the same error.
 7. The SPMD solvers on the same packed problem, one node per rank: ten
    ranks started by `repro_torch.dist.ranks.run_ranks` on the one card,
    exchanging θ over gloo through host buffers (NCCL refuses two ranks
@@ -982,11 +986,14 @@ def chain_phases() -> dict[str, float]:
             c_args = (g, d, s, p, theta, delta, nbr_idx, self_idx, nbr_mask,
                       alphas, betas)
             note("dekrr_cheb_solve", _check_cheb_chain(c_args, dy, case))
+            _check_cheb_routes(c_args, dy, case)
             if t_rows == J_NODES:
                 ident = torch.arange(J_NODES, dtype=torch.int32,
                                      device="cuda")
                 note("dekrr_cheb_solve", _check_cheb_chain(
                     c_args[:7] + (ident,) + c_args[8:], dy, case))
+                _check_cheb_routes(c_args[:7] + (ident,) + c_args[8:], dy,
+                                   case)
         # the async chain at J past the clusters the card holds at once
         a_args = async_operands(J_LOOPED, 4, D_PER_NODE, 1, J_LOOPED, dtype,
                                 rounds, seed=J_LOOPED)
@@ -1059,6 +1066,41 @@ def _check_cheb_chain(c_args, dy: int, case: str) -> float:
                          f"launches with chebyshev_scan's update bit for bit "
                          f"({case})")
     return err
+
+
+def _check_cheb_routes(c_args, dy: int, case: str) -> None:
+    """At the paper's J and D the Chebyshev chain takes the resident
+    route; the streamed route, forced on the same operands, gives the same
+    θ, p and trace bit for bit."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dekrr_solve import (cheb_plan,
+                                                 dekrr_cheb_solve_cuda,
+                                                 streamed_plan)
+
+    g, d, s, p, theta, delta, nbr_idx, self_idx, nbr_mask, al, be = c_args
+    lay = _raw_layout((g, d, s, p, theta, nbr_idx, self_idx, nbr_mask))
+    j_nodes, d_feat, dtype = d.shape[0], d.shape[1], d.dtype
+    plan = cheb_plan(lay[5], lay[6], lay[7], d_feat=d_feat, dy=dy,
+                     dtype=dtype, rounds=al.shape[0])
+    if plan.route != "resident":
+        raise PhaseError(f"dekrr_cheb_solve took the {plan.route} route at "
+                         f"J {j_nodes}, D {d_feat} ({case}): {plan.why}")
+    raw = lay[:5] + (ops._flatten_dy(delta),) + lay[5:] + (al, be)
+    kw = dict(dtype=dtype, device="cuda")
+    outs = []
+    for pl in (plan, streamed_plan("dekrr_cheb_solve", j_nodes,
+                                   lay[3].shape[1], d_feat, dy, dtype)):
+        o = (torch.empty((j_nodes * dy, d_feat), **kw),
+             torch.empty((j_nodes * dy, d_feat), **kw),
+             torch.empty((al.shape[0], j_nodes), **kw))
+        dekrr_cheb_solve_cuda(*raw, *o, torch.empty(
+            (2,) + tuple(lay[4].shape), **kw), dy=dy, plan=pl)
+        outs.append(o)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("θ", "p", "res"), *outs):
+        if not torch.equal(a, b):
+            raise PhaseError(f"dekrr_cheb_solve {what}: resident ≠ streamed "
+                             f"route bit for bit ({case})")
 
 
 def _check_async_scanned(got, a_args, gossip: str, censored: bool,
@@ -1351,9 +1393,12 @@ def cheb_path(run: dict, checks: dict) -> dict:
     interval = _launched(lambda: estimate_spectral_interval(
         packed, backend="cuda"))
     lo, hi = interval[0]
+    before = route_counts()
     fused = _launched(lambda: chebyshev_solve_packed(
         packed, hi, lo, num_iters=rounds, backend="cuda_fused",
         return_trace=True))
+    fused_routes = route_counts(before) if packed.device.type == "cuda" \
+        else {}
     per_round = _launched(lambda: chebyshev_solve_packed(
         packed, hi, lo, num_iters=rounds, backend="cuda"))
     theta_star = pack_theta(packed, checks["exact"])
@@ -1361,8 +1406,8 @@ def cheb_path(run: dict, checks: dict) -> dict:
         packed, theta_star, tol=CHEB_TOL, max_rounds=2 * rounds,
         mu_max=hi, mu_min=lo, backend="cuda")
     return dict(mu=(lo, hi), rounds=rounds, interval=interval, fused=fused,
-                per_round=per_round, plain_rounds=plain_rounds,
-                cheb_rounds=cheb_rounds)
+                fused_routes=fused_routes, per_round=per_round,
+                plain_rounds=plain_rounds, cheb_rounds=cheb_rounds)
 
 
 def check_cheb_path(c: dict, run: dict, checks: dict) -> dict:
@@ -1391,6 +1436,10 @@ def check_cheb_launches(c: dict, iters: int = 60) -> dict:
         if got != expect:
             raise PhaseError(f"Chebyshev {key} launch counts {got}, "
                              f"expected {expect}")
+    if c["fused_routes"] != {"dekrr_cheb_solve@resident": 1}:
+        raise PhaseError(f"the Chebyshev path's fused solve did not make one "
+                         f"resident dekrr_cheb_solve launch: "
+                         f"{c['fused_routes']}")
     return {"dekrr_cheb_solve": 1}
 
 
@@ -1898,7 +1947,7 @@ def chain_timings(run: dict, a: dict, c: dict) -> list[dict]:
                                                chebyshev_solve_packed)
     from repro_torch.dist import async_solve_batched
     from repro_torch.kernels import ops
-    from repro_torch.kernels.dekrr_solve import (async_plan,
+    from repro_torch.kernels.dekrr_solve import (async_plan, cheb_plan,
                                                  dekrr_async_solve_cuda,
                                                  dekrr_async_solve_reference,
                                                  dekrr_cheb_solve_cuda,
@@ -2013,12 +2062,14 @@ def chain_timings(run: dict, a: dict, c: dict) -> list[dict]:
         + 5 * rows(j_nodes) + nbytes(lay[5], lay[6], lay[7], al, be,
                                      couts[2])
     bms, by = bound_ms(byts, flops, dtype)
+    plan = cheb_plan(lay[5], lay[6], lay[7], d_feat=d_feat, dy=dy,
+                     dtype=dtype, rounds=c["rounds"])
     rows_out.append(dict(
         name="dekrr_cheb_solve", route="cuda",
         source="src/repro_torch/kernels/csrc/dekrr_cheb_solve.cu",
         replaces="src/repro/kernels/dekrr_solve.py:620",
         ms=cuda_ms(lambda: dekrr_cheb_solve_cuda(*craw, *couts, work,
-                                                 dy=dy), reps=5),
+                                                 dy=dy, plan=plan), reps=5),
         plain_ms=cuda_ms(lambda: dekrr_cheb_solve_reference(
             *craw, dy=dy, trace=True), reps=3, warmup=1),
         bound_ms=bms, bound_by=by,
@@ -3048,6 +3099,10 @@ def chain_launches(seed: int = 0) -> dict:
                                              rounds=CHUNK)
         plans["dekrr_async_solve"] = ds.async_plan(
             raw[7], raw[8], d_feat=dd, dy=1, dtype=f64, rounds=ASYNC_ROUNDS)
+    if hasattr(ds, "cheb_plan"):
+        plans["dekrr_cheb_solve"] = ds.cheb_plan(
+            lay[5], lay[6], lay[7], d_feat=dd, dy=1, dtype=f64,
+            rounds=cheb_rounds)
 
     def solve(plan=None, stamps=None):
         extra = {} if plan is None else dict(plan=plan, stamps=stamps)
@@ -3059,6 +3114,10 @@ def chain_launches(seed: int = 0) -> dict:
         ds.dekrr_async_solve_cuda(*raw, *outs, a_work, flags, censored=True,
                                   edge_gossip=False, dy=1, **extra)
 
+    def cheb(plan=None, stamps=None):
+        extra = {} if plan is None else dict(plan=plan, stamps=stamps)
+        ds.dekrr_cheb_solve_cuda(*craw, *couts, c_work, dy=1, **extra)
+
     return {
         "dekrr_step": (lambda: dekrr_step_cuda(*lay, out, dy=1), 1),
         "dekrr_step_masked": (lambda: dekrr_step_cuda(
@@ -3066,10 +3125,11 @@ def chain_launches(seed: int = 0) -> dict:
         "dekrr_solve": (lambda: solve(plans.get("dekrr_solve")), CHUNK),
         "dekrr_async_solve": (lambda: async_chain(
             plans.get("dekrr_async_solve")), ASYNC_ROUNDS),
-        "dekrr_cheb_solve": (lambda: ds.dekrr_cheb_solve_cuda(
-            *craw, *couts, c_work, dy=1), cheb_rounds),
+        "dekrr_cheb_solve": (lambda: cheb(plans.get("dekrr_cheb_solve")),
+                             cheb_rounds),
         "plans": plans, "clocked": {"dekrr_solve": solve,
-                                    "dekrr_async_solve": async_chain}}
+                                    "dekrr_async_solve": async_chain,
+                                    "dekrr_cheb_solve": cheb}}
 
 
 def chain_phase_splits(launches: dict) -> dict:
@@ -4684,7 +4744,9 @@ def bench_phase(run: dict, a: dict, c: dict, *, fast: bool,
     device = run["packed"].device
     on_card = device.type == "cuda"
     t0 = time.perf_counter()
+    before = route_counts()
     out = dict(dispatch=dispatch_checks(run, a, c, BENCH_ROUNDS))
+    out["dispatch_routes"] = route_counts(before)
     out["smem"] = smem_checks() if on_card else []
     out["over_budget"] = over_budget_check(device.type)
     out["check_us"] = check_cost_us()
@@ -4708,6 +4770,7 @@ def bench_phase(run: dict, a: dict, c: dict, *, fast: bool,
                                                registry=registry),
     }
     ops.reset_launch_counts()
+    before = route_counts()
     results = {}
     with recording(registry):
         for name, fn in suites.items():
@@ -4720,6 +4783,7 @@ def bench_phase(run: dict, a: dict, c: dict, *, fast: bool,
             registry.histogram("bench.suite_seconds").observe(
                 time.perf_counter() - t1)
     out["launches"] = ops.launch_counts()
+    out["routes"] = route_counts(before)
     want = ("dekrr_step", "dekrr_solve", "dekrr_async_solve", "rff_gram",
             "rff_features", "rff_features_lowp")
     if on_card and not all(out["launches"][k] for k in want):
@@ -4752,6 +4816,8 @@ def print_bench_phase(b: dict, card: str) -> None:
               + (f" chunk_rounds={row['chunk']}" if row["chunk"] else "")
               + f": {row['dispatches']} dispatches, {row['launches']} "
               f"launches, contract {row['contract']}")
+    print(f"bench [{card}] (a) chain routes "
+          f"{json.dumps(b['dispatch_routes'])}")
     for row in b["smem"]:
         print(f"bench [{card}] (b) {row['kernel']} "
               f"{json.dumps(row['shape'])}: {row['bytes']} bytes a block "
@@ -4806,7 +4872,8 @@ def print_bench_phase(b: dict, card: str) -> None:
             f"{v['loop_us'] / 1e3:.3f} ms ({v['dispatches_fused']} vs "
             f"{v['dispatches_loop']} dispatches)"
             for k, v in row["backends"].items()))
-    print(f"bench [{card}] launches: {json.dumps(b['launches'])}")
+    print(f"bench [{card}] launches: {json.dumps(b['launches'])}; chain "
+          f"routes {json.dumps(b['routes'])}")
     print(f"bench [{card}] (e) provenance: device_kind "
           f"{b['prov']['device_kind']!r}, power_limit "
           f"{b['prov']['power_limit']!r}, torch {b['prov']['torch_version']}"
@@ -5376,8 +5443,10 @@ def tools_phase(card: str, device: str = "cuda", *,
     probe_json = os.path.join(MESH_OUT, "probe.json")
     probe, out = None, {}
     try:
+        before = route_counts()
         acc, acc_s, acc_launches = _launched(lambda: accel_bench.run(
             fast=fast, device=device, subsample=subsample))
+        out["accel_routes"] = route_counts(before)
         iters = acc["solve_us"]["num_iters"]
         for backend, counts in acc["round_dispatches"].items():
             want = round_dispatches(backend, iters)
@@ -5476,7 +5545,8 @@ def print_tools_phase(t: dict, card: str) -> None:
               ("torch", "cuda", "cuda_fused"))
           + f"; θ max |Δ| vs cuda "
           f"{json.dumps(acc['theta_max_abs_diff_vs_cuda'])}; launches "
-          f"{json.dumps({k: v for k, v in t['accel_launches'].items() if v})}")
+          f"{json.dumps({k: v for k, v in t['accel_launches'].items() if v})}"
+          f"; chain routes {json.dumps(t['accel_routes'])}")
     for r in t["kernel_rows"]:
         timed = ("plain only (CPU)" if r["ms"] is None else
                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -5636,9 +5706,9 @@ def run_on_card() -> int:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import decode_plan
-    from repro_torch.kernels.dekrr_solve import (async_plan,
-                                                 chain_max_clusters,
-                                                 chain_plan, solve_plan)
+    from repro_torch.kernels.dekrr_solve import (async_plan, chain_max_clusters,
+                                                 chain_plan, cheb_plan,
+                                                 solve_plan)
     from repro_torch.kernels.rff_gram import card_plan, gram_plan
     t0 = time.perf_counter()
     reports = _build.build_all()
@@ -5682,7 +5752,10 @@ def run_on_card() -> int:
                                            rounds=CHUNK)),
                 ("dekrr_async_solve", async_plan(
                     nbr, ones, d_feat=D_PER_NODE, dy=1, dtype=torch.float64,
-                    rounds=ASYNC_ROUNDS))):
+                    rounds=ASYNC_ROUNDS)),
+                ("dekrr_cheb_solve", cheb_plan(
+                    nbr, torch.arange(j), ones, d_feat=D_PER_NODE, dy=1,
+                    dtype=torch.float64, rounds=CHUNK))):
             print(f"route plan {src} f64 at J = {j}, K = 4, D = "
                   f"{D_PER_NODE}: {plan.route}, {plan.blocks} blocks of "
                   f"{plan.rows} rows, {plan.clusters} clusters, "
@@ -5748,6 +5821,8 @@ def run_on_card() -> int:
           f"rounds to relative error {CHEB_TOL}: plain {c['plain_rounds']}, "
           f"Chebyshev {c['cheb_rounds']}", flush=True)
     print(f"chebyshev launches: {json.dumps(c_launches)}")
+    print(f"chebyshev path (cuda_fused) routes: "
+          f"{json.dumps(c['fused_routes'])}")
 
     sp = spmd_phase(run, a, device="cuda:0")
     sp_checks = check_spmd_phase(sp, run, a)

@@ -23,6 +23,8 @@ Budget table (bytes a block; one H100, sm_90):
   dekrr_async_solve, as dekrr_solve, resident              C ≤ 8    (C, J)
     resident
   dekrr_cheb_solve   (K+2)·Dy·D·itemsize                    C ≤ 8    (C, ≤ J)
+  dekrr_cheb_solve,  as dekrr_solve, resident, + Dy·rows    C ≤ 8    (C, J)
+    resident           (the block's p rows)
   rff_gram, cluster  (F'·36 + Ω + 2·32·36 + 2·2·32 + H)·it  C ≤ 8    (C·S, groups, B)
   rff_gram, f32      (Z·C·32·(H₃₂+4) + Ωᵀ + 3·32·36          C ≤ 8    (C·S, groups, B),
                          + 3·2·32 + H₃₂)·4                           (reduce, B)
@@ -42,8 +44,8 @@ stages (1 + K) θ blocks and the acc block, each [Dy, D]. The chains'
 resident route (`kernels/dekrr_solve.py::resident_plan`) holds a block's
 rows of S and of the node's L live P blocks in shared memory for the whole
 launch, with the staged θ of the node and its live slots, acc and the
-block's d rows, and the same rows of G in registers; one cluster per
-node, all resident at once. For `rff_gram`
+block's d rows (and on the Chebyshev chain its p rows), and the same rows
+of G in registers; one cluster per node, all resident at once. For `rff_gram`
 (`kernels/rff_gram.py::gram_plan`): F' = F rounded up to 16, H the rank
 rows a block holds, Ω = H·(⌈d/32⌉·32 + 4) with Ω resident, else
 2·H·(32 + 4). Its f32 route (`F32GramPlan`): H₃₂ the rank rows in
@@ -242,13 +244,18 @@ def estimate_dekrr_step(*, j_nodes: int, k_slots: int, d_feat: int,
 def _resident_estimate(kernel: str, j_nodes: int, d_feat: int, dy: int,
                        itemsize: int, blocks: int, rows: int,
                        live: int) -> SmemEstimate:
+    from repro_torch.kernels.dekrr_solve import RESIDENT_ROW_BLOCKS
+
+    held = RESIDENT_ROW_BLOCKS[kernel]
+    times = "" if held == 1 else f"{held}*"
     elems = ((1 + live) * rows * d_feat + (1 + live) * dy * d_feat
-             + dy * d_feat + dy * rows)
+             + dy * d_feat + held * dy * rows)
     return SmemEstimate(
         kernel=kernel,
-        formula="((1+L)*rows*D + (1+L)*Dy*D + Dy*D + Dy*rows)*itemsize",
+        formula=(f"((1+L)*rows*D + (1+L)*Dy*D + Dy*D + {times}Dy*rows)"
+                 f"*itemsize"),
         detail=(f"((1+{live})*{rows}*{d_feat} + (1+{live})*{dy}*{d_feat} + "
-                f"{dy}*{d_feat} + {dy}*{rows})*{itemsize}"),
+                f"{dy}*{d_feat} + {times}{dy}*{rows})*{itemsize}"),
         bytes=elems * itemsize, limit=SMEM_LIMITS[kernel], cluster=blocks,
         grids=((blocks, j_nodes, 1),),
         register_bytes=rows * d_feat * itemsize)
@@ -269,11 +276,13 @@ def _chain_estimate(kernel: str, j_nodes: int, k_slots: int, d_feat: int,
     if plan is not None:
         blocks, rows, live = plan.blocks, plan.rows, plan.live
     else:
-        from repro_torch.kernels.dekrr_solve import resident_shapes
+        from repro_torch.kernels.dekrr_solve import (RESIDENT_ROW_BLOCKS,
+                                                     resident_shapes)
 
         live = k_slots
         shapes = resident_shapes(d_feat, dy, live, itemsize,
-                                 SMEM_LIMITS[kernel])
+                                 SMEM_LIMITS[kernel],
+                                 RESIDENT_ROW_BLOCKS[kernel])
         if not shapes:
             raise SmemBudgetError(
                 f"{kernel}: no resident layout fits D {d_feat}, Dy {dy}, "
@@ -310,12 +319,15 @@ def estimate_dekrr_async_solve(*, j_nodes: int, k_slots: int, d_feat: int,
 
 
 def estimate_dekrr_cheb_solve(*, j_nodes: int, k_slots: int, d_feat: int,
-                              dy: int = 1, itemsize: int = 8
-                              ) -> SmemEstimate:
+                              dy: int = 1, itemsize: int = 8,
+                              route: str = "streamed",
+                              plan=None) -> SmemEstimate:
     """The Chebyshev chain (`csrc/dekrr_cheb_solve.cu`): as
-    `estimate_dekrr_solve`."""
-    return _round_estimate("dekrr_cheb_solve", j_nodes, k_slots, d_feat, dy,
-                           itemsize)
+    `estimate_dekrr_solve`; on the resident route each block also holds
+    its p rows [Dy, rows] for the whole launch. ``plan``
+    (`kernels.dekrr_solve.cheb_plan`) names the route and layout."""
+    return _chain_estimate("dekrr_cheb_solve", j_nodes, k_slots, d_feat,
+                           dy, itemsize, route, plan)
 
 
 def estimate_rff_gram(*, b: int, f: int, dim: int, n: int,
@@ -484,6 +496,7 @@ PATH_SHAPES = (
     ("dekrr_solve", dict(_WAVE, route="resident")),
     ("dekrr_async_solve", dict(_WAVE, route="resident")),
     ("dekrr_cheb_solve", dict(_WAVE)),
+    ("dekrr_cheb_solve", dict(_WAVE, route="resident")),
     ("dekrr_solve", dict(j_nodes=10, k_slots=4, d_feat=32, dy=8)),
     ("rff_gram", dict(b=10, f=200, dim=148, n=3180)),
     ("rff_gram", dict(b=1, f=200, dim=148, n=3180, itemsize=4)),
@@ -540,12 +553,14 @@ def launcher_bytes(kernel: str, shape: dict, sms: int = H100_SMS) -> int:
         lib = _build.library(kernel)
         suffix = "f64" if item == 8 else "f32"
         if shape.get("route") == "resident":
-            from repro_torch.kernels.dekrr_solve import resident_shapes
+            from repro_torch.kernels.dekrr_solve import (RESIDENT_ROW_BLOCKS,
+                                                         resident_shapes)
 
             live = shape["k_slots"]
             dy = shape.get("dy", 1)
             _, rows, _ = resident_shapes(shape["d_feat"], dy, live, item,
-                                         SMEM_LIMITS[kernel])[0]
+                                         SMEM_LIMITS[kernel],
+                                         RESIDENT_ROW_BLOCKS[kernel])[0]
             fn = getattr(lib, f"{kernel}_resident_smem_bytes_{suffix}")
             return fn(live, shape["d_feat"], dy, rows)
         fn = getattr(lib, f"{kernel}_smem_bytes_{suffix}")

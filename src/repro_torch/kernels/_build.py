@@ -92,6 +92,14 @@ SIGNATURES = {
         "dekrr_cheb_solve_max_clusters_f32": [_I] * 4,
         "dekrr_cheb_solve_smem_bytes_f64": [_I] * 3,
         "dekrr_cheb_solve_smem_bytes_f32": [_I] * 3,
+        "dekrr_cheb_solve_clocked_f64": [_P] * 16 + [_I] * 9 + [_P],
+        "dekrr_cheb_solve_resident_f64": [_P] * 18 + [_I] * 9 + [_P],
+        "dekrr_cheb_solve_resident_f32": [_P] * 18 + [_I] * 9 + [_P],
+        "dekrr_cheb_solve_resident_clocked_f64": [_P] * 19 + [_I] * 9 + [_P],
+        "dekrr_cheb_solve_resident_max_clusters_f64": [_I] * 3,
+        "dekrr_cheb_solve_resident_max_clusters_f32": [_I] * 3,
+        "dekrr_cheb_solve_resident_smem_bytes_f64": [_I] * 4,
+        "dekrr_cheb_solve_resident_smem_bytes_f32": [_I] * 4,
     },
     "rff_gram": {
         "rff_gram_f64": [_P] * 9 + [_I] * 4 + [ctypes.c_double]

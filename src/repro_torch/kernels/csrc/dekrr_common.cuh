@@ -27,10 +27,10 @@
 // cluster computes it. `eq19_node_cluster` spreads a node's rows over a
 // thread-block cluster, acc passed between the phases through distributed
 // shared memory; every kernel above runs it (the chains on their streamed
-// route). The synchronous and asynchronous chains' resident route
-// (`Resident`, at the end of this file) forms the same rows in the same
-// order from operands it holds on chip. Masked slots are skipped: their P
-// blocks are zero and are not read.
+// route). The three chains' resident route (`Resident`, at the end of this
+// file) forms the same rows in the same order from operands it holds on
+// chip. Masked slots are skipped: their P blocks are zero and are not
+// read.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -46,7 +46,7 @@ __device__ __forceinline__ unsigned long long global_ns() {
 }
 
 // The chains' phase clock, off: compiles to nothing (every production
-// launch, the round kernel and the Chebyshev chain).
+// launch and the round kernel).
 struct NoClock {
   __device__ void start() const {}
   __device__ void mark(int, int) const {}
@@ -410,6 +410,7 @@ constexpr int kStageUnroll = 4;     // θ loads in flight a thread
 // Shared memory of a resident block, in elements: the S and live P rows
 // [(1 + L), rows, D], the staged θ [(1 + L), Dy, D] (own rows, then the
 // live slots in slot order), acc [Dy, D] and the block's d rows [Dy, rows].
+// The Chebyshev chain adds its p rows [Dy, rows] after the d rows.
 // (kernels/dekrr_solve.py::resident_smem_bytes and
 // repro_torch.analysis.smem compute the same formula.)
 __host__ __device__ inline size_t resident_smem_elems(int L, int D, int Dy,
@@ -537,6 +538,16 @@ __device__ __forceinline__ void lane_dot2(T (&part0)[kDyChunk],
       }
   }
 }
+
+// The value `Resident::out_rows` writes for an out element: the element
+// itself (the synchronous and asynchronous chains). The Chebyshev chain
+// passes its own update (dekrr_cheb_solve.cu).
+struct Identity {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T v, T, int, int) const {
+    return v;
+  }
+};
 
 // One block of a resident node: its rows, its shared-memory layout and its
 // G rows in registers. Warp w forms local rows w and w + warps.
@@ -674,8 +685,11 @@ struct Resident {
 
   // out rows = G acc of this block into out_j (node j's row block), every
   // output column; returns max(local, |out − θ_self|) over what this lane
-  // wrote.
-  __device__ T out_rows(T* out_j, T local) const {
+  // wrote. `epi(v, θ_self, o, lr)` gives the value written for element
+  // (o, a0 + lr) from its sum v, in the lane that formed it (Identity:
+  // v itself).
+  template <typename Epilogue = Identity>
+  __device__ T out_rows(T* out_j, T local, Epilogue epi = Epilogue()) const {
     if (lr0 < 0) return local;
     const bool two = lr1 >= 0;
     for (int o0 = 0; o0 < Dy; o0 += kDyChunk) {
@@ -703,12 +717,14 @@ struct Resident {
         const T v1 = warp_sum(p1[o]);
         if (lane == 0) {
           const size_t at0 = static_cast<size_t>(o0 + o) * D + a0 + lr0;
-          out_j[at0] = v0;
-          local = fmax(local, fabs(v0 - th[at0]));
+          const T w0 = epi(v0, th[at0], o0 + o, lr0);
+          out_j[at0] = w0;
+          local = fmax(local, fabs(w0 - th[at0]));
           if (two) {
             const size_t at1 = static_cast<size_t>(o0 + o) * D + a0 + lr1;
-            out_j[at1] = v1;
-            local = fmax(local, fabs(v1 - th[at1]));
+            const T w1 = epi(v1, th[at1], o0 + o, lr1);
+            out_j[at1] = w1;
+            local = fmax(local, fabs(w1 - th[at1]));
           }
         }
       }
@@ -730,6 +746,85 @@ __device__ __forceinline__ T block_max(T v, T* scratch) {
     v = warp_max(lane < nw ? scratch[lane] : scratch[0]);
   }
   return v;
+}
+
+// R synchronous rounds of a resident node (dekrr_solve.cu's and
+// dekrr_cheb_solve.cu's resident kernels; grid (C, J), cluster dims
+// (C, 1, 1), node j = node.j). Round r waits for round r − 1 of the wait
+// set `wait_j` (W entries, −1 padded) on the progress counters `prog`
+// (zeroed before the launch), stages θ_self and the live slots' rows from
+// table r % 2 (round 0, and a slot whose table row no node owns,
+// nbr_node −1: θ0's row), forms acc, then the out rows through
+// `epi_of(r)` (Resident::out_rows' epilogue) into table (r + 1) % 2, the
+// last round into `out`, and publishes. `tab` holds 2·J·Dy·D elements of
+// node rows. The trace res[r, j] (null: none): each block pushes its max
+// into block rank 0's shared memory (DSMEM) at the end of round r, and
+// rank 0 reads the C partials in rank order after round r + 1's cluster
+// barrier; the last round's after one more barrier, which also keeps each
+// block alive until its peers' pushes into it are done. Max is exact.
+template <typename T, typename Clock, typename EpiOf>
+__device__ __forceinline__ void resident_sync_rounds(
+    cooperative_groups::cluster_group& cluster, Resident<T>& node,
+    const Clock& clock, const int* live_k, const T* __restrict__ theta0,
+    const int* __restrict__ nbr_idx, const int* __restrict__ nbr_node,
+    const int* __restrict__ self_idx, const int* __restrict__ wait_j,
+    int W, unsigned* prog, T* tab, T* __restrict__ out, T* __restrict__ res,
+    int R, int J, int K, EpiOf epi_of) {
+  __shared__ const T* src[kResMaxLive + 1];
+  __shared__ T part[2][kMaxCluster];  // trace partials, by rank
+  __shared__ T scratch[kResThreads / 32];
+  const int j = node.j;
+  const size_t rows = node.rows;
+  const size_t jk = static_cast<size_t>(j) * K;
+  T* const tab1 = tab + static_cast<size_t>(J) * rows;  // table 0 is `tab`
+
+  for (int r = 0; r < R; ++r) {
+    if (r > 0) wait_nodes(wait_j, W, prog, node.C * r);
+    clock.mark(r, 0);
+    const T* rd = r & 1 ? tab1 : tab;
+    if (threadIdx.x <= node.nlive) {
+      const int q = threadIdx.x;
+      int owner = j;
+      size_t row = self_idx[j];
+      if (q > 0) {
+        owner = nbr_node[jk + live_k[q - 1]];
+        row = nbr_idx[jk + live_k[q - 1]];
+      }
+      src[q] = r == 0 || owner < 0 ? theta0 + row * rows
+                                   : rd + static_cast<size_t>(owner) * rows;
+    }
+    __syncthreads();
+    node.stage(src);
+    clock.mark(r, 1);
+    node.acc_rows(cluster);
+    clock.mark_synced(r, 2);
+    cluster.sync();
+    clock.mark(r, 3);
+    if (res != nullptr && r > 0 && node.rank == 0 && threadIdx.x == 0) {
+      T m = part[(r - 1) & 1][0];
+      for (int c = 1; c < node.C; ++c) m = fmax(m, part[(r - 1) & 1][c]);
+      res[static_cast<size_t>(r - 1) * J + j] = m;
+    }
+    T* wr = r == R - 1 ? out : (r & 1 ? tab : tab1);
+    const T local =
+        node.out_rows(wr + static_cast<size_t>(j) * rows, T(0), epi_of(r));
+    clock.mark_synced(r, 4);
+    if (res != nullptr) {
+      const T m = block_max(local, scratch);
+      if (threadIdx.x == 0)
+        *cluster.map_shared_rank(&part[r & 1][node.rank], 0) = m;
+    }
+    publish(prog, j);  // its barrier also ends the round's epilogue writes
+    clock.mark(r, 5);
+  }
+  if (res != nullptr) {
+    cluster.sync();
+    if (node.rank == 0 && threadIdx.x == 0) {
+      T m = part[(R - 1) & 1][0];
+      for (int c = 1; c < node.C; ++c) m = fmax(m, part[(R - 1) & 1][c]);
+      res[static_cast<size_t>(R - 1) * J + j] = m;
+    }
+  }
 }
 
 }  // namespace dekrr

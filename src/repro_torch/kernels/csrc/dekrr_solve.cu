@@ -136,66 +136,16 @@ dekrr_solve_resident_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int live_k[dekrr::kResMaxLive];
   __shared__ int nlive_s;
-  __shared__ const T* src[dekrr::kResMaxLive + 1];
-  __shared__ T part[2][dekrr::kMaxCluster];  // trace partials, by rank
-  __shared__ T scratch[dekrr::kResThreads / 32];
   cg::cluster_group cluster = cg::this_cluster();
   const Clock clock = dekrr::make_clock<Clock>(stamps, R, kResidentPhases);
   clock.start();
   const int j = blockIdx.y;
   dekrr::Resident<T> node(cluster, smem_raw, live_k, &nlive_s, j, g, d, s, p,
                           nbr_mask, K, D, Dy, rows_per_cta, L);
-  const size_t rows = node.rows;
-  const size_t jk = static_cast<size_t>(j) * K;
-  const int* wait_j = waits + static_cast<size_t>(j) * W;
-  T* const tab1 = tab + static_cast<size_t>(J) * rows;  // table 0 is `tab`
-
-  for (int r = 0; r < R; ++r) {
-    if (r > 0) dekrr::wait_nodes(wait_j, W, prog, node.C * r);
-    clock.mark(r, 0);
-    const T* rd = r & 1 ? tab1 : tab;
-    if (threadIdx.x <= node.nlive) {
-      const int q = threadIdx.x;
-      int owner = j;
-      size_t row = self_idx[j];
-      if (q > 0) {
-        owner = nbr_node[jk + live_k[q - 1]];
-        row = nbr_idx[jk + live_k[q - 1]];
-      }
-      src[q] = r == 0 || owner < 0 ? theta0 + row * rows
-                                   : rd + static_cast<size_t>(owner) * rows;
-    }
-    __syncthreads();
-    node.stage(src);
-    clock.mark(r, 1);
-    node.acc_rows(cluster);
-    clock.mark_synced(r, 2);
-    cluster.sync();
-    clock.mark(r, 3);
-    if (res != nullptr && r > 0 && node.rank == 0 && threadIdx.x == 0) {
-      T m = part[(r - 1) & 1][0];
-      for (int c = 1; c < node.C; ++c) m = fmax(m, part[(r - 1) & 1][c]);
-      res[static_cast<size_t>(r - 1) * J + j] = m;
-    }
-    T* wr = r == R - 1 ? out : (r & 1 ? tab : tab1);
-    const T local = node.out_rows(wr + static_cast<size_t>(j) * rows, T(0));
-    clock.mark_synced(r, 4);
-    if (res != nullptr) {
-      const T m = dekrr::block_max(local, scratch);
-      if (threadIdx.x == 0)
-        *cluster.map_shared_rank(&part[r & 1][node.rank], 0) = m;
-    }
-    dekrr::publish(prog, j);
-    clock.mark(r, 5);
-  }
-  if (res != nullptr) {
-    cluster.sync();
-    if (node.rank == 0 && threadIdx.x == 0) {
-      T m = part[(R - 1) & 1][0];
-      for (int c = 1; c < node.C; ++c) m = fmax(m, part[(R - 1) & 1][c]);
-      res[static_cast<size_t>(R - 1) * J + j] = m;
-    }
-  }
+  dekrr::resident_sync_rounds(
+      cluster, node, clock, live_k, theta0, nbr_idx, nbr_node, self_idx,
+      waits + static_cast<size_t>(j) * W, W, prog, tab, out, res, R, J, K,
+      [](int) { return dekrr::Identity(); });
 }
 
 // One thread of each of two blocks (each on its own SM: the launcher gives

@@ -33,11 +33,12 @@ rounds in one launch equal R round launches bit for bit on either route.
 
 The asynchronous-gossip chain (`dekrr_async_solve_*`, replacing
 `dekrr_async_solve_pallas` / `_dekrr_async_solve_kernel`,
-`csrc/dekrr_async_solve.cu`) has the same two routes (`async_plan`). The
-Chebyshev chain (`dekrr_cheb_solve_*`, replacing
-`dekrr_cheb_solve_pallas` / `_dekrr_cheb_solve_kernel`,
-`csrc/dekrr_cheb_solve.cu`) runs the streamed route only. Their raw
-contracts are in the plain versions' docstrings.
+`csrc/dekrr_async_solve.cu`) and the Chebyshev chain
+(`dekrr_cheb_solve_*`, replacing `dekrr_cheb_solve_pallas` /
+`_dekrr_cheb_solve_kernel`, `csrc/dekrr_cheb_solve.cu`) have the same two
+routes (`async_plan`, `cheb_plan`); the Chebyshev chain's resident block
+also holds its node's search-direction rows on chip. Their raw contracts
+are in the plain versions' docstrings.
 """
 from __future__ import annotations
 
@@ -67,10 +68,14 @@ RESIDENT_MAX_LIVE = 16
 RESIDENT_MIN_ROUNDS = 2
 # Threads of a streamed block (csrc/dekrr_common.cuh's kClusterThreads).
 STREAMED_THREADS = 1024
+# [Dy, rows] blocks a resident block holds beside the operands: d's rows,
+# and on the Chebyshev chain also its search direction p's.
+RESIDENT_ROW_BLOCKS = {"dekrr_solve": 1, "dekrr_async_solve": 1,
+                       "dekrr_cheb_solve": 2}
 
 # The phases the `*_clocked` entry points mark, by (kernel, route), in
-# order (csrc/dekrr_solve.cu, csrc/dekrr_async_solve.cu: kStreamedPhases,
-# kResidentPhases).
+# order (csrc/dekrr_solve.cu, csrc/dekrr_async_solve.cu,
+# csrc/dekrr_cheb_solve.cu: kStreamedPhases, kResidentPhases).
 CHAIN_PHASES = {
     ("dekrr_solve", "streamed"): ("stage", "acc", "exchange", "out", "max",
                                   "grid barrier"),
@@ -82,12 +87,17 @@ CHAIN_PHASES = {
     ("dekrr_async_solve", "resident"): ("wait", "delivery", "stage", "acc",
                                         "exchange", "out", "max",
                                         "sent, flags and publish"),
+    ("dekrr_cheb_solve", "streamed"): ("stage", "acc", "exchange", "out",
+                                       "update", "max", "grid barrier"),
+    ("dekrr_cheb_solve", "resident"): ("wait", "stage", "acc", "exchange",
+                                       "out and update", "publish"),
 }
 
-# Launches by route, counted where each route launches (`ROUTE_LAUNCHES`
-# of `solve_plan`'s and `async_plan`'s route names).
+# Launches by route, counted where each route launches (the route names
+# of `solve_plan`'s, `async_plan`'s and `cheb_plan`'s plans).
 ROUTE_LAUNCHES = {(name, route): 0
-                  for name in ("dekrr_solve", "dekrr_async_solve")
+                  for name in ("dekrr_solve", "dekrr_async_solve",
+                               "dekrr_cheb_solve")
                   for route in ("resident", "streamed")}
 
 
@@ -204,17 +214,19 @@ def resident_threads(rows: int) -> int:
 
 
 def resident_smem_bytes(live: int, d_feat: int, dy: int, rows: int,
-                        itemsize: int) -> int:
+                        itemsize: int, row_blocks: int = 1) -> int:
     """Dynamic shared memory of a resident block (csrc/dekrr_common.cuh::
     resident_smem_elems): the S and live P rows [(1 + L), rows, D], the
-    staged θ [(1 + L), Dy, D], acc [Dy, D] and the block's d rows
-    [Dy, rows]."""
+    staged θ [(1 + L), Dy, D], acc [Dy, D] and ``row_blocks`` [Dy, rows]
+    blocks of the block's own rows (`RESIDENT_ROW_BLOCKS`: d's, and the
+    Chebyshev chain's p)."""
     return ((1 + live) * rows * d_feat + (1 + live) * dy * d_feat
-            + dy * d_feat + dy * rows) * itemsize
+            + dy * d_feat + row_blocks * dy * rows) * itemsize
 
 
 def resident_shapes(d_feat: int, dy: int, live: int, itemsize: int,
-                    limit: int) -> list[tuple[int, int, int]]:
+                    limit: int, row_blocks: int = 1
+                    ) -> list[tuple[int, int, int]]:
     """(blocks, rows, shared-memory bytes) of the resident layouts that
     fit ``limit`` bytes a block, most blocks first: at most ROUND_CLUSTER
     blocks a node and RESIDENT_MAX_ROWS rows a block, no block without
@@ -229,7 +241,8 @@ def resident_shapes(d_feat: int, dy: int, live: int, itemsize: int,
             break
         if -(-d_feat // rows) != blocks:
             continue
-        smem = resident_smem_bytes(live, d_feat, dy, rows, itemsize)
+        smem = resident_smem_bytes(live, d_feat, dy, rows, itemsize,
+                                   row_blocks)
         if smem > limit:
             break
         out.append((blocks, rows, smem))
@@ -255,7 +268,7 @@ def wait_sets(slot_nodes) -> tuple[tuple[int, ...], ...]:
 
 def resident_plan(slot_nodes, live, d_feat: int, dy: int, itemsize: int,
                   rounds: int, max_clusters: Callable[[int, int, int], int],
-                  limit: int) -> ChainPlan | str:
+                  limit: int, row_blocks: int = 1) -> ChainPlan | str:
     """The resident route's plan, or why it does not apply.
 
     slot_nodes [J, K]: the node whose rows each slot reads (-1: none, or a
@@ -264,15 +277,16 @@ def resident_plan(slot_nodes, live, d_feat: int, dy: int, itemsize: int,
     number of such clusters the card holds at once (the kernels'
     ``*_resident_max_clusters_*`` exports): every node is one cluster and
     all are resident, so a layout is taken only where it is at least J.
-    Of the layouts that fit (`resident_shapes`) the one with the most
-    blocks a node that the card holds J of."""
+    Of the layouts that fit (`resident_shapes`, ``row_blocks`` as there)
+    the one with the most blocks a node that the card holds J of."""
     live = np.asarray(live, dtype=bool)
     j_nodes = live.shape[0]
     n_live = int(live.sum(axis=1).max(initial=0))
     if rounds < RESIDENT_MIN_ROUNDS:
         return (f"R = {rounds} below {RESIDENT_MIN_ROUNDS}: one round reads "
                 f"every operand once on either route")
-    shapes = resident_shapes(d_feat, dy, n_live, itemsize, limit)
+    shapes = resident_shapes(d_feat, dy, n_live, itemsize, limit,
+                             row_blocks)
     if not shapes:
         return (f"the operands do not fit on chip: D {d_feat} (at most "
                 f"{RESIDENT_LANE_COLS * 32}), {n_live} live slots (at most "
@@ -303,7 +317,7 @@ def chain_route(name: str, slot_nodes, live, k_slots: int, d_feat: int,
         slot_nodes, live, d_feat, dy, item, rounds,
         lambda b, t, m: _resident_max_clusters(name, _suffix(dtype), b, t, m,
                                                device),
-        SMEM_LIMITS[name])
+        SMEM_LIMITS[name], RESIDENT_ROW_BLOCKS[name])
     if isinstance(plan, ChainPlan):
         return plan
     return streamed_plan(name, len(live), k_slots, d_feat, dy, dtype,
@@ -337,16 +351,21 @@ def _host(t) -> np.ndarray:
 
 
 def solve_plan(nbr_idx, self_idx, nbr_mask, *, d_feat: int, dy: int,
-               dtype: torch.dtype, rounds: int) -> ChainPlan:
+               dtype: torch.dtype, rounds: int,
+               name: str = "dekrr_solve") -> ChainPlan:
     """`dekrr_solve`'s plan on the current device from its slot table
     (tensors or arrays: nbr_idx table rows, self_idx, nbr_mask): a live
     slot reads the node that owns its table row, or θ0's row where no node
-    does."""
+    does. ``name`` "dekrr_cheb_solve" (`cheb_plan`) sizes the Chebyshev
+    chain, which reads what this chain reads and writes only its own rows,
+    so its slot nodes and wait sets are these; its resident block also
+    holds its p rows (`RESIDENT_ROW_BLOCKS`)."""
     idx, own = _host(nbr_idx), _host(self_idx)
     live = _host(nbr_mask) != 0
     return _solve_plan(idx.astype(np.int64).tobytes(), idx.shape,
                        own.astype(np.int64).tobytes(), live.tobytes(),
-                       d_feat, dy, dtype, rounds, torch.cuda.current_device())
+                       d_feat, dy, dtype, rounds, torch.cuda.current_device(),
+                       name)
 
 
 def table_slot_nodes(nbr_idx, self_idx, live) -> np.ndarray:
@@ -363,13 +382,18 @@ def table_slot_nodes(nbr_idx, self_idx, live) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _solve_plan(idx, shape, own, live, d_feat, dy, dtype, rounds, device):
+def _solve_plan(idx, shape, own, live, d_feat, dy, dtype, rounds, device,
+                name):
     live = np.frombuffer(live, dtype=bool).reshape(shape)
     nodes = table_slot_nodes(
         np.frombuffer(idx, dtype=np.int64).reshape(shape),
         np.frombuffer(own, dtype=np.int64), live)
-    return chain_route("dekrr_solve", nodes, live, shape[1], d_feat, dy,
-                       dtype, rounds)
+    return chain_route(name, nodes, live, shape[1], d_feat, dy, dtype,
+                       rounds)
+
+
+# `dekrr_cheb_solve`'s plan: `solve_plan` under the Chebyshev chain's name.
+cheb_plan = functools.partial(solve_plan, name="dekrr_cheb_solve")
 
 
 def async_plan(nbr_idx, nbr_mask, *, d_feat: int, dy: int,
@@ -586,22 +610,43 @@ def dekrr_cheb_solve_reference(g, d, s, p, theta, delta, nbr_idx, self_idx,
 
 def dekrr_cheb_solve_cuda(g, d, s, p, theta, delta, nbr_idx, self_idx,
                           nbr_mask, alphas, betas, out_theta, out_p, res,
-                          work, *, dy: int) -> None:
+                          work, *, dy: int, plan: ChainPlan,
+                          stamps=None) -> None:
     """Launch the kernel on checked, contiguous CUDA tensors: out_theta /
-    out_p [J·Dy, D], res [R, J] or None, work 2·[T·Dy, D] scratch; sized
-    by `chain_plan`."""
+    out_p [J·Dy, D], res [R, J] or None, work 2·[T·Dy, D] scratch, on the
+    route of ``plan`` (`cheb_plan`, made beforehand so the launch never
+    waits for the host).
+    ``stamps`` (zeroed int64 [blocks, 1 + R·phases], f64 only) runs the
+    kernel with its phase clock on (`CHAIN_PHASES`)."""
     j_nodes, k_slots, d_feat = p.shape[0], p.shape[1], d.shape[1]
     t_rows = theta.shape[0] // dy
-    plan = chain_plan(j_nodes, d_feat, chain_max_clusters(
-        "dekrr_cheb_solve", k_slots, d_feat, dy, g.dtype))
-    fn = getattr(_build.library("dekrr_cheb_solve"),
-                 f"dekrr_cheb_solve_{_suffix(g.dtype)}")
+    rounds = alphas.shape[0]
+    lib = _build.library("dekrr_cheb_solve")
+    kind = "_clocked" if stamps is not None else ""
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    _build.check(fn(g.data_ptr(), d.data_ptr(), s.data_ptr(), p.data_ptr(),
-                    theta.data_ptr(), delta.data_ptr(), nbr_idx.data_ptr(),
-                    self_idx.data_ptr(), nbr_mask.data_ptr(),
-                    alphas.data_ptr(), betas.data_ptr(),
-                    out_theta.data_ptr(), out_p.data_ptr(), _ptr(res),
-                    work.data_ptr(), alphas.shape[0], j_nodes, k_slots,
-                    d_feat, dy, t_rows, *plan, stream),
-                 "dekrr_cheb_solve launch")
+    head = (g.data_ptr(), d.data_ptr(), s.data_ptr(), p.data_ptr(),
+            theta.data_ptr(), delta.data_ptr())
+    coef = (alphas.data_ptr(), betas.data_ptr())
+    clock = (stamps.data_ptr(),) if stamps is not None else ()
+    if plan.route == "resident":
+        waits, nodes = _plan_tensors(plan, g.device)
+        prog = torch.empty((j_nodes,), dtype=torch.int32, device=g.device)
+        fn = getattr(lib, f"dekrr_cheb_solve_resident{kind}_"
+                     f"{_suffix(g.dtype)}")
+        args = head + (nbr_idx.data_ptr(), nodes.data_ptr(),
+                       self_idx.data_ptr(), nbr_mask.data_ptr(),
+                       waits.data_ptr()) + coef + (
+            prog.data_ptr(), work.data_ptr(), out_theta.data_ptr(),
+            out_p.data_ptr(), _ptr(res)) + clock + (
+            rounds, j_nodes, k_slots, d_feat, dy, waits.shape[1],
+            plan.blocks, plan.rows, plan.live, stream)
+    else:
+        fn = getattr(lib, f"dekrr_cheb_solve{kind}_{_suffix(g.dtype)}")
+        args = head + (nbr_idx.data_ptr(), self_idx.data_ptr(),
+                       nbr_mask.data_ptr()) + coef + (
+            out_theta.data_ptr(), out_p.data_ptr(), _ptr(res),
+            work.data_ptr()) + clock + (
+            rounds, j_nodes, k_slots, d_feat, dy, t_rows, plan.blocks,
+            plan.rows, plan.clusters, stream)
+    _build.check(fn(*args), f"dekrr_cheb_solve launch ({plan.route} route)")
+    ROUTE_LAUNCHES["dekrr_cheb_solve", plan.route] += 1

@@ -49,7 +49,7 @@ import torch
 
 from repro_torch.analysis import smem
 from repro_torch.analysis.smem import check_index_table
-from repro_torch.kernels.dekrr_solve import (async_plan,
+from repro_torch.kernels.dekrr_solve import (async_plan, cheb_plan,
                                              dekrr_async_solve_cuda,
                                              dekrr_async_solve_reference,
                                              dekrr_cheb_solve_cuda,
@@ -798,8 +798,8 @@ def dekrr_cheb_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
                                            self_idx, nbr_mask, kernel=name)
     _check_floats(name, d, delta, alphas, betas)
     _on_cuda(name, d, delta, alphas, betas)
-    _check_dekrr_indices(theta.shape[0], ops[5], ops[6], ops[7],
-                         distinct_self=True)
+    host = _check_dekrr_indices(theta.shape[0], ops[5], ops[6], ops[7],
+                                distinct_self=True)
     if num_rounds == 0:
         out = (theta[self_idx.long()], delta)
         return out + (theta.new_zeros((0, j_nodes)),) if trace else out
@@ -809,12 +809,17 @@ def dekrr_cheb_solve(g: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
         _count_plain(name)
         outs = dekrr_cheb_solve_reference(*raw, dy=dy, trace=trace)
     else:
+        plan = cheb_plan(*host, d_feat=d.shape[1], dy=dy, dtype=d.dtype,
+                         rounds=num_rounds)
+        smem.estimate_dekrr_cheb_solve(
+            j_nodes=j_nodes, k_slots=ops[3].shape[1], d_feat=d.shape[1],
+            dy=dy, itemsize=d.element_size(), plan=plan).check()
         kw = dict(dtype=d.dtype, device=d.device)
         outs = (torch.empty((j_nodes * dy, d.shape[1]), **kw),
                 torch.empty((j_nodes * dy, d.shape[1]), **kw))
         res = torch.empty((num_rounds, j_nodes), **kw) if trace else None
         work = torch.empty((2,) + tuple(ops[4].shape), **kw)
-        dekrr_cheb_solve_cuda(*raw, *outs, res, work, dy=dy)
+        dekrr_cheb_solve_cuda(*raw, *outs, res, work, dy=dy, plan=plan)
         _count(name)
         if trace:
             outs = outs + (res,)

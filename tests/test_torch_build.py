@@ -3,7 +3,9 @@ stand-in compiler: nvcc does not exist on the CPU machine, so a script
 named ``nvcc`` first on PATH takes its place. It logs each call, sleeps,
 then writes its ``-o`` file, so two processes that ask for the same
 libraries at once overlap inside the build."""
+import ctypes
 import os
+import re
 import stat
 import sys
 import textwrap
@@ -75,3 +77,32 @@ def test_a_failed_build_leaves_no_library_or_temporary(standin, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed on csrc/dekrr_step"):
         _build.ensure_built(NAMES, out)
     assert list(out.glob("*.so")) == [] and list(out.glob("*.tmp")) == []
+
+
+_C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "long long": ctypes.c_longlong, "double": ctypes.c_double}
+
+
+def _c_entry_points(name):
+    """{function: [ctypes type of each parameter]} of the ``extern "C"``
+    block of ``csrc/<name>.cu``, read from the source."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    block = src[src.index('extern "C" {'):]
+    out = {}
+    for m in re.finditer(r"^int\s+(\w+)\s*\(([^)]*)\)\s*\{", block, re.M):
+        types = []
+        for param in m.group(2).split(","):
+            words = param.replace("const", "").split()
+            kind = " ".join(words[:-1]) if not words[-1].endswith("*") \
+                else " ".join(words)
+            types.append(_C_TYPES[re.sub(r"\s*\*.*", "*", kind)])
+        out[m.group(1)] = types
+    return out
+
+
+@pytest.mark.parametrize("name", _build.SOURCES)
+def test_signatures_match_the_c_entry_points(name):
+    """`SIGNATURES` names every C entry point of each source with its
+    parameters' types in order: a pointer or the stream passed as a 32-bit
+    int, or a missing argument, would show only on the card."""
+    assert _c_entry_points(name) == _build.SIGNATURES[name]

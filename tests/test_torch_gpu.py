@@ -415,7 +415,8 @@ def test_gpu_chain_refuses_more_clusters_than_the_card_holds(cuda_device,
 
 # CASES plus the paper's D = 200 (clusters of 7), D = 257 at Dy = 3
 # (clusters of 8), and J = 40 at D = 200, past the clusters the card holds
-# at once, so the chain's clusters loop over nodes
+# at once, so the chain's clusters loop over nodes (the last two on the
+# streamed route, the rest resident: `chain_route`)
 CHEB_CASES = CASES + [(3, 2, 200, 1, 0), (2, 1, 257, 3, 0), (40, 4, 200, 1, 0)]
 
 
@@ -425,11 +426,16 @@ CHEB_CASES = CASES + [(3, 2, 200, 1, 0), (2, 1, 257, 3, 0), (40, 4, 200, 1, 0)]
 @pytest.mark.parametrize("j,k,dfeat,dy,extra", CHEB_CASES)
 def test_gpu_cheb_chain_matches_plain(cuda_device, dtype, rtol, j, k, dfeat,
                                       dy, extra):
-    """The Chebyshev-chain kernel against its plain version; chunked
-    launches equal one launch bit for bit, and (T = J) so does the scan
-    of round launches with the update in torch's elementwise operations,
-    the per-round `cuda` backend's `chebyshev_scan`."""
+    """The Chebyshev-chain kernel against its plain version, on the route
+    `chain_route` names; where that is the resident route, the streamed
+    route on the same operands gives the same θ, p and trace bit for bit;
+    chunked launches equal one launch bit for bit, and (T = J) so does the
+    scan of round launches with the update in torch's elementwise
+    operations, the per-round `cuda` backend's `chebyshev_scan`."""
     from repro_torch.core.acceleration import chebyshev_scan
+    from repro_torch.kernels.dekrr_solve import (ROUTE_LAUNCHES, cheb_plan,
+                                                 dekrr_cheb_solve_cuda,
+                                                 streamed_plan)
 
     cpu = [a.to(dtype) if a.is_floating_point() else a for a in to_t(
         dekrr_case(j, k, dfeat, dy, extra, seed=j * 10 + k + dy))]
@@ -441,11 +447,37 @@ def test_gpu_cheb_chain_matches_plain(cuda_device, dtype, rtol, j, k, dfeat,
     cpu = cpu[:5] + [delta] + cpu[5:] + [alphas, betas]
     want = ops.dekrr_cheb_solve(*cpu, trace=True)
     dev = [a.to(cuda_device) for a in cpu]
+    lay = ops._pad_dekrr_operands("t", *dev[:5], *dev[6:9])[2]
+    plan = cheb_plan(lay[5], lay[6], lay[7], d_feat=dfeat, dy=dy,
+                     dtype=dtype, rounds=7)
+    assert plan.route == chain_route(j, dfeat), plan
+    before = ROUTE_LAUNCHES["dekrr_cheb_solve", plan.route]
     got = ops.dekrr_cheb_solve(*dev, trace=True)
     torch.cuda.synchronize()
     for a, w in zip(got, want):
         assert_close(a, w, rtol=rtol)
     assert ops.LAUNCHES["dekrr_cheb_solve"] == 1
+    assert ROUTE_LAUNCHES["dekrr_cheb_solve", plan.route] == before + 1
+    if plan.route == "resident":
+        raw = lay[:5] + (ops._flatten_dy(dev[5]),) + lay[5:] + (
+            dev[9], dev[10])
+        kw = dict(dtype=dtype, device=cuda_device)
+        outs = {}
+        for route_plan in (plan, streamed_plan(
+                "dekrr_cheb_solve", j, lay[3].shape[1], dfeat, dy, dtype)):
+            o = (torch.empty((j * dy, dfeat), **kw),
+                 torch.empty((j * dy, dfeat), **kw),
+                 torch.empty((7, j), **kw))
+            dekrr_cheb_solve_cuda(  # analysis: ignore[R004]
+                *raw, *o, torch.empty((2,) + tuple(lay[4].shape), **kw),
+                dy=dy, plan=route_plan)
+            outs[route_plan.route] = o
+        torch.cuda.synchronize()
+        for a, b in zip(outs["resident"], outs["streamed"]):
+            assert torch.equal(a, b)
+        assert torch.equal(ops._unflatten_dy(outs["resident"][0], dy,
+                                             dev[1].ndim), got[0])
+        assert torch.equal(outs["resident"][2], got[2])
     if extra:                   # a chunk boundary carries only the J rows
         return
     dev[7] = torch.arange(j, dtype=torch.int32, device=cuda_device)

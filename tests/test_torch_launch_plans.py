@@ -4,6 +4,7 @@ route past the clusters' shared memory: passes of problems, N chunks and
 64×64 tiles), the featurize kernel's tiles, the round kernel's rows per
 cluster block, the chain kernels' clusters (`chain_plan`), and the decode
 kernel's chunks, head blocks and workspace (`decode_plan`)."""
+import importlib
 import re
 from pathlib import Path
 
@@ -19,9 +20,12 @@ from repro_torch.kernels.decode_attention import (DECODE_BF16_CHUNK_TILES,
                                                   DECODE_THREADS, decode_plan,
                                                   decode_smem_bytes)
 from repro_torch.kernels.dekrr_solve import (RESIDENT_MAX_ROWS,
+                                             RESIDENT_ROW_BLOCKS,
                                              RESIDENT_ROWS_PER_WARP,
                                              ChainPlan, chain_plan,
-                                             resident_plan, resident_shapes,
+                                             resident_plan,
+                                             resident_smem_bytes,
+                                             resident_shapes,
                                              table_slot_nodes, wait_sets)
 
 from repro_torch.kernels.dekrr_step import (ROUND_CLUSTER, ROUND_WARPS,
@@ -37,6 +41,9 @@ from repro_torch.kernels.rff_gram import (GRAM_COLS, GRAM_F32_MAX_UNITS,
                                           GRAM_SMEM_LIMIT, GRAM_WIDE_TILE,
                                           GRAM_WORKSPACE_CAP, F32GramPlan,
                                           GramPlan, WideGramPlan, gram_plan)
+
+# the module, not `repro_torch.kernels.dekrr_solve` the wrapper
+chains = importlib.import_module("repro_torch.kernels.dekrr_solve")
 
 MAIN_PATH = [(10, 200, 148, 3180), (40, 200, 148, 3180)]
 GRAM_SHAPES = MAIN_PATH + [(3, 70, 13, 300), (2, 200, 148, 21),
@@ -610,9 +617,10 @@ def _circulant(j_nodes, offsets=(1, -1, 2, -2)):
 
 
 def _resident(nodes, live, d_feat, dy=1, item=8, rounds=32,
-              fits=_h100_clusters):
+              fits=_h100_clusters, kernel="dekrr_solve"):
     return resident_plan(nodes, live, d_feat, dy, item, rounds, fits,
-                         smem.SMEM_LIMITS["dekrr_solve"])
+                         smem.SMEM_LIMITS[kernel],
+                         RESIDENT_ROW_BLOCKS[kernel])
 
 
 # (J, D, Dy, itemsize): the paper's shape, its Dy 3, f32, small and ragged D,
@@ -731,15 +739,20 @@ def test_wait_sets_are_in_and_out_neighbours(table, live):
 
 
 @pytest.mark.parametrize("j_nodes,d_feat,dy,item", RESIDENT_SHAPES)
-@pytest.mark.parametrize("kernel", ["dekrr_solve", "dekrr_async_solve"])
+@pytest.mark.parametrize("kernel", ["dekrr_solve", "dekrr_async_solve",
+                                    "dekrr_cheb_solve"])
 def test_resident_plan_bytes_equal_the_smem_estimate(kernel, j_nodes,
                                                      d_feat, dy, item):
     """The plan's shared memory equals `analysis/smem.py`'s estimate of the
     same launch (its own formula), which fits, holds the G rows in
-    registers and, without a plan, names the same first layout."""
+    registers and, without a plan, names the same first layout. The
+    Chebyshev chain's block holds its p rows [Dy, rows] besides."""
     nodes = _circulant(j_nodes) if j_nodes > 1 else np.full((1, 4), -1)
     live = np.ones(nodes.shape, bool)
-    plan = _resident(nodes, live, d_feat, dy, item)
+    plan = _resident(nodes, live, d_feat, dy, item, kernel=kernel)
+    p_rows = dy * plan.rows * item if kernel == "dekrr_cheb_solve" else 0
+    assert plan.smem_bytes == resident_smem_bytes(
+        4, d_feat, dy, plan.rows, item) + p_rows
     est = getattr(smem, f"estimate_{kernel}")(
         j_nodes=j_nodes, k_slots=4, d_feat=d_feat, dy=dy, itemsize=item,
         plan=plan)
@@ -751,6 +764,83 @@ def test_resident_plan_bytes_equal_the_smem_estimate(kernel, j_nodes,
         j_nodes=j_nodes, k_slots=4, d_feat=d_feat, dy=dy, itemsize=item,
         route="resident")
     assert bare.bytes == plan.smem_bytes
+
+
+def _streamed_clusters(blocks, k_slots, d_feat, dy, item):
+    """Clusters of `blocks` streamed chain blocks (1,024 threads,
+    node_smem_elems) an H100 holds at once, on the card's limits alone."""
+    nbytes = (k_slots + 2) * dy * d_feat * item
+    per_sm = min(smem.SMEM_PER_SM // (nbytes + smem.STATIC_SMEM[
+        "dekrr_cheb_solve"] + smem.SMEM_RESERVED_PER_BLOCK), 2048 // 1024)
+    return smem.H100_SMS * per_sm // blocks
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The route plans on the CPU: device 0 and the occupancy queries of
+    an H100 on its limits alone (`_h100_clusters`, `_streamed_clusters`)
+    in place of the kernels' exports."""
+    monkeypatch.setattr(chains.torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(
+        chains, "_resident_max_clusters",
+        lambda name, suffix, blocks, threads, nbytes, device:
+        _h100_clusters(blocks, threads, nbytes))
+    monkeypatch.setattr(
+        chains, "_max_clusters",
+        lambda name, k, d_feat, dy, suffix, blocks, device:
+        _streamed_clusters(blocks, k, d_feat, dy,
+                           8 if suffix == "f64" else 4))
+    chains._solve_plan.cache_clear()
+    yield
+    chains._solve_plan.cache_clear()
+
+
+# (J, K, D, Dy, R, route) of `cheb_plan`: the paper's shape at the
+# Chebyshev path's 96 rounds (8 blocks of 25 rows, 210,000 B a block),
+# the Chebyshev and accel benches' D_j 30, a Dy 3 resident case; launches
+# of one round, J 40 at D 200 and D 257 streamed
+CHEB_ROUTES = [(10, 4, 200, 1, 96, "resident"), (10, 4, 30, 1, 96, "resident"),
+               (10, 4, 200, 3, 7, "resident"), (10, 4, 200, 1, 1, "streamed"),
+               (40, 4, 200, 1, 96, "streamed"),
+               (2, 1, 257, 1, 32, "streamed")]
+
+
+@pytest.mark.parametrize("j_nodes,k,d_feat,dy,rounds,route", CHEB_ROUTES)
+def test_cheb_plan_takes_the_resident_route_where_it_fits(
+        fake_card, j_nodes, k, d_feat, dy, rounds, route):
+    """`cheb_plan` picks the route by the synchronous chain's rule with
+    the p rows in the footprint, and its wait sets and slot nodes are
+    `solve_plan`'s for the same slot table (self_idx a permutation of a
+    table with two rows no node owns, so T > J)."""
+    import torch
+
+    rng = np.random.default_rng(j_nodes + d_feat)
+    self_idx = rng.permutation(j_nodes + 2)[:j_nodes]
+    nbr_idx = self_idx[(np.arange(j_nodes)[:, None] + 1
+                        + np.arange(k)) % j_nodes]
+    if j_nodes > 2:
+        nbr_idx[0, -1] = np.setdiff1d(np.arange(j_nodes + 2), self_idx)[0]
+    mask = np.ones((j_nodes, k))
+    kw = dict(d_feat=d_feat, dy=dy, dtype=torch.float64, rounds=rounds)
+    plan = chains.cheb_plan(nbr_idx, self_idx, mask, **kw)
+    assert plan.route == route, plan
+    if route == "streamed":
+        assert plan.why
+        assert plan.smem_bytes == (k + 2) * dy * d_feat * 8
+        assert (plan.blocks, plan.rows) == chain_plan(j_nodes, d_feat,
+                                                      lambda b: 1)[:2]
+        return
+    sync = chains.solve_plan(nbr_idx, self_idx, mask, **kw)
+    assert sync.route == "resident"
+    assert plan.waits == sync.waits == wait_sets(plan.slot_nodes)
+    assert plan.slot_nodes == sync.slot_nodes
+    assert (plan.blocks, plan.rows, plan.clusters) == (
+        sync.blocks, sync.rows, j_nodes)
+    assert plan.smem_bytes == sync.smem_bytes + dy * plan.rows * 8
+    assert plan.smem_bytes == smem.estimate_dekrr_cheb_solve(
+        j_nodes=j_nodes, k_slots=k, d_feat=d_feat, dy=dy, plan=plan).bytes
+    if (j_nodes, d_feat, dy) == (10, 200, 1):
+        assert (plan.blocks, plan.rows, plan.smem_bytes) == (8, 25, 210_000)
 
 
 # ------------------------------------------------------------------ decode
