@@ -1835,8 +1835,7 @@ def timings(packed, run) -> list[dict]:
     dtype = packed.d.dtype
     rows = []
     # rff_gram: the two launches pack_problem makes (self, then cross)
-    staged = _stage_packed_inputs(run["solver"], packed.device,
-                                  gram_backend="torch")["inputs"]
+    staged = _stage_packed_inputs(run["solver"], packed.device)["inputs"]
     calls = [tuple(t.contiguous() for t in c)
              for c in _gram_kernel_calls(staged)]
 

@@ -22,6 +22,7 @@ from typing import Literal
 import torch
 
 from repro_torch.core.rff import FeatureMap, featurize, sample_rff
+from repro_torch.obs.spans import span
 
 
 def _fold_paired(per_feature: torch.Tensor, fmap: FeatureMap) -> torch.Tensor:
@@ -93,26 +94,27 @@ def select_features(
                              "candidates= applies to scored methods")
         return sample_rff(generator, dim, num_features, sigma, kind=kind,
                           dtype=x.dtype)
-    if candidates is None:
-        cand = sample_rff(generator, dim, candidate_ratio * num_features,
-                          sigma, kind=kind, dtype=x.dtype)
-    else:
-        cand = candidates.to(x.device)
+    with span("ddrf.select"):
+        if candidates is None:
+            cand = sample_rff(generator, dim, candidate_ratio * num_features,
+                              sigma, kind=kind, dtype=x.dtype)
+        else:
+            cand = candidates.to(x.device)
 
-    if method == "energy":
-        if y is None:
-            raise ValueError("energy scoring requires labels y")
-        scores = energy_scores(cand, x, y)
-        idx = torch.argsort(-scores, stable=True)[:num_features]
-    elif method == "leverage":
-        scores = leverage_scores(cand, x, lam=leverage_lam)
-        idx = torch.argsort(-scores, stable=True)[:num_features]
-    elif method == "leverage_resample":
-        scores = leverage_scores(cand, x, lam=leverage_lam)
-        prob = torch.clamp(scores, min=0.0)
-        prob = prob / torch.sum(prob)
-        idx = torch.multinomial(prob, num_features, replacement=False,
-                                generator=generator)
-    else:
-        raise ValueError(f"unknown DDRF method {method!r}")
-    return cand.subset(idx)
+        if method == "energy":
+            if y is None:
+                raise ValueError("energy scoring requires labels y")
+            scores = energy_scores(cand, x, y)
+            idx = torch.argsort(-scores, stable=True)[:num_features]
+        elif method == "leverage":
+            scores = leverage_scores(cand, x, lam=leverage_lam)
+            idx = torch.argsort(-scores, stable=True)[:num_features]
+        elif method == "leverage_resample":
+            scores = leverage_scores(cand, x, lam=leverage_lam)
+            prob = torch.clamp(scores, min=0.0)
+            prob = prob / torch.sum(prob)
+            idx = torch.multinomial(prob, num_features, replacement=False,
+                                    generator=generator)
+        else:
+            raise ValueError(f"unknown DDRF method {method!r}")
+        return cand.subset(idx)

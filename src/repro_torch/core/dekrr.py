@@ -31,6 +31,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.graph import Topology
 from repro_torch.core.rff import FeatureMap, featurize
+from repro_torch.obs.spans import span
 
 
 @dataclasses.dataclass
@@ -351,16 +352,17 @@ class DeKRRSolver:
         """f_j(x) for one node, or the network-average prediction.
 
         Scalar θ [D_j] → [Q]; multi-output θ [D_j, Dy] → [Q, Dy]."""
-        x = x.to(self.device)
         nodes = [node] if node is not None else range(self.J)
-        preds = []
-        for j in nodes:
-            z = featurize(self.feature_maps[j], x)
-            preds.append(theta[j] @ z if theta[j].ndim == 1
-                         else z.T @ theta[j])
-        if node is not None:
-            return preds[0]
-        return torch.mean(torch.stack(preds), dim=0)
+        with span("predict"):
+            x = x.to(self.device)
+            preds = []
+            for j in nodes:
+                z = featurize(self.feature_maps[j], x)
+                preds.append(theta[j] @ z if theta[j].ndim == 1
+                             else z.T @ theta[j])
+            if node is not None:
+                return preds[0]
+            return torch.mean(torch.stack(preds), dim=0)
 
 
 # -- Prop. 1 convergence bound -------------------------------------------------

@@ -209,9 +209,14 @@ def pack_problem(solver, *, method: str = "batched",
         with span("pack_problem", nodes=solver.J, method="aux"):
             return _pack_problem_from_aux(solver, device)
     with span("pack_problem", nodes=solver.J, method="batched"):
-        staged = _stage_packed_inputs(solver, device,
-                                      gram_backend=gram_backend or "cuda")
-        return _finish_packed(staged, _node_aux(**staged["inputs"]))
+        with span("pack.stage"):
+            staged = _stage_packed_inputs(solver, device)
+        inputs = staged["inputs"]
+        if (gram_backend or "cuda") == "cuda" and inputs["kind"] == "cos_bias":
+            inputs.update(_kernel_gram_blocks(inputs))
+        with span("pack.aux"):
+            built = _node_aux(**inputs)
+        return _finish_packed(staged, built)
 
 
 def _pack_problem_from_aux(solver, device) -> PackedProblem:
@@ -296,7 +301,7 @@ def _stage_feature_maps(fmaps, dtype, device) -> dict:
                 node_dims=tuple(int(v) for v in dims))
 
 
-def _stage_packed_inputs(solver, device, *, gram_backend: str) -> dict:
+def _stage_packed_inputs(solver, device) -> dict:
     """Padded [J, …] inputs of the batched Eq. 17 build, with every
     neighbour input gathered per slot ([J, K, …]) so the build itself is
     one batched program over the node axis."""
@@ -340,8 +345,6 @@ def _stage_packed_inputs(solver, device, *, gram_backend: str) -> dict:
         lam_over_j=solver.config.lam / solver.J,
         n_total=float(solver.N), kind=maps["kind"],
     )
-    if gram_backend == "cuda" and maps["kind"] == "cos_bias":
-        inputs.update(_kernel_gram_blocks(inputs))
     return dict(inputs=inputs, node_dims=maps["node_dims"],
                 nbr_idx=nbr_idx, nbr_mask=nbr_mask, offsets=offsets)
 
@@ -377,13 +380,14 @@ def _kernel_gram_blocks(inputs: dict) -> dict:
 
     j_nodes, k_slots = inputs["nbr_mask"].shape
     calls = _gram_kernel_calls(inputs)
-    graw, zyraw = rff_gram_batched(*calls[0])
-    f_max = graw.shape[1]
-    if k_slots == 0:
-        gcross = graw.new_zeros((j_nodes, 0, f_max, f_max))
-    else:
-        gcross = rff_gram_batched(*calls[1])[0].reshape(
-            j_nodes, k_slots, f_max, f_max)
+    with span("pack.gram"):
+        graw, zyraw = rff_gram_batched(*calls[0])
+        f_max = graw.shape[1]
+        if k_slots == 0:
+            gcross = graw.new_zeros((j_nodes, 0, f_max, f_max))
+        else:
+            gcross = rff_gram_batched(*calls[1])[0].reshape(
+                j_nodes, k_slots, f_max, f_max)
     return dict(gram_raw=graw, zy_raw=zyraw, gram_cross_raw=gcross)
 
 
@@ -469,7 +473,8 @@ def _node_aux(omega, bias, x, y, col_mask, feat_mask, feat_idx, scale,
     a = coef * gram_jj
     a = a + lam_over_j * torch.diag_embed(feat_mask)
     a = a + torch.einsum("jk,jkab->jab", nbr_mask * ct_nei_n, gram_cross)
-    g = _gauss_jordan_inv(a + torch.diag_embed(1.0 - feat_mask))
+    with span("pack.inverse"):
+        g = _gauss_jordan_inv(a + torch.diag_embed(1.0 - feat_mask))
     g = g * fouter
 
     s = 2.0 * ct_self[:, None, None] * gram_jj
@@ -698,16 +703,20 @@ def solve_batched(packed: PackedProblem, num_iters: int,
     residuals = theta.new_zeros((num_iters,)) if return_trace else None
 
     rounds = 0
-    while rounds < num_iters:
-        n = min(chunk, num_iters - rounds)
-        new, res = _run_rounds(packed, theta, n, backend, return_trace)
-        if return_trace:
-            residuals[rounds:rounds + n] = res
-        converged = tol > 0 and float(torch.max(torch.abs(new - theta))) < tol
-        theta = new
-        rounds += n
-        if converged:
-            break
+    with span("solve"):
+        while rounds < num_iters:
+            n = min(chunk, num_iters - rounds)
+            new, res = _run_rounds(packed, theta, n, backend, return_trace)
+            if return_trace:
+                residuals[rounds:rounds + n] = res
+            converged = False
+            if tol > 0:
+                with span("solve.tol_read"):     # the host waits on the chain
+                    converged = float(torch.max(torch.abs(new - theta))) < tol
+            theta = new
+            rounds += n
+            if converged:
+                break
 
     out = (theta,)
     if return_rounds:

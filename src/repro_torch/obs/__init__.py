@@ -10,9 +10,11 @@ The port's counterpart of the reference's `repro.obs`:
             adds active / broadcasts / deliveries / bytes per round.
 
     HOST SIDE (stdlib clocks, injectable — rule R006)
-      pack_problem · stream ingest/refresh/publish · serve waves ·
-      bench suites
-        └─▶ spans (repro_torch.obs.spans)
+      the fit: ddrf.select · pack_problem (pack.stage, pack.gram,
+      pack.aux ▸ pack.inverse) · solve (solve.tol_read) · predict;
+      stream ingest/refresh/publish · serve waves · bench suites
+        └─▶ spans (repro_torch.obs.spans), with ids and parents, on
+            `trace_clock` — the profiler's clock
       counters / gauges / histograms / LatencyRecorder
         └─▶ Registry (repro_torch.obs.metrics)
 
@@ -26,26 +28,29 @@ The port's counterpart of the reference's `repro.obs`:
                    provenance block) ──▶ `python -m repro_torch.obs`
                    report (convergence table, comm frontier, span
                    waterfall, serve percentiles)
-               ──▶ Prometheus text exposition (metrics only)
       provenance() / stamp_provenance() — git sha, torch and CUDA
       versions, the card's name and power limit, the plain flag, stamped
       by `python -m repro_torch.bench.run` into what it writes.
 
-`metrics`, `spans` and `trace` are the port's own copies of the
-reference's modules. The reference's `count_pallas_dispatches` (a jaxpr
-walk) has no counterpart: PyTorch has no traced program to walk.
+`metrics` and `trace` are the port's own copies of the reference's
+modules; `spans` adds span ids and the profiler's clock. The
+reference's `count_pallas_dispatches` (a jaxpr walk) has no
+counterpart: PyTorch has no traced program to walk.
 """
 from repro_torch.obs import export, spans
 from repro_torch.obs.dispatch import dispatch_count, round_dispatches
 from repro_torch.obs.metrics import (Counter, FakeClock, Gauge, Histogram,
                                      LatencyRecorder, LatencyReport,
-                                     Registry, perf_clock, wall_clock)
-from repro_torch.obs.spans import (Span, SpanRecorder, install, recording,
-                                   span, uninstall)
+                                     Registry, perf_clock, trace_clock,
+                                     wall_clock)
+from repro_torch.obs.spans import (Span, SpanRecorder, install,
+                                   last_recording, recording, span,
+                                   uninstall)
 from repro_torch.obs.trace import AsyncSolveTrace, SolveTrace
 
 __all__ = ["AsyncSolveTrace", "Counter", "FakeClock", "Gauge", "Histogram",
            "LatencyRecorder", "LatencyReport", "Registry", "SolveTrace",
            "Span", "SpanRecorder", "dispatch_count", "export", "install",
-           "perf_clock", "recording", "round_dispatches", "span", "spans",
-           "uninstall", "wall_clock"]
+           "last_recording", "perf_clock", "recording",
+           "round_dispatches", "span", "spans", "trace_clock", "uninstall",
+           "wall_clock"]

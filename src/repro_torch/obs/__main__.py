@@ -102,6 +102,10 @@ def render_comm_frontier(records: list[dict]) -> list[str]:
 
 
 def render_spans(records: list[dict]) -> list[str]:
+    """One bar a span, in start order; a run of spans of one name at one
+    depth (a fit's ten DDRF selections, a solve's tol reads) is one bar
+    from the first's start to the last's end, named ``name ×n``, beside
+    their summed duration."""
     spans = [r for r in records if r.get("kind") == "span"]
     if not spans:
         return []
@@ -109,15 +113,26 @@ def render_spans(records: list[dict]) -> list[str]:
     t0 = min(float(s["t_start"]) for s in spans)
     t1 = max(float(s["t_end"]) for s in spans)
     total = max(t1 - t0, 1e-12)
-    out = [_section("span waterfall"), f"  total {total:.4f}s"]
+    runs: list[list[dict]] = []
     for s in spans:
-        start, end = float(s["t_start"]) - t0, float(s["t_end"]) - t0
+        key = (s["name"], int(s.get("depth", 0)))
+        if runs and (runs[-1][0]["name"], int(runs[-1][0].get("depth", 0))) \
+                == key:
+            runs[-1].append(s)
+        else:
+            runs.append([s])
+    out = [_section("span waterfall"), f"  total {total:.4f}s"]
+    for run in runs:
+        start = float(run[0]["t_start"]) - t0
+        end = max(float(s["t_end"]) for s in run) - t0
         lo = int(_BAR_WIDTH * start / total)
         hi = max(lo + 1, int(_BAR_WIDTH * end / total))
         bar = " " * lo + "#" * (min(hi, _BAR_WIDTH) - lo)
-        name = "  " * int(s.get("depth", 0)) + str(s["name"])
+        name = "  " * int(run[0].get("depth", 0)) + str(run[0]["name"]) \
+            + (f" ×{len(run)}" if len(run) > 1 else "")
+        busy = sum(float(s["t_end"]) - float(s["t_start"]) for s in run)
         out.append(f"  {name:<28.28} |{bar:<{_BAR_WIDTH}}| "
-                   f"{end - start:>9.4f}s")
+                   f"{busy:>9.4f}s")
     return out
 
 

@@ -1,8 +1,7 @@
-"""Exporters: JSONL and Prometheus text exposition from one `Registry`,
-plus run provenance.
+"""Exporters: JSONL from one `Registry`, plus run provenance.
 
 The port's counterpart of the reference's `repro.obs.export`; for the
-same registry contents both write the same text. JSONL schema (one JSON
+same registry contents both write the same JSONL. Its schema (one JSON
 object per line, `kind` discriminated):
 
   {"kind": "provenance", "git_sha": ..., "torch_version": ...,
@@ -21,16 +20,11 @@ renders specially: ``trace`` (convergence curve — fields `label`,
 `residuals`, optionally `bytes`/`broadcasts`/`deliveries`/`active` from an
 async trace) and ``latency`` (serve percentiles — fields `label` plus the
 `LatencyReport` numbers). Everything else renders generically.
-
-The Prometheus exposition is the text format (counters/gauges as-is,
-histograms as summaries with p50/p99 quantiles); names are sanitized to
-the Prometheus charset.
 """
 from __future__ import annotations
 
 import json
 import os
-import re
 import subprocess
 from typing import Any
 
@@ -43,12 +37,9 @@ __all__ = [
     "registry_lines",
     "stamp_provenance",
     "to_jsonl",
-    "to_prometheus",
     "trace_event",
     "write_jsonl",
 ]
-
-_PROM_NAME = re.compile(r"[^a-zA-Z0-9_:]")
 
 
 def _power_limit() -> str | None:
@@ -170,34 +161,6 @@ def write_jsonl(registry: Registry, path: str,
     with open(path, "w") as f:
         f.write(to_jsonl(registry, prov))
     return path
-
-
-def _prom_name(name: str) -> str:
-    return _PROM_NAME.sub("_", name)
-
-
-def to_prometheus(registry: Registry) -> str:
-    """Prometheus text exposition of the registry's metrics (spans and
-    events are JSONL-only — they are traces, not time series)."""
-    out: list[str] = []
-    for name, m in sorted(registry.metrics.items()):
-        pname = _prom_name(name)
-        if m.help:
-            out.append(f"# HELP {pname} {m.help}")
-        if isinstance(m, Counter):
-            out.append(f"# TYPE {pname} counter")
-            out.append(f"{pname} {m.value:.17g}")
-        elif isinstance(m, Gauge):
-            out.append(f"# TYPE {pname} gauge")
-            out.append(f"{pname} {m.value:.17g}")
-        elif isinstance(m, Histogram):
-            s = m.summary()
-            out.append(f"# TYPE {pname} summary")
-            out.append(f'{pname}{{quantile="0.5"}} {s["p50"]:.17g}')
-            out.append(f'{pname}{{quantile="0.99"}} {s["p99"]:.17g}')
-            out.append(f"{pname}_sum {s['sum']:.17g}")
-            out.append(f"{pname}_count {s['count']}")
-    return "\n".join(out) + ("\n" if out else "")
 
 
 def stamp_provenance(path: str,

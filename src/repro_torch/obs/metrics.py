@@ -4,9 +4,9 @@ The port's own copy of the reference's `repro.obs.metrics` (stdlib and
 numpy only; the port imports nothing of the reference package).
 
 Clock policy: host-side timing in the port goes through the clocks
-defined here (`perf_clock`, `wall_clock`, or an injected callable
-defaulting to them), so every latency number is faked the same way in
-tests (`FakeClock`).
+defined here (`perf_clock`, `wall_clock`, `trace_clock`, or an injected
+callable defaulting to them), so every latency number is faked the same
+way in tests (`FakeClock`).
 
 `LatencyRecorder` / `LatencyReport` are generic per-request latency
 accounting; `repro_torch.serve.admission` re-exports them.
@@ -33,13 +33,21 @@ __all__ = [
     "LatencyReport",
     "Registry",
     "perf_clock",
+    "trace_clock",
     "wall_clock",
 ]
 
 # The only raw-clock references of the port: monotonic for durations,
-# wall for provenance timestamps.
+# wall for provenance timestamps, and the profiler's clock for spans.
 perf_clock: Callable[[], float] = time.perf_counter
 wall_clock: Callable[[], float] = time.time
+
+
+def trace_clock() -> float:
+    """Seconds on the Unix epoch from `time.time_ns`: the clock that
+    `torch.profiler` converts its host and CUDA timestamps to, so a span
+    read on it lies on the profiler's device timeline."""
+    return time.time_ns() * 1e-9
 
 
 class FakeClock:

@@ -1,9 +1,13 @@
 """The port's telemetry (`repro_torch.obs`: dispatch counts, exporters,
-the report CLI, provenance) held against the reference's `repro.obs` on
-the same inputs: dispatch counts per backend pair, JSONL and Prometheus
-text byte for byte from identically filled registries, and the report of
-a reference-written JSONL, provenance excepted."""
+the report CLI, provenance, spans) held against the reference's
+`repro.obs` on the same inputs: dispatch counts per backend pair, JSONL
+byte for byte from identically filled registries, and the report of a
+reference-written JSONL, provenance excepted. The port's own span
+features (the fit's span tree, ids, the no-op path and the profiler's
+clock) are held to what they promise."""
 import json
+import math
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -167,12 +171,6 @@ def test_to_jsonl_equals_reference():
         == ref_export.to_jsonl(_ref_registry())
 
 
-def test_to_prometheus_equals_reference():
-    text = port_export.to_prometheus(_port_registry())
-    assert text == ref_export.to_prometheus(_ref_registry())
-    assert '# TYPE queue_depth_now gauge' in text
-
-
 def test_write_jsonl_and_registry_lines(tmp_path):
     prov = {"git_sha": None, "t_wall": 0.0}
     path = port_export.write_jsonl(_port_registry(), str(tmp_path / "r.jsonl"),
@@ -251,3 +249,249 @@ def test_stamp_provenance(tmp_path):
                                            "provenance": prov}
     assert json.loads(seq.read_text()) == {"provenance": prov,
                                            "results": [1, 2]}
+
+
+# --------------------------------------------------------------------------
+# Spans: the fit's span tree, ids, the off path, the clock
+# --------------------------------------------------------------------------
+FIT_DIMS = (6, 7, 8, 6, 5)
+
+
+def _tiny_fit(tol=1e-10, chunk=32):
+    """One fit of the timed path on the CPU: energy DDRF a node, the
+    batched pack, the fused solve to tol, every node's predictions."""
+    from repro_torch.core import (DeKRRConfig, DeKRRSolver, circulant,
+                                  select_features)
+    from repro_torch.data.synthetic import (make_dataset, partition,
+                                            train_test_split_nodes)
+    from repro_torch.dist import pack_problem, unpack_theta
+
+    ds = make_dataset("air_quality", seed=0, subsample=200)
+    train, test = train_test_split_nodes(
+        partition(ds, len(FIT_DIMS), mode="noniid_y", device="cpu"))
+    gen = torch.Generator().manual_seed(3)
+    fmaps = [select_features(gen, ds.dim, dj, 1.0, nd.x, nd.y)
+             for dj, nd in zip(FIT_DIMS, train)]
+    n = sum(nd.num_samples for nd in train)
+    solver = DeKRRSolver(circulant(len(FIT_DIMS), (1, 2)), fmaps, train,
+                         DeKRRConfig(lam=1e-4, c_nei=0.05 * n),
+                         build_aux=False, device="cpu")
+    packed = pack_problem(solver, gram_backend="cuda", device="cpu")
+    theta, rounds = solve_batched(packed, 3000, backend="cuda_fused",
+                                  tol=tol, chunk_rounds=chunk,
+                                  return_rounds=True)
+    th = unpack_theta(packed, theta)
+    preds = [solver.predict(th, nd.x, node=j) for j, nd in enumerate(test)]
+    return dict(theta=theta, rounds=rounds, preds=preds)
+
+
+def test_fit_records_the_span_tree():
+    """Every span of a fit, in the order they open, with its parent
+    resolved by id: DDRF a node, the pack's four steps, the solve's tol
+    reads, the predictions."""
+    with port_spans.recording() as rec:
+        out = _tiny_fit()
+    reads = math.ceil(out["rounds"] / 32)
+    spans = sorted(rec.spans, key=lambda sp: sp.span_id)
+    assert [sp.span_id for sp in spans] == list(range(1, len(spans) + 1))
+    by_id = {sp.span_id: sp for sp in spans}
+    tree = [(sp.name, by_id[sp.parent_id].name if sp.parent_id else None,
+             sp.depth) for sp in spans]
+    j = len(FIT_DIMS)
+    assert tree == ([("ddrf.select", None, 0)] * j
+                    + [("pack_problem", None, 0),
+                       ("pack.stage", "pack_problem", 1),
+                       ("pack.gram", "pack_problem", 1),
+                       ("pack.aux", "pack_problem", 1),
+                       ("pack.inverse", "pack.aux", 2),
+                       ("solve", None, 0)]
+                    + [("solve.tol_read", "solve", 1)] * reads
+                    + [("predict", None, 0)] * j)
+    for sp in spans:
+        if sp.parent_id:
+            parent = by_id[sp.parent_id]
+            assert sp.parent == parent.name
+            assert parent.t_start <= sp.t_start <= sp.t_end <= parent.t_end
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 32])
+def test_fit_span_counts(chunk):
+    """A fit's spans carry no attrs but `pack_problem`'s, and its solve
+    reads the host once a chunk: as many `solve.tol_read` spans as
+    chunks of the rounds `solve_batched` returns."""
+    with port_spans.recording() as rec:
+        out = _tiny_fit(chunk=chunk)
+    got = {}
+    for sp in rec.spans:
+        got.setdefault(sp.name, []).append(sp.attrs)
+    j = len(FIT_DIMS)
+    assert got.pop("pack_problem") == [dict(nodes=j, method="batched")]
+    assert all(attrs == {} for runs in got.values() for attrs in runs)
+    assert len(got["ddrf.select"]) == len(got["predict"]) == j
+    reads = math.ceil(out["rounds"] / chunk)
+    assert len(got["solve.tol_read"]) == reads
+
+
+def test_solve_without_tol_reads_nothing():
+    with port_spans.recording() as rec:
+        out = _tiny_fit(tol=0.0, chunk=1000)
+    assert [sp.name for sp in rec.spans if sp.name.startswith("solve")] \
+        == ["solve"]
+    assert out["rounds"] == 3000
+
+
+def test_fit_without_recorder_records_nothing_and_keeps_the_bits():
+    idle = port_spans.SpanRecorder()
+    assert port_spans._installed is None
+    plain = _tiny_fit()
+    with port_spans.recording() as rec:
+        traced = _tiny_fit()
+    assert idle.spans == [] and rec.spans
+    assert plain["rounds"] == traced["rounds"]
+    assert torch.equal(plain["theta"], traced["theta"])
+    assert all(torch.equal(a, b)
+               for a, b in zip(plain["preds"], traced["preds"]))
+
+
+def test_span_off_returns_one_shared_object():
+    off = port_spans.span("a")
+    assert port_spans.span("b", n=3) is off is port_spans.span("a")
+    with off:
+        with port_spans.span("nested"):
+            pass
+    with port_spans.recording() as rec:
+        on = port_spans.span("a")
+        assert on is not off
+        with on:
+            pass
+    assert [sp.name for sp in rec.spans] == ["a"]
+    assert port_spans.span("a") is off
+
+
+def test_span_ids_follow_each_threads_own_stack():
+    """Ids count up across threads in the order spans open; a span's
+    parent is the innermost open span of its own thread."""
+    with port_spans.recording() as rec:
+        with port_spans.span("outer", kind="x"):
+            with port_spans.span("inner"):
+                pass
+
+            def other():
+                with port_spans.span("other"):
+                    with port_spans.span("other.child"):
+                        pass
+
+            worker = threading.Thread(target=other, name="worker")
+            worker.start()
+            worker.join(timeout=10)
+    assert not worker.is_alive()
+    got = {sp.name: (sp.span_id, sp.parent_id, sp.depth, sp.thread)
+           for sp in rec.spans}
+    assert got == {"outer": (1, None, 0, "MainThread"),
+                   "inner": (2, 1, 1, "MainThread"),
+                   "other": (3, None, 0, "worker"),
+                   "other.child": (4, 3, 1, "worker")}
+    assert [sp.attrs for sp in rec.spans if sp.name == "outer"] \
+        == [dict(kind="x")]
+
+
+def test_span_is_recorded_when_its_body_raises():
+    """A body that raises still closes its span, and the stack unwinds:
+    the next span is top-level again."""
+    clock = port_metrics.FakeClock(5.0)
+    with port_spans.recording(clock=clock) as rec:
+        with pytest.raises(ValueError):
+            with port_spans.span("outer"):
+                with port_spans.span("failing"):
+                    clock.advance(0.5)
+                    raise ValueError("no")
+        with port_spans.span("after"):
+            pass
+    assert [(sp.name, sp.depth, sp.parent_id, sp.duration)
+            for sp in rec.spans] == [("failing", 1, 1, 0.5),
+                                     ("outer", 0, None, 0.5),
+                                     ("after", 0, None, 0.0)]
+
+
+def test_span_lies_inside_its_profiler_label():
+    """A span opened inside a `record_function` label lies within the
+    label's edges on the profiler's timeline (± 50 µs): the two share a
+    clock."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with port_spans.recording() as rec:
+            for _ in range(20):
+                with torch.profiler.record_function("label"):
+                    with port_spans.span("inner"):
+                        torch.ones(64).sum()
+    labels = sorted((ev.start_ns(), ev.start_ns() + ev.duration_ns())
+                    for ev in prof.profiler.kineto_results.events()
+                    if ev.name() == "label")
+    spans = sorted(rec.spans, key=lambda sp: sp.t_start)
+    assert len(labels) == len(spans) == 20
+    slack = 50e3
+    for (a, b), sp in zip(labels, spans):
+        assert a - slack <= sp.t_start * 1e9 <= sp.t_end * 1e9 <= b + slack
+
+
+def test_trace_clock_is_the_default_clock():
+    assert port_spans.SpanRecorder().clock is port_metrics.trace_clock
+    with port_spans.recording() as rec:
+        assert rec.clock is port_metrics.trace_clock
+    now = port_metrics.trace_clock()
+    assert abs(now - port_metrics.wall_clock()) < 1.0
+
+
+def test_fake_clock_injection():
+    clock = port_metrics.FakeClock(10.0)
+    reg = port_metrics.Registry(clock=clock)
+    with port_spans.recording(reg, clock=clock) as rec:
+        with port_spans.span("outer"):
+            clock.advance(0.5)
+            with port_spans.span("inner", n=1):
+                clock.advance(0.25)
+    assert [(sp.name, sp.t_start, sp.t_end, sp.duration)
+            for sp in rec.spans] == [("inner", 10.5, 10.75, 0.25),
+                                     ("outer", 10.0, 10.75, 0.75)]
+    assert reg.spans == rec.spans
+    own = port_spans.SpanRecorder(clock=clock)
+    with own.span("direct"):
+        clock.advance(1.0)
+    assert (own.spans[0].t_start, own.spans[0].t_end) == (10.75, 11.75)
+
+
+def test_last_recording_is_the_last_scope_to_close():
+    with port_spans.recording() as outer:
+        with port_spans.recording() as inner:
+            with port_spans.span("in"):
+                pass
+        assert port_spans.last_recording() is inner
+        with port_spans.span("out"):
+            pass
+    assert port_spans.last_recording() is outer
+    assert [sp.name for sp in inner.spans] == ["in"]
+    assert [sp.name for sp in outer.spans] == ["out"]
+    assert port_spans._installed is None
+
+
+def test_report_collapses_runs_of_repeated_spans():
+    """A fit's ten DDRF spans render as one bar with their count and
+    summed time; spans of other names or depths keep their own bars."""
+    clock = port_metrics.FakeClock()
+    reg = port_metrics.Registry(clock=clock)
+    with port_spans.recording(reg, clock=clock):
+        with port_spans.span("fit"):
+            for _ in range(10):
+                with port_spans.span("ddrf.select"):
+                    clock.advance(0.5)
+            with port_spans.span("solve"):
+                clock.advance(1.0)
+            with port_spans.span("ddrf.select"):
+                clock.advance(0.25)
+    lines = port_report.render_spans(port_export.registry_lines(reg))
+    names = [line[2:30].rstrip() for line in lines[2:]]
+    assert names == ["fit", "  ddrf.select ×10", "  solve",
+                     "  ddrf.select"]
+    assert lines[1] == "  total 6.2500s"
+    assert [line.split("|")[-1].strip() for line in lines[2:]] == [
+        "6.2500s", "5.0000s", "1.0000s", "0.2500s"]

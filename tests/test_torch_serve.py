@@ -260,7 +260,8 @@ def test_snapshot_from_arrays_carries_the_reference_snapshot():
 
 def test_obs_copies_match_reference():
     """The port's metric copies report what the reference's report on the
-    same samples."""
+    same samples, and export the reference's names and the port's
+    `trace_clock` (the profiler's clock, which spans read)."""
     lat = [(0.0, 1.0), (0.5, 1.0), (1.0, 9.0), (2.0, 2.5)]
     got, want = metrics.LatencyRecorder(), ref_metrics.LatencyRecorder()
     hist, ref_hist = metrics.Histogram("h"), ref_metrics.Histogram("h")
@@ -272,7 +273,8 @@ def test_obs_copies_match_reference():
     assert dataclasses.astuple(got.report()) == \
         dataclasses.astuple(want.report())
     assert hist.summary() == ref_hist.summary()
-    assert sorted(metrics.__all__) == sorted(ref_metrics.__all__)
+    assert sorted(metrics.__all__) == sorted(ref_metrics.__all__
+                                             + ["trace_clock"])
 
 
 def test_spans_nest_per_thread_and_record_into_a_registry():

@@ -663,8 +663,11 @@ def test_stream_events_emit_spans():
         pr.refresh(2, num_features=6)
         pr.solve(rounds=5, tol=0.0)
         reg.publish_from(pr)
-    names = [s.name for s in rec.spans]
-    assert names == ["stream.ingest", "stream.refresh", "stream.publish"]
+    names = [(s.name, s.parent) for s in rec.spans]
+    assert names == [("stream.ingest", None),
+                     ("ddrf.select", "stream.refresh"),
+                     ("stream.refresh", None), ("solve", None),
+                     ("stream.publish", None)]
     assert rec.spans[0].attrs == {"node": 1, "batch": 4}
 
 
